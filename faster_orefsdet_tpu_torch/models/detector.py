@@ -1,0 +1,137 @@
+"""CenterNet2Detector: the few-shot ore detector as one nn.Module whose
+phases are methods (counterpart of ``faster_orefsdet_tpu/models/detector.py``):
+
+  features          backbone + FPN
+  refine_support    adaptive pool -> SM block -> spatial transpose quirk
+  correlate         CGM correlation + conv3 fusion (the CGM kernel)
+  proposal_head     CenterNet head
+  roi_stage         DSA cascade stage
+
+Feature maps are logical NCHW. On the card they are kept channels-last in
+memory, so the CGM kernel reads each level as [B, H, W, C] without a copy.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..config import Config
+from ..ops.adaptive_pool import adaptive_avg_pool2d
+from ..ops.cgm_cuda import cgm_correlate_fused
+from .cascade_roi import DSACascadeHead, StageOutput
+from .centernet_head import CenterNetHead
+from .fpn import FPN
+from .sm_block import SMBlock
+from .vovnet import VoVNet
+
+# per-level SM pool size == seg_dim: p3 -> 32, p4 -> 16, p5 -> 8
+SM_POOL_SIZES = {"p3": 32, "p4": 16, "p5": 8}
+
+Kernels = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def support_kernels(mean_map: torch.Tensor) -> Kernels:
+    """Pool a (shot-mean, spatially transposed) support map [S, S, C] into the
+    three CGM kernels: k1 [C], k13 [3, C] (W taps), k31 [3, C] (H taps), f32."""
+    m = mean_map.float().permute(2, 0, 1)  # [C, S0, S1], S0 the map's first axis
+    k1 = adaptive_avg_pool2d(m, (1, 1))[:, 0, 0].contiguous()
+    k13 = adaptive_avg_pool2d(m, (1, 3))[:, 0, :].t().contiguous()
+    k31 = adaptive_avg_pool2d(m, (3, 1))[:, :, 0].t().contiguous()
+    return k1, k13, k31
+
+
+def compute_dtype(cfg: Config) -> Optional[torch.dtype]:
+    """torch dtype of cfg.compute_dtype, None for float32 (promotion rules)."""
+    if cfg.compute_dtype in (None, "", "float32"):
+        return None
+    return getattr(torch, cfg.compute_dtype)
+
+
+class CenterNet2Detector(nn.Module):
+    def __init__(self, cfg: Config):
+        super().__init__()
+        if cfg.backbone_name != "vovnet_fpn":
+            raise ValueError(f"backbone_name {cfg.backbone_name!r}: the port has 'vovnet_fpn'")
+        if cfg.quantize != "none":
+            raise ValueError(f"quantize {cfg.quantize!r}: the port has the float path only")
+        if cfg.fpn.top_levels != 0:
+            raise ValueError("fpn.top_levels must be 0 (P3-P5)")
+        self.cfg = cfg
+        self.dtype = compute_dtype(cfg)
+        c = cfg.fpn.out_channels
+        self.backbone = VoVNet(cfg.vovnet.conv_body, cfg.vovnet.out_features, dtype=self.dtype)
+        chans = VoVNet.out_channels(cfg.vovnet.conv_body)
+        self.fpn = FPN([chans[f] for f in cfg.fpn.in_features], cfg.fpn.in_features, c,
+                       cfg.fpn.fuse_type, dtype=self.dtype)
+        self.vip_p3 = SMBlock(c, SM_POOL_SIZES["p3"])
+        self.vip_p4 = SMBlock(c, SM_POOL_SIZES["p4"])
+        self.vip_p5 = SMBlock(c, SM_POOL_SIZES["p5"])
+        self.cgm_conv3 = nn.Linear(2 * c, c)
+        self.head = CenterNetHead(
+            in_channels=c, num_levels=len(cfg.centernet.in_features),
+            num_box_convs=cfg.centernet.num_box_convs,
+            num_share_convs=cfg.centernet.num_share_convs,
+            with_agn_hm=cfg.centernet.with_agn_hm, only_proposal=cfg.centernet.only_proposal,
+            dtype=self.dtype,
+        )
+        self.roi = DSACascadeHead(cfg.roi, c)
+
+    @property
+    def levels(self) -> Tuple[str, ...]:
+        return tuple(self.cfg.centernet.in_features)
+
+    def cast_compute_weights(self) -> "CenterNet2Detector":
+        """Store the weights of the layers that run in the compute dtype in
+        that dtype, once, instead of casting them at every use (the same
+        numbers: the cast is the one those layers apply)."""
+        if self.dtype is not None:
+            self.backbone.to(self.dtype)
+            self.fpn.to(self.dtype)
+            for conv in self.head.tower_convs():
+                conv.to(self.dtype)
+        return self
+
+    # ---------------------------------------------------------------- phases
+    def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """images [B, 3, H, W] normalized -> {'p3','p4','p5'} [B, C, H_l, W_l]."""
+        x = images.contiguous(memory_format=torch.channels_last)
+        return self.fpn(self.backbone(x))
+
+    def refine_support(self, sup_feats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Support pyramid [N, C, h_l, w_l] -> SM-refined, spatially transposed
+        maps [N, S_l, S_l, C] (channel-last, as the support cache keeps them)."""
+        vips = {"p3": self.vip_p3, "p4": self.vip_p4, "p5": self.vip_p5}
+        out = {}
+        for level in self.levels:
+            size = SM_POOL_SIZES[level]
+            x = adaptive_avg_pool2d(sup_feats[level], (size, size)).permute(0, 2, 3, 1)
+            x = vips[level](x)
+            out[level] = x.transpose(1, 2)  # the reference's permute(0,3,2,1) quirk
+        return out
+
+    def correlate(self, query_feats: Dict[str, torch.Tensor],
+                  kernels: Dict[str, Kernels]) -> Dict[str, torch.Tensor]:
+        """CGM correlation + conv3 fusion per level, through the fused CGM
+        kernel (its plain twin on the CPU); f32 arithmetic, the result cast
+        back to the level's dtype."""
+        w3 = self.cgm_conv3.weight.float().t().contiguous()  # [2C, C], rows [attn; q]
+        b3 = self.cgm_conv3.bias.float().contiguous()
+        out = {}
+        for level in self.levels:
+            q = query_feats[level]
+            q_nhwc = q.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+            fused = cgm_correlate_fused(q_nhwc, *kernels[level], w3, b3)
+            out[level] = fused.permute(0, 3, 1, 2).to(q.dtype)
+        return out
+
+    def proposal_head(self, pos_features: Dict[str, torch.Tensor]):
+        """CenterNet head over the correlated pyramid -> (agn_hms, bbox_regs)."""
+        return self.head([pos_features[level] for level in self.levels])
+
+    def roi_stage(self, features: Sequence[torch.Tensor], boxes: torch.Tensor,
+                  support_8: torch.Tensor, support_4: torch.Tensor, stage: int = 0) -> StageOutput:
+        """One cascade stage on the original (un-correlated) pyramid."""
+        return self.roi(features, boxes, support_8, support_4, stage)

@@ -1,0 +1,103 @@
+"""Shared building blocks on NCHW maps, float path (counterpart of
+``faster_orefsdet_tpu/models/layers.py``; the int8 ``QuantConv`` is not
+ported yet).
+
+Parameters are stored f32 under the names of the JAX package's parameter
+tree (``kernel`` becomes ``weight``), so ``utils.params.from_jax_params`` is
+a mechanical rename. A layer given ``dtype`` runs its product in that dtype,
+as a flax layer with ``dtype`` does; a layer without one runs in the
+promoted dtype of its input and its (f32) weights.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def _dtype(x: torch.Tensor, w: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.dtype:
+    return dtype if dtype is not None else torch.promote_types(x.dtype, w.dtype)
+
+
+def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    dt = _dtype(x, conv.weight, dtype)
+    bias = None if conv.bias is None else conv.bias.to(dt)
+    return F.conv2d(x.to(dt), conv.weight.to(dt), bias, conv.stride, conv.padding)
+
+
+def linear(x: torch.Tensor, lin: nn.Linear, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    dt = _dtype(x, lin.weight, dtype)
+    bias = None if lin.bias is None else lin.bias.to(dt)
+    return F.linear(x.to(dt), lin.weight.to(dt), bias)
+
+
+class FrozenBatchNorm(nn.Module):
+    """FrozenBatchNorm2d folded to a per-channel affine y = x * scale + bias,
+    kept in the input's dtype."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.register_buffer("scale", torch.ones(features))
+        self.register_buffer("bias", torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scale.to(x.dtype).view(1, -1, 1, 1) + self.bias.to(x.dtype).view(1, -1, 1, 1)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm (eps 1e-5) with affine parameters named as in flax; the
+    output is f32 (flax promotes a bf16 input against f32 parameters)."""
+
+    def __init__(self, features: int, num_groups: int = 32):
+        super().__init__()
+        self.num_groups = num_groups
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.scale, self.bias, eps=1e-5)
+
+
+class ConvNorm(nn.Module):
+    """conv (no bias) + FrozenBN [+ relu]: the VoVNet conv3x3 / conv1x1 unit."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size: int = 3, stride: int = 1,
+                 relu: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv = nn.Conv2d(in_ch, features, kernel_size, stride, kernel_size // 2, bias=False)
+        self.norm = FrozenBatchNorm(features)
+        self.relu = relu
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.norm(conv2d(x, self.conv, self.dtype))
+        return torch.relu(x) if self.relu else x
+
+
+class Scale(nn.Module):
+    """Learned scalar multiplier."""
+
+    def __init__(self, init_value: float = 1.0):
+        super().__init__()
+        self.scale = nn.Parameter(torch.full((1,), float(init_value)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scale
+
+
+def hsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """relu6(x + 3) / 6."""
+    return torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+
+
+def max_pool_ceil(x: torch.Tensor, window: int = 3, stride: int = 2) -> torch.Tensor:
+    """MaxPool2d(kernel=3, stride=2, ceil_mode=True)."""
+    return F.max_pool2d(x, window, stride, ceil_mode=True)
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """F.interpolate(scale_factor=2, mode='nearest')."""
+    return F.interpolate(x, scale_factor=2.0, mode="nearest")

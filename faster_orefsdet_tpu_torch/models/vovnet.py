@@ -1,0 +1,106 @@
+"""VoVNet backbone, float path (counterpart of
+``faster_orefsdet_tpu/models/vovnet.py``). V-19-slim-eSE is the live spec:
+stem [64, 64, 128], stage conv channels [64, 80, 96, 112], concat channels
+[112, 256, 384, 512], 3 convs per OSA module, one block per stage, eSE on."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from .layers import ConvNorm, conv2d, hsigmoid, max_pool_ceil
+
+# name -> (stem_chs, stage_conv_chs, stage_out_chs, layer_per_block,
+#          block_per_stage, depthwise)
+VOVNET_STAGE_SPECS = {
+    "V-19-slim-eSE": ([64, 64, 128], [64, 80, 96, 112], [112, 256, 384, 512], 3, [1, 1, 1, 1], False),
+}
+
+
+class ESEModule(nn.Module):
+    """Effective squeeze-excitation: global average pool -> 1x1 conv (bias)
+    -> hsigmoid gate."""
+
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.fc = nn.Conv2d(features, features, 1, bias=True)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g = x.mean(dim=(2, 3), keepdim=True)
+        return x * hsigmoid(conv2d(g, self.fc, self.dtype))
+
+
+class OSAModule(nn.Module):
+    """One-shot aggregation: a chain of 3x3 convs whose outputs and input
+    concatenate into a 1x1 projection + eSE."""
+
+    def __init__(self, in_ch: int, stage_ch: int, concat_ch: int, layer_per_block: int,
+                 identity: bool = False, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.layer_per_block = layer_per_block
+        self.identity = identity
+        for i in range(layer_per_block):
+            self.add_module(f"layer{i}", ConvNorm(in_ch if i == 0 else stage_ch, stage_ch, 3, dtype=dtype))
+        self.concat = ConvNorm(in_ch + layer_per_block * stage_ch, concat_ch, 1, dtype=dtype)
+        self.ese = ESEModule(concat_ch, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity_feat = x
+        outputs = [x]
+        for i in range(self.layer_per_block):
+            x = getattr(self, f"layer{i}")(x)
+            outputs.append(x)
+        x = self.ese(self.concat(torch.cat(outputs, dim=1)))
+        return x + identity_feat if self.identity else x
+
+
+class VoVNet(nn.Module):
+    """VoVNet producing {'stage2'..'stage5'} NCHW maps (those in out_features)."""
+
+    def __init__(self, conv_body: str = "V-19-slim-eSE",
+                 out_features: Tuple[str, ...] = ("stage3", "stage4", "stage5"),
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if conv_body not in VOVNET_STAGE_SPECS:
+            raise ValueError(f"conv_body {conv_body!r}: the port has {sorted(VOVNET_STAGE_SPECS)}")
+        stem_chs, conv_chs, out_chs, layer_per_block, blocks, _ = VOVNET_STAGE_SPECS[conv_body]
+        self.out_features = tuple(out_features)
+        self.dtype = dtype
+        self.blocks = blocks
+        self.stem1 = ConvNorm(3, stem_chs[0], stride=2, dtype=dtype)
+        self.stem2 = ConvNorm(stem_chs[0], stem_chs[1], stride=1, dtype=dtype)
+        self.stem3 = ConvNorm(stem_chs[1], stem_chs[2], stride=2, dtype=dtype)
+        in_ch = stem_chs[2]
+        for i in range(4):
+            for b in range(blocks[i]):
+                self.add_module(
+                    f"stage{i + 2}_block{b}",
+                    OSAModule(in_ch, conv_chs[i], out_chs[i], layer_per_block, identity=b > 0, dtype=dtype),
+                )
+                in_ch = out_chs[i]
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        x = self.stem3(self.stem2(self.stem1(x)))
+        outputs = {}
+        for i in range(4):
+            name = f"stage{i + 2}"
+            if i > 0:  # stages 3-5 downsample first
+                x = max_pool_ceil(x, 3, 2)
+            for b in range(self.blocks[i]):
+                x = getattr(self, f"{name}_block{b}")(x)
+            if name in self.out_features:
+                outputs[name] = x
+        return outputs
+
+    @staticmethod
+    def out_channels(conv_body: str) -> Dict[str, int]:
+        stem_chs, _, out_chs, _, _, _ = VOVNET_STAGE_SPECS[conv_body]
+        d = {"stem": stem_chs[2]}
+        for i in range(4):
+            d[f"stage{i + 2}"] = out_chs[i]
+        return d

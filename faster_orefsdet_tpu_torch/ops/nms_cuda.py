@@ -1,0 +1,69 @@
+"""NMS over a batch of fixed-K box sets: the CUDA kernel ``csrc/nms.cu`` and
+its plain twin (counterpart of ``faster_orefsdet_tpu/ops/pallas_nms.py``).
+
+``nms_mask`` dispatches on the tensors' device: CUDA tensors launch the
+kernel (or raise), CPU tensors run the plain fixpoint ``ops.nms.nms_mask``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _native
+from .nms import nms_mask as nms_mask_plain
+
+MAX_K = 2048  # the kernel's cap (csrc/nms.cu MAX_K)
+
+
+class _Counter:
+    """Kernel launches made by `nms_mask` (one per call on CUDA tensors)."""
+
+    launches = 0
+
+
+counter = _Counter()
+
+
+def nms_mask(
+    boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor, iou_threshold: float
+) -> torch.Tensor:
+    """Greedy NMS keep mask. boxes [B,K,4] f32, scores [B,K] f32, valid [B,K]
+    bool -> keep [B,K] bool (same semantics as ops.nms.nms_mask)."""
+    if boxes.is_cuda:
+        return _launch(boxes, scores, valid, float(iou_threshold))
+    if boxes.device.type != "cpu":
+        raise ValueError(f"nms_mask: tensors on {boxes.device} (expected cuda or cpu)")
+    return nms_mask_plain(boxes, scores, valid, iou_threshold)
+
+
+def _launch(boxes, scores, valid, thr: float) -> torch.Tensor:
+    if boxes.dim() != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f"nms_mask: boxes must be [B,K,4], got {tuple(boxes.shape)}")
+    b, k = boxes.shape[:2]
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"nms_mask: K={k} outside the kernel's range 1..{MAX_K}")
+    for name, t, shape, dtype in (
+        ("boxes", boxes, (b, k, 4), torch.float32),
+        ("scores", scores, (b, k), torch.float32),
+        ("valid", valid, (b, k), torch.bool),
+    ):
+        if t.device != boxes.device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"nms_mask: {name} must be {dtype} {shape} on {boxes.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"nms_mask: {name} must be contiguous")
+    words = -(-k // 64)
+    mask = torch.empty((b, k, words), dtype=torch.int64, device=boxes.device)
+    rank_part = torch.empty((b, k, words), dtype=torch.int32, device=boxes.device)
+    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+    lib = _native.library("nms")
+    rc = lib.nms_forward(
+        boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), thr, b, k,
+        mask.data_ptr(), rank_part.data_ptr(), keep.data_ptr(),
+        torch.cuda.current_stream(boxes.device).cuda_stream,
+    )
+    _native.check(lib, rc, "nms_mask")
+    counter.launches += 1
+    return keep

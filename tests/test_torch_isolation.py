@@ -1,0 +1,129 @@
+"""The port stands alone: it imports nothing of JAX or of the JAX package,
+its entry points run on the card unless asked for the CPU, and its kernel
+wrappers never answer a CUDA request with the plain result."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+from faster_orefsdet_tpu_torch.config import get_config
+from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
+from faster_orefsdet_tpu_torch.pipelines import inference, support_cache
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_port_imports_without_jax():
+    code = textwrap.dedent(
+        """
+        import importlib, importlib.abc, pkgutil, runpy, sys
+
+        BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "faster_orefsdet_tpu")
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"blocked import of {name}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import faster_orefsdet_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        runpy.run_path("chip_smoke.py", run_name="chip_smoke_import_check")
+        loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not loaded, loaded
+        print(len(names), "modules")
+        """
+    )
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[0]) >= 20
+
+
+def _support_cache_builder(cfg, sd):
+    return support_cache.build_support_cache(cfg, sd, torch.zeros(1, 3, 64, 64), torch.zeros(1, 4))
+
+
+@pytest.mark.parametrize("builder", [
+    lambda cfg, sd: inference.make_detector(cfg, sd),
+    lambda cfg, sd: inference.build_inference_fn(cfg, sd),
+    lambda cfg, sd: inference.build_batched_inference_fn(cfg, sd),
+    _support_cache_builder,
+    lambda cfg, sd: support_cache.load_support_cache("cache.npz"),
+], ids=["make_detector", "build_inference_fn", "build_batched_inference_fn", "build_support_cache",
+        "load_support_cache"])
+def test_builders_default_to_the_card(builder, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        builder(get_config("serving_vovnet"), None)
+
+
+@pytest.mark.parametrize("build", [inference.build_inference_fn, inference.build_batched_inference_fn],
+                         ids=["build_inference_fn", "build_batched_inference_fn"])
+def test_served_cache_stays_on_its_device(build):
+    """A request never copies the support cache to the model's device: a
+    cache elsewhere is refused before any work."""
+    fn = build(get_config("serving_vovnet"), None, device="cpu")
+    cache = support_cache.SupportCache(*(torch.zeros(s, s, 128, device="meta") for s in (32, 16, 8, 8, 4)))
+    with pytest.raises(ValueError, match="support cache on meta"):
+        fn(cache, torch.zeros(1, 3, 64, 64), torch.tensor([[64.0, 64.0]]))
+
+
+def _cgm_args(device=None):
+    q = torch.zeros(1, 4, 5, 128, device=device)
+    c = torch.zeros(128, device=device)
+    t = torch.zeros(3, 128, device=device)
+    return q, c, t, t, torch.zeros(256, 128, device=device), c
+
+
+def _nms_args(device=None):
+    return (torch.zeros(1, 8, 4, device=device), torch.zeros(1, 8, device=device),
+            torch.ones(1, 8, dtype=torch.bool, device=device))
+
+
+def test_wrappers_reject_other_devices():
+    with pytest.raises(ValueError):
+        cgm_cuda.cgm_correlate_fused(*_cgm_args("meta"))
+    with pytest.raises(ValueError):
+        nms_cuda.nms_mask(*_nms_args("meta"), 0.5)
+
+
+def test_wrappers_launch_or_raise_on_cuda(monkeypatch):
+    """A CUDA tensor goes to the kernel; here there is no kernel to launch,
+    so the call must raise, never fall back to the plain twin."""
+
+    def plain_called(*a, **k):
+        raise AssertionError("plain twin called for a CUDA tensor")
+
+    monkeypatch.setattr(cgm_cuda, "cgm_fused_plain", plain_called)
+    monkeypatch.setattr(nms_cuda, "nms_mask_plain", plain_called)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    before = (cgm_cuda.counter.launches, nms_cuda.counter.launches)
+    with pytest.raises(RuntimeError):
+        cgm_cuda.cgm_correlate_fused(*_cgm_args())
+    with pytest.raises(RuntimeError):
+        nms_cuda.nms_mask(*_nms_args(), 0.5)
+    assert (cgm_cuda.counter.launches, nms_cuda.counter.launches) == before
+
+
+def test_wrappers_validate_cuda_inputs(monkeypatch):
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    q, *rest = _cgm_args()
+    with pytest.raises(ValueError, match="q must be"):
+        cgm_cuda.cgm_correlate_fused(q[..., :64], *rest)
+    with pytest.raises(ValueError, match="contiguous"):
+        cgm_cuda.cgm_correlate_fused(q.transpose(1, 2), *rest)
+    boxes, scores, valid = _nms_args()
+    with pytest.raises(ValueError, match="outside the kernel's range"):
+        nms_cuda.nms_mask(torch.zeros(1, nms_cuda.MAX_K + 1, 4), torch.zeros(1, nms_cuda.MAX_K + 1),
+                          torch.ones(1, nms_cuda.MAX_K + 1, dtype=torch.bool), 0.5)
+    with pytest.raises(ValueError, match="valid must be"):
+        nms_cuda.nms_mask(boxes, scores, valid.float(), 0.5)
