@@ -9,107 +9,354 @@
 //   d1   = relu(stencil_w(q, k13))          3 taps along W, zero padded
 //   d2   = relu(stencil_h(d1, k31))         3 taps along H, zero padded
 //   attn = c2 + d2 + q
-//   out  = relu(attn . W3a + q . W3b + b3)  W3 = [W3a; W3b], [2C, C]
+//   out  = relu([attn | q] . W3^T + b3)     W3 = nn.Linear's weight [C, 2C]
 //
-// All arithmetic is f32; q may be bf16 or f32 and is widened on load, which
-// is exact. The projection is the concat-free split of the reference's
-// 1x1 conv over concat(attn, q).
+// q may be bf16 or f32 and is widened on load, which is exact; the stencil
+// chain is f32; out is bf16 or f32, rounded once from the f32 result.
 //
-// What bounds it on the card: its device-memory traffic is one read of q
-// and one write of out per level (the taps, W3 and b3, 132 KB, stay in L2),
-// against 2*2C operations per output value for the projection. Run on the
-// f32 CUDA cores (not the tensor cores, so that the result matches the plain
-// f32 version to 1e-5), those operations, not the bytes, bound this design.
+// What bounds it on the card: per output value it reads and writes a few
+// bytes and does 2*2C projection operations plus 15 elementwise ones. On the
+// tensor cores (TF32, 495 TFLOP/s) the projection still outweighs the bytes
+// at 3.35 TB/s, so operations bound it.
 //
-// Design: each block owns one output row h of one image and a tile of TW
-// columns. Phase 1 computes attn and q of the tile into shared memory; it
-// evaluates d1 on all three rows h-1..h+1 because the H stencil reads the
-// post-relu d1 of the neighbouring rows, not q. The nine q reads per value
-// hit L1. Phase 2 gives each thread one output channel and TW/2 pixels: it
-// reads W3 column-wise (coalesced across the warp, L2-resident) and the
-// pixel's 256 inputs from shared memory (a broadcast within the warp), and
-// accumulates the 256-term dot products in registers. Epilogue: + b3, relu.
-// Tensor-core products (wgmma) fed by TMA are later work.
+// Design: the 256-deep projection runs on the tensor cores with
+// mma.sync.m16n8k8 TF32 in split precision ("3xTF32"): each f32 operand x is
+// split into hi = tf32(x) and lo = tf32(x - hi), and hi*lo + lo*hi + hi*hi
+// is summed in f32, which keeps the result near the f32 sum (one TF32
+// product alone keeps three digits); the q half of a bf16 input is TF32
+// already and needs two products. W3 is staged once per block in shared
+// memory with cp.async, as stored (K-major, so it is the mma's column-major
+// B without a transpose). The grid is persistent, one block per SM, and each
+// block walks tiles of 32 pixels of the flattened B*H*W (16 where that
+// leaves each block one tile, as for batch 1's p4 and p5). Phase 1 builds a
+// tile's [attn | q] in shared memory, each thread owning four channels (its
+// taps stay in registers); the H stencil reads the post-relu d1 of the rows
+// above and below, so d1 is evaluated on three rows. Its nine loads a value
+// wait on L2, so 8 producer warps run phase 1 of the block's next tile into
+// a second buffer while 4 warps, each the tile's pixels x 32 channels, run
+// the current tile's products. The k order inside each 16-deep step is
+// permuted alike for A and B, so that a thread's fragments are one 16-byte
+// load. Epilogue: + b3, relu, round once to the output type.
+//
+// What bounds this design: at batch 8 the mma.sync rate of the three
+// products (wgmma would be faster, but needs W3's hi and lo, 256 KB, in
+// shared memory); at batch 1 the chain of one block: W3's 128 KB into shared
+// memory, one phase 1, the products of one tile.
+//
+// Changed from the first port of this kernel: that one ran the projection as
+// f32 FMAs on the CUDA cores, one output channel per thread, each step
+// waiting on an L2 load of W3, on a grid of (W/32, H, B) blocks (10 blocks
+// for a batch-1 p5), and wrote f32 for a separate cast.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int C = 128;
-constexpr int TW = 32;            // pixels (columns) per block
-constexpr int THREADS = 256;      // 2 pixel groups x 128 output channels
-constexpr int PIX_PER_THREAD = TW / (THREADS / C);
+constexpr int DEPTH = 2 * C;        // projection depth
+constexpr int MMA_WARPS = 4;        // 32 channels each, all of a tile's pixels
+constexpr int PRODUCER_WARPS = 8;   // phase 1 of the next tile
+constexpr int THREADS = 32 * (MMA_WARPS + PRODUCER_WARPS);
+constexpr int STRIDE = DEPTH + 16;  // floats per shared row: conflict-free 16-byte fragment loads
 
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+// four channels of q as loaded (8 bytes of bf16, 16 of f32), widened to f32
+// only where used, which keeps phase 1's loads in flight in fewer registers
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ uint2 load4(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ float4 widen(float4 v) { return v; }
+__device__ __forceinline__ float4 widen(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// x = hi + lo + (a rest of about 2^-22 |x|), hi and lo TF32, each rounded
+// to nearest (ties away from zero) by adding half a TF32 ulp to the
+// magnitude bits and clearing the 13 bits TF32 drops: four integer
+// operations and a subtraction, where cvt.rna.tf32.f32 takes nine. x is
+// finite.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[mi][ni] += A[16 rows of m tile mi, k0:k1] . B[k0:k1, 8 columns of n
+// tile ni] in 3xTF32 (2 products where A_LO is false: A holds TF32 values
+// already). arow / brow point at the thread's first A row / B column, k =
+// 4*t4. Within each 16-deep step a thread loads k = 4*t4 .. 4*t4+3 of its
+// rows; mma step 0 takes the first two of them as logical k = t4 and t4 + 4,
+// step 1 the last two, for A and B alike. Consecutive mma go to different
+// accumulators, so that one's latency hides behind the others.
+template <int MT, bool A_LO>
+__device__ __forceinline__ void project(float (&acc)[MT][4][4], const float* arow,
+                                        const float* brow, int k0, int k1) {
+#pragma unroll 2
+  for (int kk = k0; kk < k1; kk += 16) {
+    unsigned ah[MT][2][4], al[MT][2][4], bh[4][4], bl[4][4];  // [tile][step or k][reg]
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      const float4 r0 = *reinterpret_cast<const float4*>(arow + (mi * 16) * STRIDE + kk);
+      const float4 r1 = *reinterpret_cast<const float4*>(arow + (mi * 16 + 8) * STRIDE + kk);
+      const float v[2][4] = {{r0.x, r1.x, r0.y, r1.y}, {r0.z, r1.z, r0.w, r1.w}};
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (A_LO)
+            split_tf32(v[s][e], ah[mi][s][e], al[mi][s][e]);
+          else
+            ah[mi][s][e] = __float_as_uint(v[s][e]);
+        }
+    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const float4 bv = *reinterpret_cast<const float4*>(brow + (ni * 8) * STRIDE + kk);
+      split_tf32(bv.x, bh[ni][0], bl[ni][0]);
+      split_tf32(bv.y, bh[ni][1], bl[ni][1]);
+      split_tf32(bv.z, bh[ni][2], bl[ni][2]);
+      split_tf32(bv.w, bh[ni][3], bl[ni][3]);
+    }
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_tf32(acc[mi][ni], ah[mi][s], bl[ni][2 * s], bl[ni][2 * s + 1]);
+      if (A_LO) {
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+            mma_tf32(acc[mi][ni], al[mi][s], bh[ni][2 * s], bh[ni][2 * s + 1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_tf32(acc[mi][ni], ah[mi][s], bh[ni][2 * s], bh[ni][2 * s + 1]);
+    }
+  }
+}
+
+__device__ __forceinline__ float4 relu4(float4 v) {
+  return make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
+}
+
+// Phase 1 for one tile: [attn | q] of pixels tile*TM + p, p = pw, pw + step,
+// .., channels c4 .. c4+3, into a[p][.] (zeros past the last pixel). The
+// nine loads of each of PIX pixels are issued together from clamped
+// addresses (no branch between them), then the zero padding is applied.
+template <int TM, typename T>
+__device__ __forceinline__ void build_tile(const T* __restrict__ q, float* a, int tile, int pw,
+                                           int step, int c4, int npix, int H, int W,
+                                           float4 tk1, const float4 (&t13)[3], const float4 (&t31)[3]) {
+  constexpr int PIX = 4;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int p0 = pw; p0 < TM; p0 += PIX * step) {
+    decltype(load4(q)) v[PIX][3][3];  // [pixel][row h-1, h, h+1][column w-1, w, w+1]
+    int hw[PIX][2];
+#pragma unroll
+    for (int i = 0; i < PIX; ++i) {
+      const int pix = min(tile * TM + p0 + i * step, npix - 1);
+      const int w = pix % W;
+      const int h = (pix / W) % H;
+      hw[i][0] = h;
+      hw[i][1] = w;
+      const T* qb = q + (size_t)(pix - h * W - w) * C + c4;  // image's (0, 0)
+      const int wl = max(w - 1, 0), wr = min(w + 1, W - 1);
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        const T* row = qb + (size_t)min(max(h + r - 1, 0), H - 1) * W * C;
+        v[i][r][0] = load4(row + (size_t)wl * C);
+        v[i][r][1] = load4(row + (size_t)w * C);
+        v[i][r][2] = load4(row + (size_t)wr * C);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PIX; ++i) {
+      const int p = p0 + i * step;
+      if (p >= TM) break;
+      const int h = hw[i][0], w = hw[i][1];
+      float4 attn = zero, qc = zero;
+      if (tile * TM + p < npix) {
+        qc = widen(v[i][1][1]);
+        float4 d2 = zero;
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          if (h + r - 1 < 0 || h + r - 1 >= H) continue;
+          const float4 left = w > 0 ? widen(v[i][r][0]) : zero;
+          const float4 mid = widen(v[i][r][1]);
+          const float4 right = w + 1 < W ? widen(v[i][r][2]) : zero;
+          const float4 d1 = relu4(make_float4(left.x * t13[0].x + mid.x * t13[1].x + right.x * t13[2].x,
+                                              left.y * t13[0].y + mid.y * t13[1].y + right.y * t13[2].y,
+                                              left.z * t13[0].z + mid.z * t13[1].z + right.z * t13[2].z,
+                                              left.w * t13[0].w + mid.w * t13[1].w + right.w * t13[2].w));
+          d2.x += d1.x * t31[r].x;
+          d2.y += d1.y * t31[r].y;
+          d2.z += d1.z * t31[r].z;
+          d2.w += d1.w * t31[r].w;
+        }
+        d2 = relu4(d2);
+        const float4 c2 = relu4(make_float4(fmaxf(qc.x * tk1.x, 0.f) * tk1.x, fmaxf(qc.y * tk1.y, 0.f) * tk1.y,
+                                            fmaxf(qc.z * tk1.z, 0.f) * tk1.z, fmaxf(qc.w * tk1.w, 0.f) * tk1.w));
+        attn = make_float4(c2.x + d2.x + qc.x, c2.y + d2.y + qc.y, c2.z + d2.z + qc.z, c2.w + d2.w + qc.w);
+      }
+      *reinterpret_cast<float4*>(a + p * STRIDE + c4) = attn;
+      *reinterpret_cast<float4*>(a + p * STRIDE + C + c4) = qc;
+    }
+  }
+}
+
+// MT: m16 tiles per MMA warp; a tile is TM = 16 * MT pixels
+template <typename T, int MT>
+__global__ void __launch_bounds__(THREADS, 1)
 cgm_kernel(const T* __restrict__ q, const float* __restrict__ k1,
            const float* __restrict__ k13, const float* __restrict__ k31,
            const float* __restrict__ w3, const float* __restrict__ b3,
-           float* __restrict__ out, int H, int W) {
-  __shared__ float a[TW][2 * C];  // [attn | q] per pixel, 32 KB
+           void* __restrict__ out, int out_bf16, int B, int H, int W) {
+  constexpr int TM = 16 * MT;
+  extern __shared__ __align__(16) float smem[];
+  float* ws = smem;                  // [C][STRIDE]: W3 rows, k contiguous
+  float* as = smem + C * STRIDE;     // 2 x [TM][STRIDE]: [attn | q] per pixel
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int w0 = blockIdx.x * TW;
-  const T* qb = q + (size_t)b * H * W * C;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const bool producer = warp >= MMA_WARPS;
+  const int npix = B * H * W;
+  const int tiles = (npix + TM - 1) / TM;
 
-  // ---- phase 1: attn and q of the tile
-  for (int idx = threadIdx.x; idx < TW * C; idx += THREADS) {
-    const int p = idx / C;
-    const int c = idx % C;
-    const int w = w0 + p;
-    float qc = 0.f, attn = 0.f;
-    if (w < W) {
-      const T* row = qb + ((size_t)h * W + w) * C + c;
-      qc = load_f32(row);
-      const float kc = k1[c];
-      const float c2 = fmaxf(fmaxf(qc * kc, 0.f) * kc, 0.f);
-      const float t0 = k13[c], t1 = k13[C + c], t2 = k13[2 * C + c];
-      float d2 = 0.f;
-      for (int r = 0; r < 3; ++r) {
-        const int hh = h + r - 1;
-        if (hh < 0 || hh >= H) continue;
-        const T* pr = qb + ((size_t)hh * W + w) * C + c;
-        const float left = w > 0 ? load_f32(pr - C) : 0.f;
-        const float mid = load_f32(pr);
-        const float right = w + 1 < W ? load_f32(pr + C) : 0.f;
-        const float d1 = fmaxf(left * t0 + mid * t1 + right * t2, 0.f);
-        d2 += d1 * k31[r * C + c];
-      }
-      d2 = fmaxf(d2, 0.f);
-      attn = c2 + d2 + qc;
-    }
-    a[p][c] = attn;
-    a[p][C + c] = qc;
+  // W3 into shared memory, once per block; it lands while the first tile's
+  // phase 1 runs
+  for (int idx = tid; idx < C * (DEPTH / 4); idx += THREADS) {
+    const int row = idx / (DEPTH / 4);
+    const int col = 4 * (idx % (DEPTH / 4));
+    cp_async16(ws + row * STRIDE + col, w3 + row * DEPTH + col);
   }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // phase 1: channels 4*lane .. 4*lane+3, the taps in registers
+  const int c4 = 4 * lane;
+  const float4 tk1 = load4(k1 + c4);
+  const float4 t13[3] = {load4(k13 + c4), load4(k13 + C + c4), load4(k13 + 2 * C + c4)};
+  const float4 t31[3] = {load4(k31 + c4), load4(k31 + C + c4), load4(k31 + 2 * C + c4)};
+
+  // phase 2: MMA warp wn owns the tile's pixels and channels 32*wn .. 32*wn+31
+  const int wn = warp & 3;
+  const int g = lane >> 2;   // mma group: row (A, C) / column (B)
+  const int t4 = lane & 3;   // thread in group: k pair (A, B) / column pair (C)
+  float2 bias[4];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+    bias[ni] = __ldg(reinterpret_cast<const float2*>(b3 + wn * 32 + ni * 8 + 2 * t4));
+
+  // the first tile's phase 1, by every warp
+  if (blockIdx.x < tiles)
+    build_tile<TM>(q, as, blockIdx.x, warp, THREADS / 32, c4, npix, H, W, tk1, t13, t31);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
 
-  // ---- phase 2: out[p, o] = relu(sum_k a[p, k] * w3[k, o] + b3[o])
-  const int o = threadIdx.x % C;
-  const int p0 = (threadIdx.x / C) * PIX_PER_THREAD;
-  float acc[PIX_PER_THREAD];
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    if (producer) {
+      // ---- phase 1 of the block's next tile into the other buffer
+      const int next = tile + gridDim.x;
+      if (next < tiles)
+        build_tile<TM>(q, as + (buf ^ 1) * TM * STRIDE, next, warp - MMA_WARPS,
+                   PRODUCER_WARPS, c4, npix, H, W, tk1, t13, t31);
+    } else {
+      // ---- phase 2: the projection; attn (k < C) is f32 and needs its lo
+      // part, q (k >= C) only when it came in as f32: a bf16 value is a TF32
+      // value, so its lo part is 0
+      float acc[MT][4][4];
 #pragma unroll
-  for (int i = 0; i < PIX_PER_THREAD; ++i) acc[i] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < 2 * C; ++k) {
-    const float wv = __ldg(w3 + k * C + o);
+      for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-    for (int i = 0; i < PIX_PER_THREAD; ++i) acc[i] += a[p0 + i][k] * wv;
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+      const float* arow = as + buf * TM * STRIDE + g * STRIDE + 4 * t4;
+      const float* brow = ws + (wn * 32 + g) * STRIDE + 4 * t4;
+      project<MT, true>(acc, arow, brow, 0, C);
+      project<MT, !std::is_same<T, __nv_bfloat16>::value>(acc, arow, brow, C, DEPTH);
+
+      // ---- epilogue: + b3, relu, round once to the output type
+#pragma unroll
+      for (int mh = 0; mh < 2 * MT; ++mh) {  // m tile mh / 2, rows g or g + 8
+        const int pix = tile * TM + mh * 8 + g;
+        if (pix >= npix) continue;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int o = wn * 32 + ni * 8 + 2 * t4;
+          const float v0 = fmaxf(acc[mh / 2][ni][2 * (mh % 2)] + bias[ni].x, 0.f);
+          const float v1 = fmaxf(acc[mh / 2][ni][2 * (mh % 2) + 1] + bias[ni].y, 0.f);
+          const size_t at = (size_t)pix * C + o;
+          if (out_bf16)
+            *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + at) =
+                __floats2bfloat162_rn(v0, v1);
+          else
+            *reinterpret_cast<float2*>(static_cast<float*>(out) + at) = make_float2(v0, v1);
+        }
+      }
+    }
+    __syncthreads();  // the next tile's [attn | q] is in; this one's is free
   }
-  const float bias = b3[o];
-  float* ob = out + ((size_t)b * H + h) * W * C;
-#pragma unroll
-  for (int i = 0; i < PIX_PER_THREAD; ++i) {
-    const int w = w0 + p0 + i;
-    if (w < W) ob[(size_t)w * C + o] = fmaxf(acc[i] + bias, 0.f);
-  }
+}
+
+template <typename T, int MT>
+cudaError_t launch(const T* q, const float* k1, const float* k13, const float* k31,
+                   const float* w3, const float* b3, void* out, int out_bf16,
+                   int B, int H, int W, int sms, cudaStream_t s) {
+  constexpr int TM = 16 * MT;
+  constexpr size_t smem = sizeof(float) * (C + 2 * TM) * STRIDE;
+  // set once per process, before any capture (the first call is never captured)
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(cgm_kernel<T, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  const int tiles = (B * H * W + TM - 1) / TM;
+  cgm_kernel<T, MT><<<tiles < sms ? tiles : sms, THREADS, smem, s>>>(
+      q, k1, k13, k31, w3, b3, out, out_bf16, B, H, W);
+  return cudaGetLastError();
+}
+
+// 16-pixel tiles where each block then has one tile (a short chain for
+// batch 1's small levels), else 32-pixel tiles (fewer B fragments a product)
+template <typename T>
+cudaError_t dispatch(const T* q, const float* k1, const float* k13, const float* k31,
+                     const float* w3, const float* b3, void* out, int out_bf16,
+                     int B, int H, int W, int sms, cudaStream_t s) {
+  if ((B * H * W + 15) / 16 > sms)
+    return launch<T, 2>(q, k1, k13, k31, w3, b3, out, out_bf16, B, H, W, sms, s);
+  return launch<T, 1>(q, k1, k13, k31, w3, b3, out, out_bf16, B, H, W, sms, s);
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return n;
 }
 
 }  // namespace
@@ -119,27 +366,27 @@ extern "C" const char* error_string(int err) {
 }
 
 // q [B,H,W,C] (bf16 if q_is_bf16 else f32); k1 [C]; k13, k31 [3,C];
-// w3 [2C,C]; b3 [C]; out [B,H,W,C] f32. All contiguous, on the device.
-// Launches on `stream` and returns cudaGetLastError().
+// w3 [C,2C] (nn.Linear's weight, columns [attn; q]); b3 [C]; out [B,H,W,C]
+// (bf16 if out_bf16 else f32). All contiguous and 16-byte aligned, on the
+// device. Launches on `stream` and returns cudaGetLastError().
 extern "C" int cgm_forward(const void* q, int q_is_bf16, const void* k1,
                            const void* k13, const void* k31, const void* w3,
-                           const void* b3, void* out, int B, int H, int W,
-                           int channels, void* stream) {
-  if (channels != C || B <= 0 || H <= 0 || W <= 0 || H > 65535 || B > 65535)
+                           const void* b3, void* out, int out_bf16, int B, int H,
+                           int W, int channels, void* stream) {
+  static const int sms = sm_count();
+  if (channels != C || B <= 0 || H <= 0 || W <= 0 || (long long)B * H * W > (1ll << 30))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((W + TW - 1) / TW, H, B);
+  if (sms <= 0) return static_cast<int>(cudaErrorNoDevice);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* fk1 = static_cast<const float*>(k1);
   const float* fk13 = static_cast<const float*>(k13);
   const float* fk31 = static_cast<const float*>(k31);
   const float* fw3 = static_cast<const float*>(w3);
   const float* fb3 = static_cast<const float*>(b3);
-  float* fout = static_cast<float*>(out);
-  if (q_is_bf16)
-    cgm_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), fk1, fk13, fk31, fw3, fb3, fout, H, W);
-  else
-    cgm_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(q), fk1, fk13, fk31, fw3, fb3, fout, H, W);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err =
+      q_is_bf16 ? dispatch(static_cast<const __nv_bfloat16*>(q), fk1, fk13, fk31, fw3, fb3, out,
+                           out_bf16, B, H, W, sms, s)
+                : dispatch(static_cast<const float*>(q), fk1, fk13, fk31, fw3, fb3, out, out_bf16,
+                           B, H, W, sms, s);
+  return static_cast<int>(err);
 }

@@ -1,162 +1,337 @@
-// Greedy NMS keep mask for a batch of fixed-K box sets, in two launches.
+// Greedy NMS keep mask for a batch of fixed-K box sets, in three launches.
 //
 // Replaces the JAX package's Pallas TPU kernel
 // faster_orefsdet_tpu/ops/pallas_nms.py::_nms_kernel, and computes the same
 // mask as the plain ops/nms.py::nms_mask: rank by descending score, ties to
 // the lower index; a kept box suppresses another when IoU > thr strictly;
-// invalid rows neither suppress nor survive.
+// invalid rows neither suppress nor survive. Scores are taken to be numbers
+// (no NaN), as the rank order needs.
 //
-// (a) nms_mask_kernel, grid (ceil(K/64), ceil(K/64), B), 64 threads: thread
-//     i of row block rb and column block cb writes the 64-bit word
-//     e[b, i, cb] with bit j set when iou(i, j) > thr & valid_i & valid_j &
-//     higher(i, j), and the count of valid j in the block that rank before
-//     i. The rank is built by direct comparison, as nms.py does: no sort.
-// (b) nms_sweep_kernel, one block per image: sums each valid box's counts
-//     into its rank, scatters the boxes into rank order, and sweeps them in
-//     order with the removed-set as a bitset in shared memory. Rows of e are
-//     staged 64 at a time into shared memory by the whole block; one warp
-//     then walks them, lane w owning word w of the bitset. The keep mask is
-//     written in the original order.
+// (a) nms_rank_kernel, grid (ceil(K/16), B), 256 threads: the rank of each
+//     valid box among its image's valid boxes by direct comparison (no sort;
+//     the input need not be sorted), 16 threads of a warp per box, summed by
+//     shuffles. Each box is written to its rank in `sorted`, its rank to
+//     `rank_of` (-1 when invalid); block 0 writes the image's valid count.
+// (b) nms_mask_kernel, one block of 256 threads per 64x64 tile of the upper
+//     triangle (grid (words*(words+1)/2, B)): word (r, c) of the row of rank
+//     r has bit j set when rank 64c+j comes after r and iou > thr; 4 threads
+//     build a word, 16 columns each. Tiles past the valid count return. The
+//     diagonal 64x64 tile of a chunk of 64 ranks thus holds all of the
+//     chunk's inner dependencies.
+// (c) nms_sweep_kernel, one warp per image: the removed bitset lives in
+//     registers, word w in the lanes l with l % WS == w (K <= 2048, so at
+//     most 32 words; a mask row holds WS words, a power of two). For each
+//     chunk c of 64 ranks the warp resolves the chunk's 64 decisions from the
+//     diagonal words with register bit operations (keep rank r if it is not
+//     removed, then remove what its word removes), then word w > c takes the
+//     OR of word w of the kept rows, the 32 / WS lanes of a word sharing the
+//     rows. The next chunk's rows are copied into shared memory with
+//     cp.async (two buffers) while this one resolves. The keep mask is
+//     written in the original order via rank_of.
 //
-// What bounds it on the card: it must read K*(4+1+1) values and write K
-// bytes per image, so neither bytes nor the K*K IoU operations bound it at
-// K <= 2048; the sweep's serial chain of dependent shared-memory steps, one
-// per valid box, does. The design keeps that chain in shared memory and
-// registers, with no device-memory access inside it.
+// What bounds it on the card: it reads K*(16+4+1) bytes and writes K per
+// image, and the IoU work is K*K/2 pairs, so neither bytes nor operations
+// bound it at K <= 2048. The sweep's serial chain does: K/64 chunks, each 64
+// dependent register steps (a bit test into a predicate, a predicated AND),
+// one shuffle and a fold of the kept rows; at batch 8 the mask's IoU work
+// comes next.
+//
+// Changed from the first port of this kernel: that one built both triangles
+// in the original index order (half of them never read), and its sweep
+// walked the valid boxes one at a time, each step a round trip through
+// shared memory by one warp of eight; it took the same time at batch 1 and 8.
 //
 // IoU uses round-to-nearest intrinsics in the operation order of
 // structures/boxes.py::pairwise_iou, so that nvcc cannot contract a*b+c into
-// an FMA and flip a borderline iou > thr against the plain version.
+// an FMA and flip a borderline iou > thr against the plain version; the
+// division is skipped only where its rounding cannot change the answer
+// (iou_over).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BLOCK = 64;     // boxes per row/column block = bits per word
-constexpr int MAX_K = 2048;   // cap: order[] and the staged rows fit in shared
+constexpr int BLOCK = 64;     // ranks per chunk = bits per word
+constexpr int MAX_K = 2048;   // cap: one removed word per lane of a warp
 constexpr int MAX_WORDS = MAX_K / BLOCK;
-constexpr int SWEEP_THREADS = 256;
+constexpr int RANK_BOXES = 16;  // boxes per block of the rank kernel,
+constexpr int RANK_SPLIT = 16;  // each compared by 16 threads of one warp
+constexpr int MASK_SPLIT = 4;   // threads per row of the mask kernel
 
-__device__ __forceinline__ float area(float x1, float y1, float x2, float y2) {
-  return __fmul_rn(__fsub_rn(x2, x1), __fsub_rn(y2, y1));
+typedef unsigned long long u64;
+
+size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// u64 words a row of the mask holds: ceil(K/64) rounded up to a power of two
+// >= 2, so that a row is whole 16-byte pieces and WS divides the warp
+int row_words(int K) {
+  int ws = 2;
+  while (ws * BLOCK < K) ws *= 2;
+  return ws;
 }
 
-__device__ __forceinline__ bool ranks_before(float si, int i, float sj, int j) {
-  return si > sj || (si == sj && i < j);
-}
-
-__global__ void nms_mask_kernel(const float* __restrict__ boxes,
-                                const float* __restrict__ scores,
-                                const uint8_t* __restrict__ valid, float thr,
-                                int K, int words,
-                                unsigned long long* __restrict__ mask,
-                                int* __restrict__ rank_part) {
-  __shared__ float cb_box[BLOCK][4];
-  __shared__ float cb_area[BLOCK];
-  __shared__ float cb_score[BLOCK];
-  __shared__ uint8_t cb_valid[BLOCK];
-
-  const int b = blockIdx.z;
-  const int cb = blockIdx.x;
-  const int t = threadIdx.x;
-  const size_t base = (size_t)b * K;
-
-  const int j0 = cb * BLOCK;
-  if (j0 + t < K) {
-    const float* bj = boxes + (base + j0 + t) * 4;
-    cb_box[t][0] = bj[0];
-    cb_box[t][1] = bj[1];
-    cb_box[t][2] = bj[2];
-    cb_box[t][3] = bj[3];
-    cb_area[t] = area(bj[0], bj[1], bj[2], bj[3]);
-    cb_score[t] = scores[base + j0 + t];
-    cb_valid[t] = valid[base + j0 + t];
+// the workspace's parts, each 16-byte aligned: mask [B,K,ws] u64 from 0,
+// sorted [B,K,4] f32, rank_of [B,K] i32, n_valid [B] i32
+struct Offsets {
+  size_t sorted, rank_of, n_valid, bytes;
+  Offsets(int B, int K) {
+    sorted = align16(sizeof(u64) * B * K * row_words(K));
+    rank_of = align16(sorted + sizeof(float) * B * K * 4);
+    n_valid = align16(rank_of + sizeof(int) * B * K);
+    bytes = align16(n_valid + sizeof(int) * B);
   }
-  __syncthreads();
+};
 
-  const int i = blockIdx.y * BLOCK + t;
-  if (i >= K) return;
-  const float* bi = boxes + (base + i) * 4;
-  const float x1 = bi[0], y1 = bi[1], x2 = bi[2], y2 = bi[3];
-  const float ai = area(x1, y1, x2, y2);
-  const float si = scores[base + i];
-  const bool vi = valid[base + i] != 0;
-
-  unsigned long long bits = 0ull;
-  int before = 0;
-  const int n = min(BLOCK, K - j0);
-  for (int jj = 0; jj < n; ++jj) {
-    const int j = j0 + jj;
-    if (!cb_valid[jj]) continue;
-    const float sj = cb_score[jj];
-    if (ranks_before(sj, j, si, i)) ++before;
-    if (!vi || !ranks_before(si, i, sj, j)) continue;
-    const float w = fmaxf(__fsub_rn(fminf(x2, cb_box[jj][2]), fmaxf(x1, cb_box[jj][0])), 0.f);
-    const float h = fmaxf(__fsub_rn(fminf(y2, cb_box[jj][3]), fmaxf(y1, cb_box[jj][1])), 0.f);
-    const float inter = __fmul_rn(w, h);
-    const float uni = __fsub_rn(__fadd_rn(ai, cb_area[jj]), inter);
-    const float iou = inter > 0.f ? __fdiv_rn(inter, fmaxf(uni, 1e-12f)) : 0.f;
-    if (iou > thr) bits |= 1ull << jj;
-  }
-  mask[(base + i) * words + cb] = bits;
-  rank_part[(base + i) * words + cb] = before;
+__device__ __forceinline__ float area(float4 b) {
+  return __fmul_rn(__fsub_rn(b.z, b.x), __fsub_rn(b.w, b.y));
 }
 
-__global__ void __launch_bounds__(SWEEP_THREADS)
-nms_sweep_kernel(const uint8_t* __restrict__ valid,
-                 const unsigned long long* __restrict__ mask,
-                 const int* __restrict__ rank_part, int K, int words,
-                 uint8_t* __restrict__ keep) {
-  __shared__ int order[MAX_K];
-  __shared__ unsigned long long removed[MAX_WORDS];
-  __shared__ unsigned long long rows[BLOCK][MAX_WORDS];
-  __shared__ int n_valid;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  const int b = blockIdx.x;
+__device__ __forceinline__ u64 shfl64(u64 v, int src) {
+  const unsigned lo = __shfl_sync(0xffffffffu, static_cast<unsigned>(v), src);
+  const unsigned hi = __shfl_sync(0xffffffffu, static_cast<unsigned>(v >> 32), src);
+  return (static_cast<u64>(hi) << 32) | lo;
+}
+__device__ __forceinline__ u64 shfl_xor64(u64 v, int mask) {
+  const unsigned lo = __shfl_xor_sync(0xffffffffu, static_cast<unsigned>(v), mask);
+  const unsigned hi = __shfl_xor_sync(0xffffffffu, static_cast<unsigned>(v >> 32), mask);
+  return (static_cast<u64>(hi) << 32) | lo;
+}
+
+__global__ void __launch_bounds__(RANK_BOXES * RANK_SPLIT)
+nms_rank_kernel(const float* __restrict__ boxes, const float* __restrict__ scores,
+                const uint8_t* __restrict__ valid, int K,
+                float4* __restrict__ sorted, int* __restrict__ rank_of,
+                int* __restrict__ n_valid) {
+  __shared__ float key[MAX_K];  // the score of a valid box, NaN for an invalid one
+  __shared__ int count;
+
+  const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const size_t base = (size_t)b * K;
-
-  for (int i = tid; i < K; i += SWEEP_THREADS) {
-    order[i] = -1;
-    keep[base + i] = 0;
+  if (tid == 0) count = 0;
+  __syncthreads();
+  int mine = 0;
+  for (int j = tid; j < K; j += RANK_BOXES * RANK_SPLIT) {
+    const bool v = valid[base + j] != 0;
+    key[j] = v ? scores[base + j] : __int_as_float(0x7fc00000);
+    mine += v;
   }
-  for (int w = tid; w < words; w += SWEEP_THREADS) removed[w] = 0ull;
-  if (tid == 0) n_valid = 0;
+  atomicAdd(&count, mine);
   __syncthreads();
 
-  for (int i = tid; i < K; i += SWEEP_THREADS) {
-    if (!valid[base + i]) continue;
-    int r = 0;
-    for (int w = 0; w < words; ++w) r += rank_part[(base + i) * words + w];
-    order[r] = i;  // r < number of valid boxes <= K
-    atomicAdd(&n_valid, 1);
+  // a NaN key compares false both ways, so invalid boxes never rank before;
+  // the 16 threads of box i take every 16th j and sum by shuffles
+  const int seg = tid % RANK_SPLIT;
+  const int i = blockIdx.x * RANK_BOXES + tid / RANK_SPLIT;
+  const float si = key[min(i, K - 1)];
+  int before = 0;
+  for (int j = seg; j < K; j += RANK_SPLIT) {
+    const float sj = key[j];
+    before += (sj > si) | ((sj == si) & (j < i));
+  }
+#pragma unroll
+  for (int off = RANK_SPLIT / 2; off > 0; off /= 2) before += __shfl_xor_sync(0xffffffffu, before, off);
+  if (seg == 0 && i < K) {
+    int r = -1;
+    if (valid[base + i]) {
+      r = before;  // < count <= K
+      const float* bi = boxes + (base + i) * 4;
+      sorted[base + r] = make_float4(bi[0], bi[1], bi[2], bi[3]);
+    }
+    rank_of[base + i] = r;
+  }
+  if (blockIdx.x == 0 && tid == 0) n_valid[b] = count;
+}
+
+// (inter > 0 ? RN(inter / u) : 0) > thr, for u > 0. Where thr > 0 and the
+// quotient is more than 2^-21 (relative) away from thr, comparing inter with
+// thr * u decides it without the division: thr * u and its scaling by 1 +-
+// 2^-20 round by at most 2^-24 each, and a quotient that far from thr rounds
+// to the same side of it. The rest divide, rounded to nearest.
+__device__ __forceinline__ bool iou_over(float inter, float u, float thr) {
+  if (!(inter > 0.f)) return 0.f > thr;
+  if (thr > 0.f) {
+    const float p = __fmul_rn(thr, u);
+    if (inter > __fmul_rn(p, 1.f + 0x1p-20f)) return true;
+    if (inter < __fmul_rn(p, 1.f - 0x1p-20f)) return false;
+  }
+  return __fdiv_rn(inter, u) > thr;
+}
+
+__global__ void __launch_bounds__(BLOCK * MASK_SPLIT)
+nms_mask_kernel(const float4* __restrict__ sorted, const int* __restrict__ n_valid,
+                float thr, int K, int words, int ws, u64* __restrict__ mask) {
+  __shared__ float4 cbox[BLOCK];
+  __shared__ float carea[BLOCK];
+
+  // blockIdx.x walks the upper triangle row by row: (0,0) .. (0,words-1),
+  // (1,1) .. (1,words-1), ..
+  const int b = blockIdx.y;
+  int rb = 0, cb = blockIdx.x;
+  while (cb >= words - rb) cb -= words - rb++;
+  cb += rb;
+  const int n = n_valid[b];
+  if (cb * BLOCK >= n) return;  // no valid column
+  const size_t base = (size_t)b * K;
+  const int tid = threadIdx.x;
+  const int c0 = cb * BLOCK;
+  if (tid < BLOCK && c0 + tid < n) {
+    const float4 bj = sorted[base + c0 + tid];
+    cbox[tid] = bj;
+    carea[tid] = area(bj);
   }
   __syncthreads();
 
-  const int n = n_valid;
-  const int lane = tid & 31;
-  for (int s = 0; s < n; s += BLOCK) {
-    const int m = min(BLOCK, n - s);
-    for (int idx = tid; idx < m * words; idx += SWEEP_THREADS) {
-      const int r = idx / words;
-      const int w = idx % words;
-      const int i = order[s + r];
-      rows[r][w] = i >= 0 ? mask[(base + i) * words + w] : 0ull;
-    }
-    __syncthreads();
-    if (tid < 32) {
-      for (int r = 0; r < m; ++r) {
-        const int i = order[s + r];
-        if (i < 0) continue;
-        if ((removed[i >> 6] >> (i & 63)) & 1ull) continue;
-        if (lane == 0) keep[base + i] = 1;
-        for (int w = lane; w < words; w += 32) removed[w] |= rows[r][w];
-        __syncwarp();
-      }
-    }
-    __syncthreads();
+  // row r's 64 columns in MASK_SPLIT parts of 16, joined by shuffles
+  const int r = rb * BLOCK + tid / MASK_SPLIT;
+  const int part = tid % MASK_SPLIT;
+  const float4 bi = sorted[base + min(r, n - 1)];
+  const float ai = area(bi);
+  const int j0 = part * (BLOCK / MASK_SPLIT);
+  const int j1 = min(j0 + BLOCK / MASK_SPLIT, n - c0);
+  u64 bits = 0ull;
+  for (int jj = max(j0, r - c0 + 1); jj < j1; ++jj) {  // ranks after r only
+    const float4 bj = cbox[jj];
+    const float w = fmaxf(__fsub_rn(fminf(bi.z, bj.z), fmaxf(bi.x, bj.x)), 0.f);
+    const float h = fmaxf(__fsub_rn(fminf(bi.w, bj.w), fmaxf(bi.y, bj.y)), 0.f);
+    const float inter = __fmul_rn(w, h);
+    const float uni = __fsub_rn(__fadd_rn(ai, carea[jj]), inter);
+    if (iou_over(inter, fmaxf(uni, 1e-12f), thr)) bits |= 1ull << jj;
   }
+#pragma unroll
+  for (int off = MASK_SPLIT / 2; off > 0; off /= 2) bits |= shfl_xor64(bits, off);
+  if (part == 0 && r < n) mask[(base + r) * ws + cb] = bits;
+}
+
+// if (t & bit) { x &= mx; y &= my; }, written out so that the compiler keeps
+// it a test into a predicate and predicated ANDs (two dependent operations)
+__device__ __forceinline__ void clear_if(unsigned& x, unsigned& y, unsigned t, unsigned bit,
+                                         unsigned mx, unsigned my) {
+  asm("{\n\t.reg .pred p;\n\t.reg .b32 b;\n\t"
+      "and.b32 b, %2, %3;\n\tsetp.ne.b32 p, b, 0;\n\t"
+      "@p and.b32 %0, %0, %4;\n\t@p and.b32 %1, %1, %5;\n\t}"
+      : "+r"(x), "+r"(y) : "r"(t), "r"(bit), "r"(mx), "r"(my));
+}
+__device__ __forceinline__ void clear_if(unsigned& x, unsigned t, unsigned bit, unsigned mx) {
+  asm("{\n\t.reg .pred p;\n\t.reg .b32 b;\n\t"
+      "and.b32 b, %1, %2;\n\tsetp.ne.b32 p, b, 0;\n\t@p and.b32 %0, %0, %3;\n\t}"
+      : "+r"(x) : "r"(t), "r"(bit), "r"(mx));
+}
+
+// rows 64c .. 64c+m-1 of the image's mask, words (c & ~1) .. WS-1, into dst
+template <int WS>
+__device__ __forceinline__ void prefetch_chunk(const u64* __restrict__ mask, u64* dst, int c, int m,
+                                               int lane) {
+  constexpr int PIECES = WS / 2;  // 16-byte pieces a row
+  const int piece = lane % PIECES;
+  if (2 * piece >= (c & ~1)) {
+    for (int r = lane / PIECES; r < m; r += 32 / PIECES)
+      cp_async16(dst + r * WS + 2 * piece, mask + (size_t)(BLOCK * c + r) * WS + 2 * piece);
+  }
+  cp_async_commit();
+}
+
+// WS: the mask's row words (row_words(K)). Lane l keeps removed word l % WS;
+// in the fold, the 32 / WS lanes of a word split the chunk's rows between
+// them and join their results by shuffles.
+template <int WS>
+__global__ void __launch_bounds__(32)
+nms_sweep_kernel(const u64* __restrict__ mask, const int* __restrict__ n_valid,
+                 const int* __restrict__ rank_of, int K, uint8_t* __restrict__ keep) {
+  constexpr int GROUPS = 32 / WS;
+  __shared__ __align__(16) u64 rows[2][BLOCK * WS];
+  __shared__ u64 kept[MAX_WORDS];
+  __shared__ int rank[MAX_K];  // rank_of of this image, copied in while the sweep runs
+
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int word = lane % WS;
+  const int group = lane / WS;
+  const size_t base = (size_t)b * K;
+  const u64* img = mask + base * WS;
+  const int n = n_valid[b];
+  const int chunks = (n + BLOCK - 1) / BLOCK;
+  u64 removed = 0ull;  // word `word` of the removed bitset
+
+  for (int i = lane; i < K; i += 32) cp_async4(rank + i, rank_of + base + i);
+  cp_async_commit();
+  if (chunks > 0) prefetch_chunk<WS>(img, rows[0], 0, min(BLOCK, n), lane);
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      prefetch_chunk<WS>(img, rows[(c + 1) & 1], c + 1, min(BLOCK, n - BLOCK * (c + 1)), lane);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const u64* R = rows[c & 1];
+    const int m = min(BLOCK, n - BLOCK * c);
+
+    // the chunk's decisions, alike in every lane: `todo` starts as the
+    // chunk's ranks not yet removed; rank j, reached with its bit still set,
+    // is kept and clears what its diagonal word removes (ranks after j
+    // only). A step is a bit test into a predicate and a predicated AND.
+    const u64 todo = ~shfl64(removed, c) & (m == BLOCK ? ~0ull : (1ull << m) - 1);
+    unsigned lo = static_cast<unsigned>(todo);
+    unsigned hi = static_cast<unsigned>(todo >> 32);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const u64 d = R[j * WS + c];
+      clear_if(lo, hi, lo, 1u << j, ~static_cast<unsigned>(d), ~static_cast<unsigned>(d >> 32));
+    }
+#pragma unroll
+    for (int j = 32; j < BLOCK; ++j) {
+      const unsigned dh = static_cast<unsigned>(R[j * WS + c] >> 32);
+      clear_if(hi, hi, 1u << (j - 32), ~dh);
+    }
+    const u64 kc = (static_cast<u64>(hi) << 32) | lo;
+    if (lane == 0) kept[c] = kc;
+
+    // the later words: word w of every kept row folds into removed word w
+    // (words <= c are decided; their lanes' results are never read); this
+    // lane's rows are group, group + GROUPS, ..
+    const u64 kg = kc >> group;
+    u64 acc[2] = {0ull, 0ull};
+#pragma unroll
+    for (int t = 0; t < BLOCK / GROUPS; ++t)
+      acc[t & 1] |= (kg & (1ull << (GROUPS * t))) != 0ull ? R[(group + GROUPS * t) * WS + word] : 0ull;
+    u64 fold = acc[0] | acc[1];
+#pragma unroll
+    for (int off = WS; off < 32; off *= 2) fold |= shfl_xor64(fold, off);
+    if (word > c) removed |= fold;
+    __syncwarp();
+  }
+
+  cp_async_wait<0>();
+  __syncwarp();
+  for (int i = lane; i < K; i += 32) {
+    const int r = rank[i];
+    keep[base + i] = r >= 0 && ((kept[r >> 6] >> (r & 63)) & 1ull);
+  }
+}
+
+template <int WS>
+cudaError_t sweep(const u64* mask, const int* n_valid, const int* rank_of, int B, int K,
+                  uint8_t* keep, cudaStream_t s) {
+  nms_sweep_kernel<WS><<<B, 32, 0, s>>>(mask, n_valid, rank_of, K, keep);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -165,28 +340,45 @@ extern "C" const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// boxes [B,K,4] f32, scores [B,K] f32, valid [B,K] uint8; scratch
-// mask [B,K,words] uint64 and rank_part [B,K,words] int32 with
-// words = ceil(K/64); keep [B,K] uint8. All contiguous, on the device.
-// Launches both kernels on `stream` and returns cudaGetLastError().
+// Bytes of the scratch workspace nms_forward needs for B images of K boxes.
+extern "C" long long nms_workspace_bytes(int B, int K) {
+  return static_cast<long long>(Offsets(B, K).bytes);
+}
+
+// boxes [B,K,4] f32, scores [B,K] f32, valid [B,K] uint8, keep [B,K] uint8,
+// workspace nms_workspace_bytes(B, K) bytes, 16-byte aligned. All contiguous,
+// on the device. Launches the three kernels on `stream` and returns
+// cudaGetLastError().
 extern "C" int nms_forward(const void* boxes, const void* scores,
                            const void* valid, float thr, int B, int K,
-                           void* mask, void* rank_part, void* keep,
-                           void* stream) {
+                           void* workspace, void* keep, void* stream) {
   if (B <= 0 || B > 65535 || K <= 0 || K > MAX_K)
     return static_cast<int>(cudaErrorInvalidValue);
   const int words = (K + BLOCK - 1) / BLOCK;
+  const int ws = row_words(K);
+  const Offsets off(B, K);
+  char* base = static_cast<char*>(workspace);
+  u64* mask = reinterpret_cast<u64*>(base);
+  float4* sorted = reinterpret_cast<float4*>(base + off.sorted);
+  int* rank_of = reinterpret_cast<int*>(base + off.rank_of);
+  int* n_valid = reinterpret_cast<int*>(base + off.n_valid);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  nms_mask_kernel<<<dim3(words, words, B), BLOCK, 0, s>>>(
+  nms_rank_kernel<<<dim3((K + RANK_BOXES - 1) / RANK_BOXES, B), RANK_BOXES * RANK_SPLIT, 0, s>>>(
       static_cast<const float*>(boxes), static_cast<const float*>(scores),
-      static_cast<const uint8_t*>(valid), thr, K, words,
-      static_cast<unsigned long long*>(mask), static_cast<int*>(rank_part));
+      static_cast<const uint8_t*>(valid), K, sorted, rank_of, n_valid);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  nms_sweep_kernel<<<B, SWEEP_THREADS, 0, s>>>(
-      static_cast<const uint8_t*>(valid),
-      static_cast<const unsigned long long*>(mask),
-      static_cast<const int*>(rank_part), K, words,
-      static_cast<uint8_t*>(keep));
-  return static_cast<int>(cudaGetLastError());
+  nms_mask_kernel<<<dim3(words * (words + 1) / 2, B), BLOCK * MASK_SPLIT, 0, s>>>(
+      sorted, n_valid, thr, K, words, ws, mask);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  uint8_t* k8 = static_cast<uint8_t*>(keep);
+  switch (ws) {
+    case 2: err = sweep<2>(mask, n_valid, rank_of, B, K, k8, s); break;
+    case 4: err = sweep<4>(mask, n_valid, rank_of, B, K, k8, s); break;
+    case 8: err = sweep<8>(mask, n_valid, rank_of, B, K, k8, s); break;
+    case 16: err = sweep<16>(mask, n_valid, rank_of, B, K, k8, s); break;
+    default: err = sweep<32>(mask, n_valid, rank_of, B, K, k8, s); break;
+  }
+  return static_cast<int>(err);
 }

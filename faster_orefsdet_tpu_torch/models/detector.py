@@ -115,16 +115,15 @@ class CenterNet2Detector(nn.Module):
     def correlate(self, query_feats: Dict[str, torch.Tensor],
                   kernels: Dict[str, Kernels]) -> Dict[str, torch.Tensor]:
         """CGM correlation + conv3 fusion per level, through the fused CGM
-        kernel (its plain twin on the CPU); f32 arithmetic, the result cast
-        back to the level's dtype."""
-        w3 = self.cgm_conv3.weight.float().t().contiguous()  # [2C, C], rows [attn; q]
-        b3 = self.cgm_conv3.bias.float().contiguous()
+        kernel (its plain twin on the CPU); f32 arithmetic, the result in the
+        level's dtype."""
+        w3 = self.cgm_conv3.weight  # [C, 2C] f32 as stored, columns [attn; q]
+        b3 = self.cgm_conv3.bias
         out = {}
         for level in self.levels:
             q = query_feats[level]
             q_nhwc = q.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-            fused = cgm_correlate_fused(q_nhwc, *kernels[level], w3, b3)
-            out[level] = fused.permute(0, 3, 1, 2).to(q.dtype)
+            out[level] = cgm_correlate_fused(q_nhwc, *kernels[level], w3, b3).permute(0, 3, 1, 2)
         return out
 
     def proposal_head(self, pos_features: Dict[str, torch.Tensor]):

@@ -29,10 +29,13 @@ NVCC_FLAGS = (
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
-# C signature of each library's entry point: (name, argtypes); all return int
+# C signatures of each library's functions: {name: (argtypes, restype)}
 _SIGNATURES = {
-    "cgm": ("cgm_forward", [_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP]),
-    "nms": ("nms_forward", [_VP, _VP, _VP, ctypes.c_float, _I, _I, _VP, _VP, _VP, _VP]),
+    "cgm": {"cgm_forward": ([_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP], _I)},
+    "nms": {
+        "nms_forward": ([_VP, _VP, _VP, ctypes.c_float, _I, _I, _VP, _VP, _VP], _I),
+        "nms_workspace_bytes": ([_I, _I], ctypes.c_longlong),
+    },
 }
 
 
@@ -85,12 +88,12 @@ def build() -> Dict[str, Path]:
 
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library `name` with its entry point's signature set."""
+    """The loaded kernel library `name` with its functions' signatures set."""
     lib = ctypes.CDLL(str(build()[name]))
-    fn_name, argtypes = _SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, (argtypes, restype) in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     lib.error_string.argtypes = [_I]
     lib.error_string.restype = ctypes.c_char_p
     return lib

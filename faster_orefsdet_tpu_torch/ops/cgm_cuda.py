@@ -7,6 +7,8 @@ launches the kernel (or raises), a CPU tensor runs ``cgm_fused_plain``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _native
@@ -24,51 +26,56 @@ class _Counter:
 counter = _Counter()
 
 
-def cgm_fused_plain(q, k1, k13, k31, w3, b3) -> torch.Tensor:
-    """relu(concat(cgm_correlate(q), q) @ w3 + b3) in f32. q [B,H,W,C];
-    k1 [C]; k13/k31 [3,C]; w3 [2C,C] (rows ordered [attn; q]); b3 [C]."""
+def cgm_fused_plain(q, k1, k13, k31, w3, b3, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """relu(concat(cgm_correlate(q), q) @ w3.T + b3), computed in f32 and
+    rounded once to `out_dtype` (default q's dtype). q [B,H,W,C]; k1 [C];
+    k13/k31 [3,C]; w3 [C,2C] (nn.Linear's weight, columns [attn; q]); b3 [C]."""
     qf = q.float()
     corr = cgm_correlate(qf, k1.float(), k13.float(), k31.float())
     cat = torch.cat([corr, qf], dim=-1)
-    return torch.relu(cat @ w3.float() + b3.float())
+    return torch.relu(cat @ w3.float().t() + b3.float()).to(out_dtype or q.dtype)
 
 
-def cgm_correlate_fused(q, k1, k13, k31, w3, b3) -> torch.Tensor:
+def cgm_correlate_fused(q, k1, k13, k31, w3, b3, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Fused CGM for one level over the batch: q [B,H,W,C] (f32 or bf16,
-    channel-last contiguous) -> [B,H,W,C] f32. Taps and weights as in
-    `cgm_fused_plain`, f32 and contiguous on the CUDA path."""
+    channel-last contiguous) -> [B,H,W,C] in `out_dtype` (f32 or bf16,
+    default q's dtype). Taps and weights as in `cgm_fused_plain`, f32 and
+    contiguous on the CUDA path."""
     if q.is_cuda:
-        return _launch(q, k1, k13, k31, w3, b3)
+        return _launch(q, k1, k13, k31, w3, b3, out_dtype or q.dtype)
     if q.device.type != "cpu":
         raise ValueError(f"cgm_correlate_fused: q on {q.device} (expected cuda or cpu)")
-    return cgm_fused_plain(q, k1, k13, k31, w3, b3)
+    return cgm_fused_plain(q, k1, k13, k31, w3, b3, out_dtype)
 
 
-def _launch(q, k1, k13, k31, w3, b3) -> torch.Tensor:
+def _launch(q, k1, k13, k31, w3, b3, out_dtype) -> torch.Tensor:
     if q.dim() != 4 or q.shape[-1] != CHANNELS:
         raise ValueError(f"cgm_correlate_fused: q must be [B,H,W,{CHANNELS}], got {tuple(q.shape)}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"cgm_correlate_fused: q must be f32 or bf16, got {q.dtype}")
-    if not q.is_contiguous():
-        raise ValueError("cgm_correlate_fused: q must be contiguous [B,H,W,C] (channels-last map)")
+    floats = (torch.float32, torch.bfloat16)
+    if q.dtype not in floats or out_dtype not in floats:
+        raise ValueError(f"cgm_correlate_fused: q and out must be f32 or bf16, got {q.dtype}, {out_dtype}")
+    if not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError("cgm_correlate_fused: q must be contiguous [B,H,W,C] (channels-last map), "
+                         "16-byte aligned")
     c = CHANNELS
     for name, t, shape in (
-        ("k1", k1, (c,)), ("k13", k13, (3, c)), ("k31", k31, (3, c)),
-        ("w3", w3, (2 * c, c)), ("b3", b3, (c,)),
+        ("k1", k1, (c,)), ("k13", k13, (3, c)), ("k31", k31, (3, c)), ("w3", w3, (c, 2 * c)),
+        ("b3", b3, (c,)),
     ):
         if t.device != q.device or t.dtype != torch.float32 or tuple(t.shape) != shape:
             raise ValueError(
                 f"cgm_correlate_fused: {name} must be float32 {shape} on {q.device}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}"
             )
-        if not t.is_contiguous():
-            raise ValueError(f"cgm_correlate_fused: {name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"cgm_correlate_fused: {name} must be contiguous and 16-byte aligned")
     b, h, w, _ = q.shape
-    out = torch.empty((b, h, w, c), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, h, w, c), dtype=out_dtype, device=q.device)
     lib = _native.library("cgm")
     rc = lib.cgm_forward(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k1.data_ptr(), k13.data_ptr(),
-        k31.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(), b, h, w, c,
+        k31.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
+        int(out_dtype == torch.bfloat16), b, h, w, c,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _native.check(lib, rc, "cgm_correlate_fused")

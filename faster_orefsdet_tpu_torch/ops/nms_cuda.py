@@ -7,6 +7,8 @@ kernel (or raise), CPU tensors run the plain fixpoint ``ops.nms.nms_mask``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _native
@@ -16,7 +18,8 @@ MAX_K = 2048  # the kernel's cap (csrc/nms.cu MAX_K)
 
 
 class _Counter:
-    """Kernel launches made by `nms_mask` (one per call on CUDA tensors)."""
+    """Kernel launches made by `nms_mask`: one per call on CUDA tensors, which
+    runs csrc/nms.cu's rank, mask and sweep kernels in turn."""
 
     launches = 0
 
@@ -54,16 +57,19 @@ def _launch(boxes, scores, valid, thr: float) -> torch.Tensor:
             )
         if not t.is_contiguous():
             raise ValueError(f"nms_mask: {name} must be contiguous")
-    words = -(-k // 64)
-    mask = torch.empty((b, k, words), dtype=torch.int64, device=boxes.device)
-    rank_part = torch.empty((b, k, words), dtype=torch.int32, device=boxes.device)
-    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     lib = _native.library("nms")
+    # one scratch buffer for the rank-order boxes, ranks and suppression rows
+    workspace = torch.empty(_workspace_bytes(b, k), dtype=torch.uint8, device=boxes.device)
+    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     rc = lib.nms_forward(
         boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), thr, b, k,
-        mask.data_ptr(), rank_part.data_ptr(), keep.data_ptr(),
-        torch.cuda.current_stream(boxes.device).cuda_stream,
+        workspace.data_ptr(), keep.data_ptr(), torch.cuda.current_stream(boxes.device).cuda_stream,
     )
     _native.check(lib, rc, "nms_mask")
     counter.launches += 1
     return keep
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_bytes(b: int, k: int) -> int:
+    return _native.library("nms").nms_workspace_bytes(b, k)

@@ -33,7 +33,8 @@ def _inputs(seed, b, h, w):
 @pytest.mark.parametrize("b", [1, 3])
 def test_plain_twin_matches_jax(b, h, w):
     q, k1, k13, k31, w3, b3 = _inputs(h * w + b, b, h, w)
-    t = [torch.from_numpy(a) for a in (q, k1, k13, k31, w3, b3)]
+    # the port takes nn.Linear's weight [C, 2C] as stored: w3 [2C, C] transposed
+    t = [torch.from_numpy(a) for a in (q, k1, k13, k31, np.ascontiguousarray(w3.T), b3)]
     got = cgm_cuda.cgm_correlate_fused(*t).numpy()  # CPU tensors: the plain twin
     np.testing.assert_array_equal(got, cgm_cuda.cgm_fused_plain(*t).numpy())
 
@@ -53,9 +54,14 @@ def test_correlation_chain_matches_jax():
 
 
 def test_bf16_input_is_widened_exactly():
+    """bf16 in, bf16 out: the f32 result of the widened input, rounded once."""
     q, k1, k13, k31, w3, b3 = _inputs(4, 1, 6, 8)
     qb = torch.from_numpy(q).bfloat16()
-    rest = [torch.from_numpy(a) for a in (k1, k13, k31, w3, b3)]
+    rest = [torch.from_numpy(a) for a in (k1, k13, k31, np.ascontiguousarray(w3.T), b3)]
     got = cgm_cuda.cgm_correlate_fused(qb, *rest)
-    assert got.dtype == torch.float32
-    torch.testing.assert_close(got, cgm_cuda.cgm_fused_plain(qb.float(), *rest), rtol=0, atol=0)
+    assert got.dtype == torch.bfloat16
+    ref = cgm_cuda.cgm_fused_plain(qb.float(), *rest)
+    assert ref.dtype == torch.float32
+    torch.testing.assert_close(got, ref.to(torch.bfloat16), rtol=0, atol=0)
+    f32 = cgm_cuda.cgm_correlate_fused(qb, *rest, out_dtype=torch.float32)
+    torch.testing.assert_close(f32, ref, rtol=0, atol=0)

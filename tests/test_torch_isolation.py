@@ -81,7 +81,7 @@ def _cgm_args(device=None):
     q = torch.zeros(1, 4, 5, 128, device=device)
     c = torch.zeros(128, device=device)
     t = torch.zeros(3, 128, device=device)
-    return q, c, t, t, torch.zeros(256, 128, device=device), c
+    return q, c, t, t, torch.zeros(128, 256, device=device), c
 
 
 def _nms_args(device=None):

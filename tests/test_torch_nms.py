@@ -75,6 +75,24 @@ def test_exact_score_ties_and_invalid_rows(k):
     _check(*_ties(np.random.default_rng(k), k), 0.5)
 
 
+def _edge_scene(kind, k):
+    rng = np.random.default_rng(k)
+    boxes, scores, valid = _scene(rng, k, k, spread=120.0)
+    if kind == "ascending":  # the rank scatter reverses the input
+        scores = np.sort(scores)
+    elif kind == "equal":  # every rank decided by the index alone
+        scores = np.full(k, 0.5, np.float32)
+    return boxes, scores, valid
+
+
+# the CUDA kernel works in chunks of 64 ranks: one box, a chunk and one over
+@pytest.mark.parametrize("kind,k", [
+    ("ascending", 200), ("ascending", 65), ("equal", 200), ("equal", 65), ("random", 1), ("random", 65),
+])
+def test_rank_order_edges(kind, k):
+    _check(*_edge_scene(kind, k), 0.5)
+
+
 def test_batch_with_different_valid_counts():
     rng = np.random.default_rng(11)
     k = 256
