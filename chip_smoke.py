@@ -15,7 +15,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    for bit. The NMS kernel against the plain fixpoint, bit for bit, at K in
    {1, 63, 64, 65, 256, 512, 1000, 1024, 1792, 2048} on batches of 10 scenes
    (random, dense chains, score ties, invalid padding, ascending scores, all
-   scores equal), and at K in {256, 1024} on each scene alone (batch 1);
+   scores equal), at K in {256, 1024} on each scene alone (batch 1), and the
+   class-aware NMS at the multiclass site's K = 768 (three classes of 256,
+   class-offset boxes) against its plain version;
 4. main path: seeded init_params under serving_vovnet (bf16), a 25-shot support
    cache from 256x256 crops, then 3 batch-1 requests (build_inference_fn) and
    2 batch-8 uint8 requests (build_batched_inference_fn) on 320x448 canvases
@@ -24,15 +26,43 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    expected count;
 5. card vs CPU: the same weights and inputs in f32 through the port on the card
    and on the CPU (plain twins), the support caches compared and the
-   detections greedy-matched;
-6. timing: each kernel at the main path's shapes, on the device only (50
+   detections greedy-matched (>= 85% at IoU >= 0.95, |dscore| <= 1e-3, the
+   top 10 of each side matched: "phase 5's criteria" below);
+6. raw frames: preprocess_device on 8 uint8 480x640 frames, card vs CPU
+   within 2e-3 on the 0-255 scale; build_serving_fn on them: the 320x448
+   canvas, finite packed detections inside the frame, 3 + 2 launches;
+7. pinned: build_pinned_inference_fn (CUDA-graph replay) on phase 4's
+   batch-1 f32 and batch-8 uint8 inputs against the eager builders, by
+   phase 5's criteria with |dscore| <= 1e-5 (the count of bit-identical
+   values printed); two held results must not alias. The wrappers' counters
+   advance at capture, so this path's launches are each graph's captured
+   launches times its replays;
+8. multiclass: three 25-shot caches stacked, build_multiclass_inference_fn at
+   batch 1: 9 CGM launches and 2 NMS launches (decode on [3, 1024], across
+   classes on [1, 768]); the NMS kernel bit for bit against the plain
+   fixpoint on the inputs that request gave it at each site (and the
+   class-aware call against its plain version); card vs CPU in f32 by phase
+   5's criteria within each class; one class stacked against
+   build_inference_fn;
+9. async: 16 VGA frames through AsyncPredictor(depth=3), without and with 2
+   readback workers, each result against that frame's own pinned call;
+10. eval: `evaluate` on 16 synthetic frames (filled ellipses on noise, the
+   ground truth their boxes) at batch 1 and 8, every AP value finite (the
+   weights are random: the values check the loop, not the detector);
+11. timing: each kernel at the main path's shapes, on the device only (50
    calls captured in a CUDA graph, the replay timed with CUDA events; L2
    warm) and as enqueued from the host (events around 50 calls), its plain
-   twin (events), and the main path end to end in bf16 with the library's
-   default TF32 settings;
-7. profile: the same batch-1 and batch-8 requests under torch.profiler:
-   device busy time, idle share, launches, each of the port's own kernels'
-   device time and launches, each stage's device span and the top kernels.
+   twin (events); then end to end in bf16 with the library's default TF32
+   settings: the eager and the pinned path at batch 1 and 8, and the
+   three-class request;
+12. profile: the same batch-1 and batch-8 requests, eager and pinned, under
+   torch.profiler: device busy time, idle share, launches, each of the
+   port's own kernels' device time and launches, each stage's device span
+   (eager only: a replay has no stages) and the top kernels; for the pinned
+   path also one replay's device time by CUDA events, and the profiler's
+   count of each own kernel per replay must equal the graph's captured
+   launches (a profile that missed kernel records is taken again, three
+   attempts at most).
 
 Each result is one JSON line. The line before the last holds the kernels'
 table; the last line is {"ok": true, "device": {...}}. Run without the
@@ -55,10 +85,18 @@ PEAK_F32_FLOPS = 67e12      # f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12    # TF32 on the tensor cores, dense
 CGM_RTOL = CGM_ATOL = 1e-4  # f32 (3xTF32 on the card), 256-term sums in another order
 MATCH_IOU, MATCH_FRACTION, MATCH_DSCORE = 0.95, 0.85, 1e-3
+PINNED_DSCORE = 1e-5  # the same kernels on the same inputs, eager or replayed
+PREPROCESS_ATOL = 2e-3  # 0-255 scale: the resize's f32 matrix products summed in another order
+ASYNC_ATOL = 1e-4  # frame coordinates and scores: the same graph on the same canvas
 CANVAS_HW, IMAGE_HW = (320, 448), (320.0, 427.0)
+FRAME_HW = (480, 640)  # a VGA camera frame: resized to 320x427 on the 320x448 canvas
+MULTICLASS_SEEDS = (10, 11, 12)
+MULTICLASS_K = 3 * 256  # classes x post_nms_topk_test: the multiclass request's cross-class NMS
+ASYNC_FRAMES, EVAL_FRAMES, EVAL_SHOTS = 16, 16, 5
 LEVELS_HW = [(CANVAS_HW[0] // s, CANVAS_HW[1] // s) for s in (8, 16, 32)]
 C = 128
 PROFILE_ITERS = 10
+PROFILE_ATTEMPTS = 3
 STAGES = ("features", "correlate", "proposal_head", "decode_proposals", "roi_stage", "roi_inference")
 OWN_KERNELS = ("cgm_kernel", "nms_rank_kernel", "nms_mask_kernel", "nms_sweep_kernel")
 
@@ -200,6 +238,29 @@ def nms_scenes(np, k, rng):
     return boxes, scores, valid
 
 
+def match(np, got, ref, max_dscore, by_class=False) -> dict:
+    """Phase 5's criteria on one image's detections (numpy dicts): the same
+    number valid, >= MATCH_FRACTION of them greedy-matched at IoU >=
+    MATCH_IOU with |dscore| <= max_dscore, each side's top 10 matched. With
+    by_class, boxes of different classes never match (each class is shifted
+    to a region of its own) and each class keeps the same count."""
+    gv, rv = got["valid"], ref["valid"]
+    gb, gs, rb, rs = got["boxes"][gv], got["scores"][gv], ref["boxes"][rv], ref["scores"][rv]
+    if by_class:
+        gb = gb + 1e4 * got["classes"][gv][:, None]
+        rb = rb + 1e4 * ref["classes"][rv][:, None]
+    pairs, dscore, used_g, used_r = greedy_match(np, gb, gs, rb, rs, MATCH_IOU)
+    top_g = set(np.argsort(-gs, kind="mergesort")[:10].tolist())
+    top_r = set(np.argsort(-rs, kind="mergesort")[:10].tolist())
+    top10 = top_g <= used_g and top_r <= used_r
+    ok = gv.sum() == rv.sum() > 0 and len(pairs) >= MATCH_FRACTION * rv.sum() and dscore <= max_dscore and top10
+    if by_class:
+        counts = [np.bincount(d["classes"][d["valid"]], minlength=8).tolist() for d in (got, ref)]
+        ok = ok and counts[0] == counts[1]
+    return {"valid": [int(gv.sum()), int(rv.sum())], "matched": len(pairs), "max_dscore": dscore,
+            "top10_matched": top10, "ok": bool(ok)}
+
+
 def greedy_match(np, got_b, got_s, ref_b, ref_s, iou_min):
     """Greedy one-to-one matching by descending IoU >= iou_min."""
     a1 = (got_b[:, 2] - got_b[:, 0]) * (got_b[:, 3] - got_b[:, 1])
@@ -209,6 +270,8 @@ def greedy_match(np, got_b, got_s, ref_b, ref_s, iou_min):
     wh = np.clip(rb - lt, 0, None)
     inter = wh[..., 0] * wh[..., 1]
     iou = np.where(inter > 0, inter / np.maximum(a1[:, None] + a2[None] - inter, 1e-12), 0.0)
+    # equal boxes match, the degenerate ones (clipped to a line) included
+    iou = np.where((got_b[:, None, :] == ref_b[None, :, :]).all(-1), 1.0, iou)
     pairs, used_g, used_r = [], set(), set()
     for j, r in zip(*np.unravel_index(np.argsort(-iou, axis=None), iou.shape)):
         if iou[j, r] < iou_min:
@@ -223,7 +286,7 @@ def greedy_match(np, got_b, got_s, ref_b, ref_s, iou_min):
 
 
 # ------------------------------------------------------------------ phases
-def phase_kernels(torch, np, cgm_cuda, nms_cuda, nms_plain):
+def phase_kernels(torch, np, cgm_cuda, nms_cuda, nms_plain, nms_batched_plain):
     g = torch.Generator(device="cuda").manual_seed(0)
     cgm_err, cgm_mismatches = 0.0, 0
     # the main path's levels at batch 1 and 8, and ragged tile edges at batch 3
@@ -260,17 +323,39 @@ def phase_kernels(torch, np, cgm_cuda, nms_cuda, nms_plain):
                 dev = tuple(t.cuda() for t in cpu)
                 keep = nms_cuda.nms_mask(*dev, thr)
                 torch.cuda.synchronize()
-                ref_card = nms_plain(*dev, thr)
-                ref_cpu = nms_plain(*cpu, thr)
-                diff = int((keep != ref_card).sum()) + int((keep.cpu() != ref_cpu).sum())
-                err = max(float((keep.float() - ref_card.float()).abs().max()),
-                          float((keep.cpu().float() - ref_cpu.float()).abs().max()))
+                diff, err = compare_masks(torch, keep, nms_plain(*dev, thr), nms_plain(*cpu, thr))
                 nms_mismatches, nms_err = nms_mismatches + diff, max(nms_err, err)
                 emit(check="nms", batch=int(keep.shape[0]), scenes=[s.start, s.stop], k=k, thr=thr,
                      kept=int(keep.sum()), mismatches=diff)
                 if diff:
                     raise AssertionError(f"NMS kernel differs from the plain fixpoint at K={k}")
+    # the multiclass site: three classes of 256 (class-major, as the
+    # multiclass path lays them out) through the class-offset trick, whose
+    # boxes reach about three times the scenes' extent
+    k = MULTICLASS_K
+    boxes, scores, valid = nms_scenes(np, k, np.random.default_rng(k))
+    classes = np.broadcast_to(np.arange(k) // (k // len(MULTICLASS_SEEDS)), scores.shape).astype(np.int32)
+    for thr in (0.6, 0.9):
+        cpu = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (boxes, scores, classes, valid))
+        dev = tuple(t.cuda() for t in cpu)
+        keep = nms_cuda.batched_nms_mask(*dev, thr)
+        torch.cuda.synchronize()
+        diff, err = compare_masks(torch, keep, nms_batched_plain(*dev, thr), nms_batched_plain(*cpu, thr))
+        nms_mismatches, nms_err = nms_mismatches + diff, max(nms_err, err)
+        emit(check="nms_class_offset", batch=int(keep.shape[0]), k=k, classes=len(MULTICLASS_SEEDS), thr=thr,
+             kept=int(keep.sum()), mismatches=diff)
+        if diff:
+            raise AssertionError(f"class-aware NMS differs from the plain fixpoint at K={k}")
     return cgm_err, cgm_mismatches, nms_err, nms_mismatches
+
+
+def compare_masks(torch, keep, ref_card, ref_cpu):
+    """Mismatches and max |err| of a kernel's keep mask against the plain
+    fixpoint's on the same tensors on the card and on their CPU copies."""
+    diff = int((keep != ref_card).sum()) + int((keep.cpu() != ref_cpu).sum())
+    err = max(float((keep.float() - ref_card.float()).abs().max()),
+              float((keep.cpu().float() - ref_cpu.float()).abs().max()))
+    return diff, err
 
 
 def support_inputs(torch, np, cfg, shots, rng):
@@ -288,6 +373,286 @@ def support_inputs(torch, np, cfg, shots, rng):
     return torch.from_numpy(imgs), torch.from_numpy(boxes)
 
 
+def count_launches(cgm_cuda, nms_cuda, run) -> dict:
+    """The kernel launches that run() makes, by the wrappers' counters set to
+    0 just before it and read just after."""
+    import torch
+
+    cgm_cuda.counter.launches = 0
+    nms_cuda.counter.launches = 0
+    run()
+    torch.cuda.synchronize()
+    return {"cgm": cgm_cuda.counter.launches, "nms": nms_cuda.counter.launches}
+
+
+def synthetic_frames(np, n, seed):
+    """n VGA frames [480, 640, 3] uint8 (BGR), drawn with numpy: a noisy
+    gray background with filled ellipses, one small, one medium and one
+    large (by COCO's area ranges) and up to three more, and their boxes as
+    the ground truth (xyxy)."""
+    rng = np.random.default_rng(seed)
+    h, w = FRAME_HW
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames, boxes = [], []
+    for _ in range(n):
+        img = rng.normal(110, 12, (h, w, 3))
+        frame_boxes = []
+        semi_axes = [(6, 14), (20, 40), (55, 90)] + [(6, 90)] * int(rng.integers(0, 4))
+        for lo, hi in semi_axes:
+            a, b = rng.uniform(lo, hi, 2)
+            cx, cy = rng.uniform(a + 2, w - a - 2), rng.uniform(b + 2, h - b - 2)
+            img[((xx - cx) / a) ** 2 + ((yy - cy) / b) ** 2 <= 1.0] = rng.uniform(35, 75)
+            frame_boxes.append((cx - a, cy - b, cx + a, cy + b))
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+        boxes.append(frame_boxes)
+    return frames, boxes
+
+
+def phase_raw_frames(torch, np, cfg, params, cache, frames_u8):
+    """preprocess_device on the card against the CPU, then build_serving_fn
+    on the same VGA frames."""
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
+    from faster_orefsdet_tpu_torch.pipelines.inference import build_serving_fn, pack_detections
+    from faster_orefsdet_tpu_torch.pipelines.preprocess import preprocess_device, resize_shortest_edge_size
+
+    out_hw = resize_shortest_edge_size(*FRAME_HW, cfg.input.min_size_test, cfg.input.max_size_test)
+    # mean 0 and std 1: the comparison holds on the 0-255 scale, before normalization
+    card = preprocess_device(frames_u8.cuda(), out_hw, CANVAS_HW, (0.0,) * 3, (1.0,) * 3)
+    cpu = preprocess_device(frames_u8, out_hw, CANVAS_HW, (0.0,) * 3, (1.0,) * 3)
+    diff = float((card.cpu() - cpu).abs().max())
+    emit(raw_frames={"preprocess_device": {"frames": list(frames_u8.shape), "resized": list(out_hw),
+                                           "canvas": list(card.shape[-2:]), "max_abs_diff_0_255": diff}})
+    if diff > PREPROCESS_ATOL or tuple(card.shape[-2:]) != CANVAS_HW:
+        raise AssertionError(f"preprocess_device: card vs CPU differ by {diff}")
+
+    serve_raw, canvas_hw = build_serving_fn(cfg, params, FRAME_HW)
+    frames = frames_u8.cuda()
+    out = {}
+    launches = count_launches(cgm_cuda, nms_cuda, lambda: out.update(p=pack_detections(serve_raw(cache, frames))))
+    p = out["p"]
+    valid = p[..., 6] > 0.5
+    boxes = p[..., :4][valid]
+    inside = bool((boxes >= 0).all() and (boxes[:, 0::2] <= FRAME_HW[1] + 1e-2).all()
+                  and (boxes[:, 1::2] <= FRAME_HW[0] + 1e-2).all())
+    emit(raw_frames={"serving": {"canvas": list(canvas_hw), "packed": list(p.shape), "launches": launches,
+                                 "valid_per_frame": valid.sum(-1).tolist(), "boxes_inside_frame": inside}})
+    if (tuple(canvas_hw) != CANVAS_HW or tuple(p.shape) != (len(frames), 100, 7) or not torch.isfinite(p).all()
+            or not inside or (valid.sum(-1) < 1).any()):
+        raise AssertionError("raw-frame serving gave a wrong result")
+    if launches != {"cgm": 3, "nms": 2}:
+        raise AssertionError(f"kernel launch counts {launches} on the raw-frame path")
+    return launches
+
+
+def phase_pinned(torch, np, cfg, params, cache, serve1, serve8, singles, u8, hw8):
+    """build_pinned_inference_fn against the eager builders on the main
+    path's inputs, and two held results that must not alias."""
+    from faster_orefsdet_tpu_torch.pipelines.inference import (
+        build_pinned_inference_fn, pack_detections, unpack_detections_np,
+    )
+
+    pinned = build_pinned_inference_fn(cfg, params, cache, packed=True)
+    eager = [pack_detections(serve1(cache, singles[i], IMAGE_HW)) for i in range(3)]
+    eager += [pack_detections(serve8(cache, u8[i], hw8)) for i in range(2)]
+    got = [pinned(singles[i], IMAGE_HW) for i in range(3)] + [pinned(u8[i], hw8) for i in range(2)]
+    torch.cuda.synchronize()
+    identical = sum(int((a == b).sum()) for a, b in zip(got, eager))
+    total = sum(a.numel() for a in got)
+    checks = []
+    for a, b in zip(got, eager):
+        ga, gb = unpack_detections_np(a.reshape(-1, 100, 7)), unpack_detections_np(b.reshape(-1, 100, 7))
+        for i in range(len(ga["valid"])):
+            checks.append(match(np, {k: v[i] for k, v in ga.items()}, {k: v[i] for k, v in gb.items()},
+                                PINNED_DSCORE))
+    first, second = pinned(singles[0], IMAGE_HW), pinned(singles[1], IMAGE_HW)
+    torch.cuda.synchronize()
+    no_alias = (first.data_ptr() != second.data_ptr() and torch.equal(first, got[0])
+                and torch.equal(second, got[1]) and not torch.equal(first, second))
+    graphs = {f"{list(k[0])} {str(k[1])[6:]}": {"captured_launches": g.launches, "replays": g.replays}
+              for k, g in pinned.graphs.items()}
+    emit(pinned={"images_checked": len(checks), "all_matched": all(c["ok"] for c in checks),
+                 "max_dscore": max(c["max_dscore"] for c in checks), "bit_identical_values": identical,
+                 "values": total, "held_results_do_not_alias": no_alias, "graphs": graphs,
+                 "replay_launches": pinned.kernel_launches()})
+    if not all(c["ok"] for c in checks):
+        raise AssertionError(f"pinned and eager detections do not match: {checks}")
+    if not no_alias:
+        raise AssertionError("two held pinned results alias or changed")
+    if any(g.launches != {"cgm": 3, "nms": 2} for g in pinned.graphs.values()):
+        raise AssertionError(f"pinned graphs captured {graphs}")
+    return pinned.kernel_launches()
+
+
+def phase_multiclass(torch, np, cfg, params, serve1, singles, img32):
+    """Three 25-shot caches stacked; the multiclass request's launches; card
+    vs CPU in f32; one class stacked against build_inference_fn."""
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
+    from faster_orefsdet_tpu_torch.pipelines.inference import (
+        build_multiclass_inference_fn, pack_detections, unpack_detections_np,
+    )
+    from faster_orefsdet_tpu_torch.pipelines.support_cache import build_support_cache, stack_support_caches
+
+    caches = [build_support_cache(cfg, params, *support_inputs(torch, np, cfg, 25, np.random.default_rng(s)))
+              for s in MULTICLASS_SEEDS]
+    mcache = stack_support_caches(caches)
+    multi = build_multiclass_inference_fn(cfg, params)
+    out = {}
+    launches = count_launches(cgm_cuda, nms_cuda,
+                              lambda: out.update(p=pack_detections(multi(mcache, singles[0], IMAGE_HW))))
+    p = out["p"]
+    classes = p[:, 5][p[:, 6] > 0.5]
+    ok_out = bool(tuple(p.shape) == (100, 7) and torch.isfinite(p).all() and len(classes) > 0
+                  and classes.min() >= 0 and classes.max() < len(caches))
+
+    cfg32 = cfg.replace(compute_dtype="float32")
+    dets = {}
+    for d in ("cuda", "cpu"):
+        mc = stack_support_caches([
+            build_support_cache(cfg32, params, *support_inputs(torch, np, cfg32, 5, np.random.default_rng(s)),
+                                device=d) for s in MULTICLASS_SEEDS])
+        det = build_multiclass_inference_fn(cfg32, params, device=d)(mc, img32, IMAGE_HW)
+        dets[d] = unpack_detections_np(pack_detections(det))
+    card_vs_cpu = match(np, dets["cuda"], dets["cpu"], MATCH_DSCORE, by_class=True)
+    one = unpack_detections_np(pack_detections(multi(stack_support_caches(caches[:1]), singles[0], IMAGE_HW)))
+    single = unpack_detections_np(pack_detections(serve1(caches[0], singles[0], IMAGE_HW)))
+    one_class = match(np, one, single, PINNED_DSCORE)
+    nms_checks, nms_err = multiclass_nms_checks(torch, lambda: multi(mcache, singles[0], IMAGE_HW))
+    emit(multiclass={"classes": len(caches), "launches": launches,
+                     "valid_per_class": np.bincount(classes.long().cpu().numpy(), minlength=3).tolist(),
+                     "card_vs_cpu_f32": card_vs_cpu, "one_class_vs_build_inference_fn": one_class,
+                     "nms_on_the_request_inputs": nms_checks})
+    if not ok_out:
+        raise AssertionError("multiclass detections are not finite [100, 7] with classes 0..2")
+    if launches != {"cgm": 3 * len(caches), "nms": 2}:
+        raise AssertionError(f"kernel launch counts {launches} on the multiclass path")
+    if not (card_vs_cpu["ok"] and one_class["ok"]):
+        raise AssertionError("multiclass detections do not match")
+    sites = [c["shape"] for c in nms_checks if c["site"] == "kernel"]
+    if sites != [[len(caches), 1024], [1, MULTICLASS_K]] or any(c["mismatches"] for c in nms_checks):
+        raise AssertionError(f"the NMS kernel on the multiclass request's own inputs: {nms_checks}")
+    return multi, mcache, launches, nms_err
+
+
+def multiclass_nms_checks(torch, request):
+    """The NMS kernel held bit for bit against the plain fixpoint on the
+    inputs a multiclass request gives it: request() runs once with the
+    wrappers' entries recording copies of their arguments (every kernel
+    launch, and the class-aware call across classes), then each recorded
+    call runs again through the kernel and through the plain version, on
+    the same card tensors and on their CPU copies. These extra launches are
+    outside any counted run."""
+    from faster_orefsdet_tpu_torch.ops import nms, nms_cuda
+
+    launch, batched = nms_cuda._launch, nms_cuda.batched_nms_mask
+    seen = {"kernel": [], "batched": []}
+
+    def recorder(site, fn):
+        def wrapped(*args):
+            seen[site].append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+            return fn(*args)
+        return wrapped
+
+    nms_cuda._launch, nms_cuda.batched_nms_mask = recorder("kernel", launch), recorder("batched", batched)
+    try:
+        request()
+        torch.cuda.synchronize()
+    finally:
+        nms_cuda._launch, nms_cuda.batched_nms_mask = launch, batched
+    pairs = {"kernel": (nms_cuda.nms_mask, nms.nms_mask), "batched": (nms_cuda.batched_nms_mask, nms.batched_nms_mask)}
+    checks, worst = [], 0.0
+    for site, calls in seen.items():
+        kernel_fn, plain_fn = pairs[site]
+        for args in calls:
+            tensors, thr = args[:-1], args[-1]
+            keep = kernel_fn(*tensors, thr)
+            torch.cuda.synchronize()
+            diff, err = compare_masks(torch, keep, plain_fn(*tensors, thr), plain_fn(*(t.cpu() for t in tensors), thr))
+            worst = max(worst, err)
+            checks.append({"site": site, "shape": list(keep.shape), "thr": thr, "kept": int(keep.sum()),
+                           "mismatches": diff})
+    return checks, worst
+
+
+def phase_async(torch, np, cfg, params, cache, frames, smi):
+    """AsyncPredictor(depth=3) with and without readback workers: each
+    result is that frame's own pinned call, in order."""
+    from faster_orefsdet_tpu_torch.pipelines.async_predictor import AsyncPredictor
+    from faster_orefsdet_tpu_torch.pipelines.preprocess import preprocess_host
+
+    inp = cfg.input
+    for workers in (0, 2):
+        pred = AsyncPredictor(cfg, params, cache, depth=3, readback_workers=workers)
+        t0 = time.perf_counter()
+        results = list(pred.run(frames))
+        first_s = time.perf_counter() - t0  # the first pass captures the graph
+        t0 = time.perf_counter()
+        again = list(pred.run(frames))
+        steady_s = time.perf_counter() - t0
+        worst = {"boxes": 0.0, "scores": 0.0}
+        same_count = len(results) == len(frames)
+        for f, r, r2 in zip(frames, results, again):
+            canvas, hw, (sy, sx) = preprocess_host(f, inp.min_size_test, inp.max_size_test, CANVAS_HW,
+                                                   inp.pixel_mean, inp.pixel_std)
+            p = pred._pinned(canvas.cuda(), torch.tensor([float(hw[0]), float(hw[1])])).cpu().numpy()
+            valid = p[:, 6] > 0.5
+            ref = {"boxes": p[valid, :4] * np.asarray([sx, sy, sx, sy]), "scores": p[valid, 4]}
+            for got in (r, r2):
+                same_count = same_count and len(got["scores"]) == len(ref["scores"]) > 0
+                if len(got["scores"]) == len(ref["scores"]):
+                    for k in worst:
+                        worst[k] = max(worst[k], float(np.abs(got[k] - ref[k]).max(initial=0.0)))
+        emit(**{"async": {"frames": len(frames), "depth": 3, "readback_workers": workers,
+                          "in_order_and_matched": same_count, "max_abs_diff": worst,
+                          "first_pass_frames_per_s": len(frames) / first_s,
+                          "frames_per_s": len(frames) / steady_s, "card": smi}})
+        if not same_count or worst["boxes"] > ASYNC_ATOL or worst["scores"] > ASYNC_ATOL:
+            raise AssertionError(f"async results differ from their pinned calls ({workers} readback workers)")
+
+
+def phase_eval(torch, np, cfg, params, smi):
+    """evaluate on synthetic frames at batch 1 and 8 (frames and support
+    crops held in memory, read through `imread`)."""
+    from faster_orefsdet_tpu_torch.data.coco import Annotation, ImageRecord, SupportEntry
+    from faster_orefsdet_tpu_torch.pipelines.evaluate import encode_support_set, evaluate
+
+    frames, gt_boxes = synthetic_frames(np, EVAL_FRAMES, seed=5)
+    store = {f"frame{i}": f for i, f in enumerate(frames)}
+    records = [ImageRecord(f"frame{i}", i + 1, *FRAME_HW,
+                           [Annotation(i * 100 + j, tuple(float(v) for v in b), 1) for j, b in enumerate(boxes)])
+               for i, boxes in enumerate(gt_boxes)]
+    crop = cfg.fs.support_crop_size
+    entries = []
+    for i in range(EVAL_SHOTS):  # a crop around each frame's large ellipse
+        x1, y1, x2, y2 = gt_boxes[i][2]
+        ox = int(np.clip((x1 + x2) / 2 - crop / 2, 0, FRAME_HW[1] - crop))
+        oy = int(np.clip((y1 + y2) / 2 - crop / 2, 0, FRAME_HW[0] - crop))
+        store[f"crop{i}"] = frames[i][oy:oy + crop, ox:ox + crop]
+        box = np.clip(np.asarray([x1 - ox, y1 - oy, x2 - ox, y2 - oy]), 0, crop - 1).tolist()
+        entries.append(SupportEntry(i, i + 1, 1, f"crop{i}", tuple(box)))
+    cache = encode_support_set(cfg, params, entries, shot=EVAL_SHOTS, imread=store.get)
+    keys = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR@100")
+    for bs in (1, 8):
+        res = evaluate(cfg, params, cache, records, batch_size=bs, imread=store.get)
+        emit(eval={"batch": bs, "frames": len(records), **res, "card": smi,
+                   "note": "random weights: the AP values check the loop, not the detector"})
+        if not all(np.isfinite(res[k]) for k in keys):
+            raise AssertionError(f"eval at batch {bs}: an AP value is not finite")
+
+
+def replay_ms(torch, graph, reps: int = 20) -> float:
+    """Device time of one replay of a captured graph: CUDA events around
+    each replay, the median of `reps`."""
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -301,9 +666,11 @@ def main() -> int:
     try:
         from faster_orefsdet_tpu_torch.config import serving_vovnet
         from faster_orefsdet_tpu_torch.ops import _native, cgm_cuda, nms_cuda
+        from faster_orefsdet_tpu_torch.ops.nms import batched_nms_mask as nms_batched_plain
         from faster_orefsdet_tpu_torch.ops.nms import nms_mask as nms_plain
         from faster_orefsdet_tpu_torch.pipelines.inference import (
-            build_batched_inference_fn, build_inference_fn, normalize_uint8, pack_detections,
+            build_batched_inference_fn, build_inference_fn, build_pinned_inference_fn, normalize_uint8,
+            pack_detections, unpack_detections_np,
         )
         from faster_orefsdet_tpu_torch.pipelines.support_cache import build_support_cache
         from faster_orefsdet_tpu_torch.utils.params import init_params
@@ -330,7 +697,8 @@ def main() -> int:
     emit(build_s=round(time.time() - t0, 3))
 
     # ---- 3. kernels against their plain twins
-    cgm_err, cgm_mismatches, nms_err, nms_mismatches = phase_kernels(torch, np, cgm_cuda, nms_cuda, nms_plain)
+    cgm_err, cgm_mismatches, nms_err, nms_mismatches = phase_kernels(torch, np, cgm_cuda, nms_cuda, nms_plain,
+                                                                  nms_batched_plain)
 
     # ---- 4. main path, serving_vovnet (bf16)
     cfg = serving_vovnet()
@@ -350,12 +718,10 @@ def main() -> int:
     singles = normalize_uint8(u8[0, :3], hw8[:3], cfg)
     torch.cuda.synchronize()
 
-    cgm_cuda.counter.launches = 0
-    nms_cuda.counter.launches = 0
-    packed = [pack_detections(serve1(cache, singles[i], IMAGE_HW)) for i in range(3)]
-    packed += [pack_detections(serve8(cache, u8[i], hw8)) for i in range(2)]
-    torch.cuda.synchronize()
-    launches = {"cgm": cgm_cuda.counter.launches, "nms": nms_cuda.counter.launches}
+    packed = []
+    launches = count_launches(cgm_cuda, nms_cuda, lambda: packed.extend(
+        [pack_detections(serve1(cache, singles[i], IMAGE_HW)) for i in range(3)]
+        + [pack_detections(serve8(cache, u8[i], hw8)) for i in range(2)]))
     requests = 3 + 2
     emit(main_path={"requests": requests, "images": 3 + 16, "launches": launches,
                     "launches_per_request": {"cgm": 3, "nms": 2}})
@@ -382,21 +748,29 @@ def main() -> int:
         if not torch.allclose(a, b, rtol=1e-3, atol=2e-4):
             raise AssertionError(f"support cache {name}: card vs CPU max diff {(a - b).abs().max():.3e}")
     dets = {d: build_inference_fn(cfg32, params, device=d)(caches[d], img32, IMAGE_HW) for d in ("cuda", "cpu")}
-    got = {d: {f: getattr(dets[d], f).float().cpu().numpy() for f in ("boxes", "scores", "valid")}
-           for d in dets}
-    gv, cv = got["cuda"]["valid"] > 0, got["cpu"]["valid"] > 0
-    gb, gs = got["cuda"]["boxes"][gv], got["cuda"]["scores"][gv]
-    cb, cs = got["cpu"]["boxes"][cv], got["cpu"]["scores"][cv]
-    pairs, dscore, used_g, used_r = greedy_match(np, gb, gs, cb, cs, MATCH_IOU)
-    top_g = set(np.argsort(-gs, kind="mergesort")[:10].tolist())
-    top_r = set(np.argsort(-cs, kind="mergesort")[:10].tolist())
-    emit(card_vs_cpu={"card_valid": int(gv.sum()), "cpu_valid": int(cv.sum()), "matched": len(pairs),
-                      "max_dscore": dscore, "top10_matched": top_g <= used_g and top_r <= used_r})
-    if (gv.sum() != cv.sum() or len(pairs) < MATCH_FRACTION * cv.sum() or dscore > MATCH_DSCORE
-            or not (top_g <= used_g and top_r <= used_r)):
+    card_vs_cpu = match(np, *(unpack_detections_np(pack_detections(dets[d])) for d in ("cuda", "cpu")), MATCH_DSCORE)
+    emit(card_vs_cpu=card_vs_cpu)
+    if not card_vs_cpu["ok"]:
         raise AssertionError("card and CPU detections do not match")
 
-    # ---- 6. timing: kernels at the main path's shapes, then end to end
+    # ---- 6. raw frames: preprocess_device and build_serving_fn
+    frames = rng.integers(0, 256, (8, 3, *FRAME_HW), dtype=np.uint8)
+    raw_launches = phase_raw_frames(torch, np, cfg, params, cache, torch.from_numpy(frames))
+
+    # ---- 7. pinned serving (CUDA-graph replay) against the eager builders
+    pinned_launches = phase_pinned(torch, np, cfg, params, cache, serve1, serve8, singles, u8, hw8)
+
+    # ---- 8. multiclass serving: three classes, K2 across classes
+    multi, mcache, multi_launches, multi_nms_err = phase_multiclass(torch, np, cfg, params, serve1, singles, img32)
+
+    # ---- 9. the async predictor on VGA frames
+    phase_async(torch, np, cfg, params, cache, list(rng.integers(0, 256, (ASYNC_FRAMES, *FRAME_HW, 3), np.uint8)),
+                smi)
+
+    # ---- 10. COCO evaluation on synthetic frames
+    phase_eval(torch, np, cfg, params, smi)
+
+    # ---- 11. timing: kernels at the main path's shapes, then end to end
     g = torch.Generator(device="cuda").manual_seed(1)
     # a kernel's row in the table: the work of one batch-8 request, i.e. the
     # sum over its launches at batch 8 (three levels; decode and ROI NMS)
@@ -457,26 +831,67 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()  # the requests' own peak, not the kernel timings' graphs
     b1 = request_ms(serve_at[1], 20)
     b8 = request_ms(serve_at[8], 10)
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    # the pinned path captured under the same settings (its first call captures)
+    torch.cuda.reset_peak_memory_stats()
+    pinned = build_pinned_inference_fn(cfg, params, cache, packed=True)
+    pin_at = {1: lambda: pinned(singles[0], IMAGE_HW), 8: lambda: pinned(u8[0], hw8)}
+    p1 = request_ms(pin_at[1], 50)
+    p8 = request_ms(pin_at[8], 20)
+    pinned_peak = torch.cuda.max_memory_allocated() / 1e9
+    m1 = request_ms(lambda: multi(mcache, singles[0], IMAGE_HW), 10)
     emit(e2e={"config": "serving_vovnet", "dtype": "bfloat16", "canvas": list(CANVAS_HW),
               "batch1_ms_median": b1[0], "batch1_ms_min": b1[1], "batch1_ms_max": b1[2],
-              "batch8_ms_median": b8[0], "batch8_images_per_s": 8e3 / b8[0],
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
+              "batch8_ms_median": b8[0], "batch8_images_per_s": 8e3 / b8[0], "peak_mem_gb": eager_peak,
+              "pinned_batch1_ms_median": p1[0], "pinned_batch1_ms_min": p1[1], "pinned_batch1_ms_max": p1[2],
+              "pinned_batch8_ms_median": p8[0], "pinned_batch8_images_per_s": 8e3 / p8[0],
+              "pinned_peak_mem_gb": pinned_peak,
+              "multiclass3_batch1_ms_median": m1[0], "multiclass3_batch1_ms_min": m1[1],
+              "multiclass3_batch1_ms_max": m1[2], "card": smi})
 
-    # ---- 7. where a request's time goes: the same requests under torch.profiler
+    # ---- 12. where a request's time goes: the same requests under torch.profiler
     for b, wall in ((1, b1[0]), (8, b8[0])):
-        emit(profile={"batch": b, **profile_requests(torch, serve_at[b], wall), "card": smi})
+        emit(profile={"path": "eager", "batch": b, **profile_requests(torch, serve_at[b], wall), "card": smi})
+    for b, wall in ((1, p1[0]), (8, p8[0])):
+        captured = next(c for key, c in pinned.graphs.items() if key[0][0] == b)
+        # the replays' own kernels, as the profiler saw them, must be the
+        # graph's captured launches: this is what shows that the pinned path
+        # launches the kernels, whose counters advance only at capture. The
+        # profiler has dropped part of a replay's kernel records (one run of
+        # ten batch-8 replays saw 2.7 CGM launches per replay), so a profile
+        # is taken again, PROFILE_ATTEMPTS times at most, until it is whole.
+        expected = {"cgm_kernel": captured.launches["cgm"],
+                    **{f"nms_{k}_kernel": captured.launches["nms"] for k in ("rank", "mask", "sweep")}}
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            prof = profile_requests(torch, pin_at[b], wall)
+            seen = prof["own_kernel_ms_and_launches_per_request"]
+            whole = all(seen[name][1] == n for name, n in expected.items())
+            if whole:
+                break
+        replay = replay_ms(torch, captured.graph)
+        emit(profile={"path": "pinned", "batch": b, **prof, "captured_launches": captured.launches,
+                      "profile_attempts": attempt, "replay_device_ms": replay, "card": smi})
+        if not whole:
+            raise AssertionError(f"pinned batch {b}: the profiler saw {seen} per replay, the graph holds {expected}")
 
+    # launches counted by the wrappers on each eager path; the pinned path's
+    # from its graphs' captured launches times their replays (phase 7)
+    by_path = {"main": launches, "raw_frames": raw_launches, "multiclass": multi_launches,
+               "pinned_replays": pinned_launches}
+    counted = {k: sum(by_path[p][k] for p in ("main", "raw_frames", "multiclass")) for k in ("cgm", "nms")}
     common = {"route": "cuda", "library_ms": None}
     emit(kernels=[
         {"name": "cgm_correlate_fused", **common,
          "source": "faster_orefsdet_tpu_torch/csrc/cgm.cu",
          "replaces": "faster_orefsdet_tpu/ops/pallas_cgm.py:47",
-         "launches": launches["cgm"], "max_abs_err": cgm_err, "mismatches": cgm_mismatches, "ms": cgm_ms, "enqueue_ms": cgm_enq_ms,
+         "launches": counted["cgm"], "launches_by_path": {p: v["cgm"] for p, v in by_path.items()},
+         "max_abs_err": cgm_err, "mismatches": cgm_mismatches, "ms": cgm_ms, "enqueue_ms": cgm_enq_ms,
          "plain_ms": cgm_plain_ms, **bound(cgm_bytes, cgm_flops, cgm_tc_flops)},
         {"name": "nms_mask", **common,
          "source": "faster_orefsdet_tpu_torch/csrc/nms.cu",
          "replaces": "faster_orefsdet_tpu/ops/pallas_nms.py:46",
-         "launches": launches["nms"], "max_abs_err": nms_err, "mismatches": nms_mismatches,
+         "launches": counted["nms"], "launches_by_path": {p: v["nms"] for p, v in by_path.items()},
+         "max_abs_err": max(nms_err, multi_nms_err), "mismatches": nms_mismatches,
          "ms": nms_ms, "enqueue_ms": nms_enq_ms, "plain_ms": nms_plain_ms, **bound(nms_bytes, nms_flops)},
     ])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -48,14 +48,18 @@ class DSACascadeHead(nn.Module):
     def forward(self, features: Sequence[torch.Tensor], boxes: torch.Tensor,
                 support_8: torch.Tensor, support_4: torch.Tensor, stage: int) -> StageOutput:
         """features: [B, C, H_l, W_l] per level; boxes [B, K, 4]; support_8
-        [P, P, C] shot-mean support ROI features. support_4 feeds only the
-        reference's discarded 4x4 branch and is not used."""
+        the shot-mean support ROI features, [P, P, C] for every row or
+        [B, P, P, C] one per row (the multiclass path's classes). support_4
+        feeds only the reference's discarded 4x4 branch and is not used."""
         cfg = self.cfg
         q8 = multilevel_roi_align(
             features, boxes, ROI_STRIDES, cfg.pooler_resolution, cfg.pooler_sampling_ratio,
             cfg.canonical_box_size, cfg.canonical_level,
         )  # [B, K, P, P, C]
-        s8 = support_8.to(q8.dtype).expand(q8.shape)
+        s8 = support_8.to(q8.dtype)
+        if s8.dim() == 4:
+            s8 = s8[:, None]
+        s8 = s8.expand(q8.shape)
         fused = linear(torch.cat([q8, s8], dim=-1), self.dsa_conv3)
         branch = torch.cat([linear(q8, self.dsa_conv1), linear(s8, self.dsa_conv2)], dim=-1)
         attn8 = fused + branch

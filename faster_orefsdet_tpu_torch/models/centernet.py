@@ -64,7 +64,7 @@ def decode_proposals(
     nms_budget is cfg.static.nms_budget_test: the candidates entering NMS."""
     strides = cfg.fpn_strides
     dev = agn_hms[0].device
-    grids = compute_grids(canvas_hw, strides, dev)
+    grids = compute_grids(tuple(canvas_hw), tuple(strides), device=dev)
     valid_canvas = _level_valid_mask(canvas_hw, strides, image_hw)
     shapes = level_grid_shapes(canvas_hw, strides)
     offsets = np.cumsum([0] + [hl * wl for hl, wl in shapes])

@@ -8,14 +8,15 @@ package's (a weighted sum in f32), so the two agree to rounding.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
+from ..utils.device import device_constant
 
-@functools.lru_cache(maxsize=None)
-def _pool_matrix_np(in_size: int, out_size: int) -> np.ndarray:
+
+@device_constant
+def adaptive_pool_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] row-stochastic averaging matrix, a constant on `device=`."""
     m = np.zeros((out_size, in_size), dtype=np.float32)
     for i in range(out_size):
         lo = (i * in_size) // out_size
@@ -24,17 +25,12 @@ def _pool_matrix_np(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
-def adaptive_pool_matrix(in_size: int, out_size: int, device=None) -> torch.Tensor:
-    """[out, in] row-stochastic averaging matrix."""
-    return torch.from_numpy(_pool_matrix_np(in_size, out_size)).to(device)
-
-
 def adaptive_avg_pool2d(x: torch.Tensor, output_size) -> torch.Tensor:
     """Pool the two trailing (spatial) axes of x [..., H, W] to output_size
     (out_h, out_w); computes and returns f32."""
     out_h, out_w = output_size
     h, w = x.shape[-2], x.shape[-1]
-    ph = adaptive_pool_matrix(h, out_h, x.device)
-    pw = adaptive_pool_matrix(w, out_w, x.device)
+    ph = adaptive_pool_matrix(h, out_h, device=x.device)
+    pw = adaptive_pool_matrix(w, out_w, device=x.device)
     x = torch.einsum("oh,...hw->...ow", ph, x.float())
     return torch.einsum("pw,...ow->...op", pw, x)

@@ -6,7 +6,8 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import numpy as np
-import torch
+
+from ..utils.device import device_constant
 
 
 def level_grid_shapes(canvas_hw: Tuple[int, int], strides: Sequence[int]):
@@ -15,13 +16,15 @@ def level_grid_shapes(canvas_hw: Tuple[int, int], strides: Sequence[int]):
     return [(h // s, w // s) for s in strides]
 
 
-def compute_grids(canvas_hw: Tuple[int, int], strides: Sequence[int], device=None) -> torch.Tensor:
+@device_constant
+def compute_grids(canvas_hw: Tuple[int, int], strides: Tuple[int, ...]) -> np.ndarray:
     """Concatenated [M, 2] grid-point (x, y) image coords: per level
-    (j * stride, i * stride) + stride // 2, row-major."""
+    (j * stride, i * stride) + stride // 2, row-major. A constant on
+    `device=`, made once per (canvas, strides, device)."""
     out = []
     for (hl, wl), s in zip(level_grid_shapes(canvas_hw, strides), strides):
         xs = np.arange(wl, dtype=np.float32) * s + s // 2
         ys = np.arange(hl, dtype=np.float32) * s + s // 2
         gx, gy = np.meshgrid(xs, ys)
         out.append(np.stack([gx.reshape(-1), gy.reshape(-1)], axis=1))
-    return torch.from_numpy(np.concatenate(out, axis=0)).to(device)
+    return np.concatenate(out, axis=0)

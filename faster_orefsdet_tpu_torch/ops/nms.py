@@ -72,6 +72,26 @@ def nms_mask_sequential(
     return keep
 
 
+def class_offset_boxes(boxes: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The coordinate-offset trick of d2's batched_nms: shift each box by its
+    class times one more than the largest valid coordinate of its row, so
+    that boxes of different classes never overlap. boxes [..., K, 4],
+    classes [..., K] -> shifted boxes [..., K, 4]."""
+    masked = torch.where(valid[..., None], boxes, torch.zeros((), dtype=boxes.dtype, device=boxes.device))
+    max_coord = masked.amax(dim=(-2, -1), keepdim=True) + 1.0  # [..., 1, 1]
+    return boxes + classes.to(boxes.dtype)[..., None] * max_coord
+
+
+def batched_nms_mask(
+    boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor,
+    iou_threshold: float,
+) -> torch.Tensor:
+    """Class-aware NMS keep mask: ``nms_mask`` on the class-offset boxes."""
+    if boxes.shape[-2] == 0:
+        return valid.bool()
+    return nms_mask(class_offset_boxes(boxes, classes, valid), scores, valid, iou_threshold)
+
+
 def keep_top_scores(scores: torch.Tensor, valid: torch.Tensor, k: int) -> torch.Tensor:
     """Keep entries whose score is >= the k-th largest valid score (the
     reference's kthvalue trim: ties at the k-th value are all kept). No trim

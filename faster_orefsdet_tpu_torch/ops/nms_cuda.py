@@ -12,7 +12,7 @@ import functools
 import torch
 
 from . import _native
-from .nms import nms_mask as nms_mask_plain
+from .nms import class_offset_boxes, nms_mask as nms_mask_plain
 
 MAX_K = 2048  # the kernel's cap (csrc/nms.cu MAX_K)
 
@@ -37,6 +37,21 @@ def nms_mask(
     if boxes.device.type != "cpu":
         raise ValueError(f"nms_mask: tensors on {boxes.device} (expected cuda or cpu)")
     return nms_mask_plain(boxes, scores, valid, iou_threshold)
+
+
+def batched_nms_mask(
+    boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor, valid: torch.Tensor,
+    iou_threshold: float,
+) -> torch.Tensor:
+    """Class-aware NMS keep mask (counterpart of ``batched_nms_mask_pallas``):
+    ``nms_mask`` on the class-offset boxes, so CUDA tensors go through the
+    kernel and CPU tensors through the plain fixpoint. boxes [B,K,4], scores
+    [B,K], classes [B,K], valid [B,K] -> keep [B,K]. On CUDA, K is capped at
+    MAX_K (a ValueError above it); there is no fallback."""
+    if boxes.shape[-2] == 0:
+        return valid.bool()
+    shifted = class_offset_boxes(boxes, classes, valid).contiguous()
+    return nms_mask(shifted, scores.contiguous(), valid.contiguous(), iou_threshold)
 
 
 def _launch(boxes, scores, valid, thr: float) -> torch.Tensor:

@@ -8,13 +8,19 @@ included: one launch per level or per NMS site serves the whole batch. Each
 stage is a named profiler range (``torch.profiler.record_function``), which
 the profile phase of ``chip_smoke.py`` reads.
 
+The query path copies nothing from the host and never waits for the device
+on CUDA: its constants (grids, pooling matrices, pixel statistics, image
+sizes given as tuples) are memoised on their device. So the pinned builder
+can capture it into a CUDA graph.
+
 The builders construct the detector from `cfg` themselves, so a model can
 never run under a config it was not built for.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional
+from collections import OrderedDict
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,11 +28,13 @@ from torch.profiler import record_function
 
 from ..config import Config
 from ..models.cascade_roi import roi_inference
-from ..models.centernet import decode_proposals
-from ..models.detector import CenterNet2Detector, support_kernels
+from ..models.centernet import decode_proposals, stable_topk
+from ..models.detector import CenterNet2Detector, Kernels, support_kernels
+from ..ops import cgm_cuda, nms_cuda
 from ..structures.boxes import apply_deltas, clip_boxes
 from ..structures.instances import Detections
-from ..utils.device import resolve_device
+from ..utils.device import device_constant, resolve_device
+from .preprocess import ceil_to, pixel_stats, preprocess_device, resize_shortest_edge_size
 from .support_cache import SupportCache
 
 
@@ -43,19 +51,24 @@ def make_detector(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = No
     return model.to(dev).cast_compute_weights().eval()
 
 
+def cache_kernels(model: CenterNet2Detector, cache: SupportCache) -> Dict[str, Kernels]:
+    """The CGM kernels of a single-class cache, per level."""
+    return {level: support_kernels(getattr(cache, level)) for level in model.levels}
+
+
 @torch.inference_mode()
 def query_path(model: CenterNet2Detector, cache: SupportCache, images: torch.Tensor,
-               image_hw: torch.Tensor) -> Detections:
+               image_hw: torch.Tensor, kernels: Optional[Dict[str, Kernels]] = None) -> Detections:
     """images [B, 3, Hc, Wc] normalized, padded canvases; image_hw [B, 2] the
     true (h, w) before padding -> Detections [B, K, ...] in resized-image
-    coordinates."""
+    coordinates. `kernels`, when given, are ``cache_kernels(model, cache)``
+    computed once by the caller (the pinned path)."""
     cfg = model.cfg
     canvas_hw = (images.shape[-2], images.shape[-1])
     with record_function("features"):
         feats = model.features(images)
     with record_function("correlate"):
-        kernels = {level: support_kernels(getattr(cache, level)) for level in model.levels}
-        pos_feats = model.correlate(feats, kernels)
+        pos_feats = model.correlate(feats, cache_kernels(model, cache) if kernels is None else kernels)
     with record_function("proposal_head"):
         agn_hms, bbox_regs = model.proposal_head(pos_feats)
     with record_function("decode_proposals"):
@@ -87,8 +100,90 @@ def query_path_single(model: CenterNet2Detector, cache: SupportCache, image: tor
     return Detections(*(t[0] for t in det))
 
 
+@torch.inference_mode()
+def query_path_multiclass(model: CenterNet2Detector, mcache: SupportCache, images: torch.Tensor,
+                          image_hw: torch.Tensor) -> Detections:
+    """The multiclass query path over a stacked cache (``stack_support_caches``,
+    N classes): the backbone once, then per class the CGM correlation (one
+    CGM launch per class and level: the kernel takes one set of taps), and
+    the head, decode and cascade batched over (class, image) rows; the NMS
+    across classes at the end. images [B, 3, Hc, Wc], image_hw [B, 2] ->
+    Detections [B, detections_per_image, ...] with class ids in 0..N-1.
+
+    The JAX package's multiclass semantics, where they differ from
+    `query_path`: scores are the mean softmax (no mult_proposal_score);
+    boxes are clipped only after the last stage; there is no per-class ROI
+    NMS; top-k ties go to the lower (class-major) index."""
+    cfg = model.cfg
+    n_cls, b = mcache.p3.shape[0], images.shape[0]
+    canvas_hw = (images.shape[-2], images.shape[-1])
+    rows_hw = image_hw.repeat(n_cls, 1)  # row c*B + i: class c, image i
+    with record_function("features"):
+        feats = model.features(images)
+    with record_function("correlate"):
+        per_class = [model.correlate(feats, cache_kernels(model, SupportCache(*(t[c] for t in mcache))))
+                     for c in range(n_cls)]
+        pos_feats = {level: torch.cat([pc[level] for pc in per_class]) for level in model.levels}
+    with record_function("proposal_head"):
+        agn_hms, bbox_regs = model.proposal_head(pos_feats)
+    with record_function("decode_proposals"):
+        proposals = decode_proposals(
+            agn_hms, bbox_regs, cfg.centernet, canvas_hw, rows_hw,
+            nms_budget=cfg.static.nms_budget_test,
+        )
+    feat_list = [feats[level].repeat(n_cls, 1, 1, 1) for level in ("p3", "p4", "p5")]
+    support_8 = mcache.rcnn_8.repeat_interleave(b, dim=0)
+    support_4 = mcache.rcnn_4.repeat_interleave(b, dim=0)
+    boxes = proposals.boxes
+    stage_outputs = []
+    with record_function("roi_stage"):
+        for stage in range(len(cfg.roi.cascade_ious)):
+            out = model.roi_stage(feat_list, boxes, support_8, support_4, stage)
+            stage_outputs.append(out)
+            boxes = apply_deltas(out.deltas, boxes, cfg.roi.cascade_bbox_reg_weights[stage])
+    with record_function("roi_inference"):
+        probs = sum(torch.softmax(o.scores, dim=-1) for o in stage_outputs) / len(stage_outputs)
+        boxes = clip_boxes(boxes, rows_hw)
+        k = boxes.shape[1]
+
+        def per_image(x):  # [N*B, K, ...] -> [B, N*K, ...], class-major within an image
+            x = x.reshape(n_cls, b, *x.shape[1:]).transpose(0, 1)
+            return x.reshape(b, n_cls * k, *x.shape[3:])
+
+        boxes, scores, valid = per_image(boxes), per_image(probs[..., 0]), per_image(proposals.valid)
+        classes = torch.arange(n_cls, dtype=torch.int32, device=boxes.device).repeat_interleave(k)
+        classes = classes.expand(b, -1)
+        finite = torch.isfinite(scores) & torch.isfinite(boxes).all(dim=-1)
+        valid = valid & (scores > cfg.roi.score_thresh_test) & finite
+        keep = nms_cuda.batched_nms_mask(boxes, scores, classes, valid, cfg.roi.nms_thresh_test)
+        topk = min(cfg.roi.detections_per_image, n_cls * k)
+        sel_scores, sel_idx = stable_topk(torch.where(keep, scores, torch.full_like(scores, -1.0)), topk)
+        return Detections(
+            boxes=torch.gather(boxes, 1, sel_idx[..., None].expand(-1, -1, 4)),
+            scores=torch.clamp(sel_scores, min=0.0),
+            classes=torch.gather(classes, 1, sel_idx),
+            valid=sel_scores > 0.0,
+        )
+
+
+@device_constant(maxsize=256)
+def _float_constant(values: Tuple) -> np.ndarray:
+    # image sizes and scales given as tuples vary with the data, so only the
+    # recent ones are kept; none enters a graph (the pinned function copies
+    # image_hw into its static buffer before it replays or captures)
+    return np.asarray(values, np.float32)
+
+
 def _hw(image_hw, batch_shape, dev) -> torch.Tensor:
-    hw = torch.as_tensor(image_hw, dtype=torch.float32, device=dev)
+    """image_hw as an f32 tensor on `dev`, broadcast to batch_shape + (2,); a
+    pair (h, w) becomes a constant memoised on the device."""
+    if isinstance(image_hw, torch.Tensor):
+        # from pinned host memory the copy is queued on the stream, no wait
+        hw = image_hw.to(device=dev, dtype=torch.float32, non_blocking=True)
+    elif len(image_hw) == 2 and np.ndim(image_hw[0]) == 0:
+        hw = _float_constant(tuple(float(v) for v in image_hw), device=dev)
+    else:
+        hw = torch.as_tensor(image_hw, dtype=torch.float32, device=dev)
     return hw.expand(*batch_shape, 2) if hw.dim() == 1 and batch_shape else hw
 
 
@@ -117,9 +212,8 @@ def build_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], *,
 def normalize_uint8(images: torch.Tensor, image_hw: torch.Tensor, cfg: Config) -> torch.Tensor:
     """Raw uint8 canvases [B, 3, Hc, Wc] -> normalized f32, with the padding
     beyond image_hw set back to zero (normalize-then-pad, as the reference)."""
-    mean = torch.tensor(cfg.input.pixel_mean, dtype=torch.float32, device=images.device)
-    std = torch.tensor(cfg.input.pixel_std, dtype=torch.float32, device=images.device)
-    x = (images.float() - mean[:, None, None]) / std[:, None, None]
+    mean, std = pixel_stats(tuple(cfg.input.pixel_mean), tuple(cfg.input.pixel_std), device=images.device)
+    x = (images.float() - mean) / std
     hc, wc = x.shape[-2:]
     row_ok = torch.arange(hc, device=x.device)[None, :] < image_hw[:, 0, None]
     col_ok = torch.arange(wc, device=x.device)[None, :] < image_hw[:, 1, None]
@@ -143,6 +237,171 @@ def build_batched_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], 
         return query_path(model, cache, images, hw)
 
     return fn
+
+
+def build_serving_fn(cfg: Config, params: Mapping[str, torch.Tensor], input_hw: Tuple[int, int], *,
+                     device="cuda") -> Tuple[Callable[..., Detections], Tuple[int, int]]:
+    """Raw frames to detections in frame coordinates, for a camera of fixed
+    size input_hw = (H0, W0): the frames [B, 3, H0, W0] (uint8 or float) are
+    resized to the test scale, normalized and padded on the device
+    (``preprocess_device``), then go through the query path. The canvas, the
+    resized size and the scale back to the frame are fixed at build time.
+
+    Returns (fn, canvas_hw) with fn(cache, frames) -> Detections [B, K, ...]."""
+    model = make_detector(cfg, params, device=device)
+    dev = next(model.parameters()).device
+    h0, w0 = input_hw
+    rh, rw = resize_shortest_edge_size(h0, w0, cfg.input.min_size_test, cfg.input.max_size_test)
+    d = cfg.input.size_divisibility
+    canvas_hw = (ceil_to(rh, d), ceil_to(rw, d))
+    scale_hw = (h0 / rh, w0 / rw)
+
+    def fn(cache: SupportCache, frames: torch.Tensor) -> Detections:
+        cache = _check_cache(cache, dev)
+        if tuple(frames.shape[-2:]) != (h0, w0):
+            raise ValueError(f"frames of {tuple(frames.shape[-2:])}: this function serves {h0}x{w0}")
+        frames = frames.to(dev)
+        canvases = preprocess_device(frames, (rh, rw), canvas_hw, cfg.input.pixel_mean, cfg.input.pixel_std)
+        det = query_path(model, cache, canvases, _hw((rh, rw), (frames.shape[0],), dev))
+        return rescale_detections(det, scale_hw)
+
+    return fn, canvas_hw
+
+
+def rescale_detections(det: Detections, scale_hw) -> Detections:
+    """Map resized-frame boxes back to frame coordinates (detector_postprocess:
+    x by the width ratio, y by the height ratio); scale_hw = (sy, sx)."""
+    sy, sx = scale_hw
+    return det._replace(boxes=det.boxes * _float_constant((sx, sy, sx, sy), device=det.boxes.device))
+
+
+def build_multiclass_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], *,
+                                  device="cuda") -> Callable[..., Detections]:
+    """(mcache, image [3, Hc, Wc] normalized, image_hw (h, w)) -> Detections
+    [K, ...] over every class of the stacked cache `mcache` (on `device`)."""
+    model = make_detector(cfg, params, device=device)
+    dev = next(model.parameters()).device
+
+    def fn(mcache: SupportCache, image: torch.Tensor, image_hw) -> Detections:
+        det = query_path_multiclass(model, _check_cache(mcache, dev), image.to(dev)[None],
+                                    _hw(image_hw, (1,), dev))
+        return Detections(*(t[0] for t in det))
+
+    return fn
+
+
+MAX_GRAPHS = 4  # captured shapes kept by one pinned function (least recently used goes)
+WARMUP_CALLS = 2
+
+
+class _Graph:
+    """One captured call: the graph, its static input buffers and outputs,
+    the kernel launches captured into it and how often it was replayed."""
+
+    def __init__(self, graph, images, image_hw, out, launches: Dict[str, int]):
+        self.graph, self.images, self.image_hw, self.out = graph, images, image_hw, out
+        self.launches = launches
+        self.replays = 0
+
+
+Output = Union[Detections, torch.Tensor]
+
+
+class PinnedInferenceFn:
+    """fn(image, image_hw) -> Detections (or packed [.., K, 7]) with the
+    weights and the support cache fixed at build time (see
+    ``build_pinned_inference_fn``)."""
+
+    def __init__(self, cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCache, *,
+                 device="cuda", packed: bool = False):
+        self.model = make_detector(cfg, params, device=device)
+        self.device = next(self.model.parameters()).device
+        self.cache = _check_cache(cache, self.device)
+        with torch.inference_mode():
+            self.kernels = cache_kernels(self.model, cache)
+        self.packed = packed
+        self.graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
+
+    def _run(self, images: torch.Tensor, image_hw: torch.Tensor) -> Output:
+        if images.dtype == torch.uint8:
+            images = normalize_uint8(images, image_hw, self.model.cfg)
+        det = query_path(self.model, self.cache, images, image_hw, kernels=self.kernels)
+        return pack_detections(det) if self.packed else det
+
+    def __call__(self, image: torch.Tensor, image_hw) -> Output:
+        single = image.dim() == 3
+        images = image[None] if single else image
+        hw = _hw(image_hw, (images.shape[0],), self.device)
+        if self.device.type == "cuda":
+            out = self._replay(images, hw)
+        else:
+            out = self._run(images.to(self.device), hw)
+        if not single:
+            return out
+        return out[0] if isinstance(out, torch.Tensor) else Detections(*(t[0] for t in out))
+
+    def _replay(self, images: torch.Tensor, hw: torch.Tensor) -> Output:
+        key = (tuple(images.shape), images.dtype)
+        g = self.graphs.get(key)
+        if g is None:
+            g = self._capture(images, hw)
+            if len(self.graphs) >= MAX_GRAPHS:
+                self.graphs.popitem(last=False)
+            self.graphs[key] = g
+        else:
+            self.graphs.move_to_end(key)
+            g.images.copy_(images, non_blocking=True)
+            g.image_hw.copy_(hw, non_blocking=True)
+        g.graph.replay()
+        g.replays += 1
+        # a fresh copy on the stream: the next replay overwrites g.out
+        if isinstance(g.out, torch.Tensor):
+            return g.out.clone()
+        return Detections(*(t.clone() for t in g.out))
+
+    def _capture(self, images: torch.Tensor, hw: torch.Tensor) -> _Graph:
+        static_images = torch.empty(images.shape, dtype=images.dtype, device=self.device)
+        static_hw = torch.empty(hw.shape, dtype=torch.float32, device=self.device)
+        static_images.copy_(images)
+        static_hw.copy_(hw)
+        # warm up on a side stream (this also builds the kernels), then capture
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_CALLS):
+                self._run(static_images, static_hw)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        before = (cgm_cuda.counter.launches, nms_cuda.counter.launches)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self._run(static_images, static_hw)
+        launches = {"cgm": cgm_cuda.counter.launches - before[0], "nms": nms_cuda.counter.launches - before[1]}
+        return _Graph(graph, static_images, static_hw, out, launches)
+
+    def kernel_launches(self) -> Dict[str, int]:
+        """The kernel launches made by replays: each graph's captured launches
+        times its replays. (The wrappers' counters advance when a call is
+        captured, not when it is replayed.)"""
+        return {name: sum(g.launches[name] * g.replays for g in self.graphs.values())
+                for name in ("cgm", "nms")}
+
+
+def build_pinned_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCache, *,
+                              device="cuda", packed: bool = False) -> PinnedInferenceFn:
+    """fn(image, image_hw) -> Detections with the weights and the support
+    cache fixed at build time: the sustained-serving path. image is one
+    canvas [3, Hc, Wc] with image_hw (h, w), or a batch [B, 3, Hc, Wc] with
+    image_hw [B, 2]; normalized f32, or raw uint8 normalized on the device.
+    packed=True returns ``pack_detections`` of the result.
+
+    On CUDA, the first call for a (batch, canvas, dtype) shape warms up and
+    captures the whole request into a CUDA graph with static input buffers;
+    later calls copy their inputs in and replay it, so a request costs a few
+    host operations instead of some 760 launches. Each call returns a fresh
+    copy of the outputs, so results held from earlier calls stay intact. A
+    capture that fails raises. Rebuild the function after changing the
+    weights or the cache. On the CPU it runs the eager path."""
+    return PinnedInferenceFn(cfg, params, cache, device=device, packed=packed)
 
 
 def pack_detections(det: Detections) -> torch.Tensor:

@@ -9,7 +9,7 @@ either package loads in the other:
 
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple
+from typing import Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -68,6 +68,13 @@ def build_support_cache(cfg: Config, params: Mapping[str, torch.Tensor],
     model = make_detector(cfg, params, device=device)
     dev = next(model.parameters()).device
     return support_cache_from_model(model, support_images.to(dev), support_boxes.to(dev))
+
+
+def stack_support_caches(caches: Sequence[SupportCache]) -> SupportCache:
+    """Per-class caches stacked on a leading class axis ([N, ...] per field):
+    the cache of the multiclass query path, which scores every class and runs
+    NMS across them."""
+    return SupportCache(*(torch.stack([getattr(c, f) for c in caches]) for f in SupportCache._fields))
 
 
 def save_support_cache(path: str, cache: SupportCache) -> None:

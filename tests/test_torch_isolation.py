@@ -7,22 +7,25 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from faster_orefsdet_tpu_torch.config import get_config
+from faster_orefsdet_tpu_torch.data.coco import SupportEntry
 from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
-from faster_orefsdet_tpu_torch.pipelines import inference, support_cache
+from faster_orefsdet_tpu_torch.pipelines import evaluate, inference, support_cache
+from faster_orefsdet_tpu_torch.pipelines.async_predictor import AsyncPredictor
 
 REPO = Path(__file__).resolve().parent.parent
 
 
-def test_port_imports_without_jax():
-    code = textwrap.dedent(
+def _import_every_module(blocked):
+    """Import every module of the port and chip_smoke.py in a fresh
+    interpreter in which importing a package of `blocked` raises."""
+    code = f"BLOCKED = {tuple(blocked)!r}\n" + textwrap.dedent(
         """
         import importlib, importlib.abc, pkgutil, runpy, sys
-
-        BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "faster_orefsdet_tpu")
 
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
@@ -45,11 +48,28 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 20
+    assert int(out.stdout.split()[0]) >= 27
+
+
+def test_port_imports_without_jax():
+    _import_every_module(("jax", "jaxlib", "flax", "optax", "orbax", "faster_orefsdet_tpu"))
+
+
+def test_port_imports_without_image_libraries():
+    """The card's machine has no cv2 and no PIL: no module of the port may
+    import either when it is imported (the eval loader's default reader
+    imports cv2 only when it is called)."""
+    _import_every_module(("cv2", "PIL"))
 
 
 def _support_cache_builder(cfg, sd):
     return support_cache.build_support_cache(cfg, sd, torch.zeros(1, 3, 64, 64), torch.zeros(1, 4))
+
+
+def _encode_support_set(cfg, sd):
+    entry = SupportEntry(1, 1, 1, "crop.jpg", (8.0, 8.0, 200.0, 200.0))
+    crop = np.zeros((240, 240, 3), np.uint8)
+    return evaluate.encode_support_set(cfg, sd, [entry], imread=lambda path: crop)
 
 
 @pytest.mark.parametrize("builder", [
@@ -58,8 +78,15 @@ def _support_cache_builder(cfg, sd):
     lambda cfg, sd: inference.build_batched_inference_fn(cfg, sd),
     _support_cache_builder,
     lambda cfg, sd: support_cache.load_support_cache("cache.npz"),
+    lambda cfg, sd: inference.build_serving_fn(cfg, sd, (480, 640)),
+    lambda cfg, sd: inference.build_pinned_inference_fn(cfg, sd, None),
+    lambda cfg, sd: inference.build_multiclass_inference_fn(cfg, sd),
+    lambda cfg, sd: AsyncPredictor(cfg, sd, None),
+    lambda cfg, sd: evaluate.evaluate(cfg, sd, None, []),
+    _encode_support_set,
 ], ids=["make_detector", "build_inference_fn", "build_batched_inference_fn", "build_support_cache",
-        "load_support_cache"])
+        "load_support_cache", "build_serving_fn", "build_pinned_inference_fn",
+        "build_multiclass_inference_fn", "AsyncPredictor", "evaluate", "encode_support_set"])
 def test_builders_default_to_the_card(builder, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
