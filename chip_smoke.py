@@ -52,9 +52,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 11. timing: each kernel at the main path's shapes, on the device only (50
    calls captured in a CUDA graph, the replay timed with CUDA events; L2
    warm) and as enqueued from the host (events around 50 calls), its plain
-   twin (events); then end to end in bf16 with the library's default TF32
-   settings: the eager and the pinned path at batch 1 and 8, and the
-   three-class request;
+   twin (events), and K2 alone at the training decode's site ([1, 2048] at
+   IoU 0.9, random scenes); then end to end in bf16 with the library's
+   default TF32 settings: the eager and the pinned path at batch 1 and 8,
+   and the three-class request;
 12. profile: the same batch-1 and batch-8 requests, eager and pinned, under
    torch.profiler: device busy time, idle share, launches, each of the
    port's own kernels' device time and launches, each stage's device span
@@ -62,7 +63,19 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    path also one replay's device time by CUDA events, and the profiler's
    count of each own kernel per replay must equal the graph's captured
    launches (a profile that missed kernel records is taken again, three
-   attempts at most).
+   attempts at most);
+13. train: finetune_vovnet at full width (f32, 24 shots at 256x256, 128
+   ROIs) on 16 synthetic 480x640 frames made in memory, through the mapper
+   and train_loader onto the 448x608 canvas: 3 + 20 train steps from
+   init_params, every loss finite, 0 CGM and 1 NMS launch a step, the median
+   step time (host clock, each step ending in a sync, after the 3), queries
+   per second and peak memory; the NMS kernel bit for bit against the plain
+   fixpoint on the [1, 2048] set that a step's decode gives it, and its
+   device time there; one step card vs CPU (same weights, batch and ROIs,
+   no dropout, TF32 off): each loss within 1e-3 relative, each gradient
+   within 1e-3 of its tensor's largest |grad|; 30 steps on one batch at a
+   constant LR of 1e-4 without warmup: the mean of the last 5 losses at
+   most 0.75 x the first; a profile of the step as in phase 12.
 
 Each result is one JSON line. The line before the last holds the kernels'
 table; the last line is {"ok": true, "device": {...}}. Run without the
@@ -72,6 +85,7 @@ no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -97,6 +111,18 @@ LEVELS_HW = [(CANVAS_HW[0] // s, CANVAS_HW[1] // s) for s in (8, 16, 32)]
 C = 128
 PROFILE_ITERS = 10
 PROFILE_ATTEMPTS = 3
+# phase 13, fine-tuning finetune_vovnet at full width on synthetic VGA frames
+TRAIN_CONFIG, TRAIN_FRAMES, TRAIN_CANVAS = "finetune_vovnet", 16, (448, 608)
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+TRAIN_NMS_K = 2048  # max(2048, post_nms_topk_train): the training decode's NMS set
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-3, 1e-3  # card vs CPU in f32, TF32 off; grads of each tensor's largest |grad|
+# at LR 1e-3 the loss from random weights swung up to 3x its start (PERF.md, fine-tuning findings)
+LEARN_STEPS, LEARN_LR, LEARN_WINDOW, LEARN_RATIO = 30, 1e-4, 5, 0.75
+# the train step's named ranges; the last two are torch.optim's own. Autograd
+# launches the backward's kernels from its own thread, outside "backward".
+TRAIN_STAGES = ("features", "refine_support", "correlate", "proposal_head", "targets", "decode_proposals",
+                "roi_sampling", "roi_stage", "backward", "optimizer", "Optimizer.step#SGD.step",
+                "Optimizer.zero_grad#SGD.zero_grad")
 STAGES = ("features", "correlate", "proposal_head", "decode_proposals", "roi_stage", "roi_inference")
 OWN_KERNELS = ("cgm_kernel", "nms_rank_kernel", "nms_mask_kernel", "nms_sweep_kernel")
 
@@ -149,13 +175,14 @@ def graph_ms(torch, fn, iters: int = 50, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def profile_requests(torch, request, wall_ms: float) -> dict:
+def profile_requests(torch, request, wall_ms: float, stages=STAGES) -> dict:
     """PROFILE_ITERS requests under torch.profiler, per request: device busy
     ms (the sum of kernel times; the path runs on one stream, so kernels do
     not overlap), the idle share of the median wall time `wall_ms` measured
     without the profiler, kernel launches, this port's own kernels' ms, each
     stage's device span (first kernel start to last kernel end, idle gaps
-    included; the profiler slows the host) and the top kernels."""
+    included; the profiler slows the host; `stages` names the ranges) and
+    the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     def device_us(evt, names=("self_device_time_total", "self_cuda_time_total")):
@@ -166,9 +193,9 @@ def profile_requests(torch, request, wall_ms: float) -> dict:
             request()
         torch.cuda.synchronize()
     on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = [e for e in on_card if e.key not in STAGES]
+    kernels = [e for e in on_card if e.key not in stages]
     spans = {e.key: device_us(e, ("device_time_total", "cuda_time_total")) / PROFILE_ITERS / 1e3
-             for e in on_card if e.key in STAGES}
+             for e in on_card if e.key in stages}
     busy = sum(device_us(e) for e in kernels) / PROFILE_ITERS / 1e3
     own = {n: [e for e in kernels if n in e.key] for n in OWN_KERNELS}
     own_ms = {n: [sum(device_us(e) for e in es) / PROFILE_ITERS / 1e3,
@@ -516,7 +543,7 @@ def phase_multiclass(torch, np, cfg, params, serve1, singles, img32):
     one = unpack_detections_np(pack_detections(multi(stack_support_caches(caches[:1]), singles[0], IMAGE_HW)))
     single = unpack_detections_np(pack_detections(serve1(caches[0], singles[0], IMAGE_HW)))
     one_class = match(np, one, single, PINNED_DSCORE)
-    nms_checks, nms_err = multiclass_nms_checks(torch, lambda: multi(mcache, singles[0], IMAGE_HW))
+    nms_checks, nms_err, _ = nms_checks_on_request(torch, lambda: multi(mcache, singles[0], IMAGE_HW))
     emit(multiclass={"classes": len(caches), "launches": launches,
                      "valid_per_class": np.bincount(classes.long().cpu().numpy(), minlength=3).tolist(),
                      "card_vs_cpu_f32": card_vs_cpu, "one_class_vs_build_inference_fn": one_class,
@@ -533,14 +560,15 @@ def phase_multiclass(torch, np, cfg, params, serve1, singles, img32):
     return multi, mcache, launches, nms_err
 
 
-def multiclass_nms_checks(torch, request):
+def nms_checks_on_request(torch, request):
     """The NMS kernel held bit for bit against the plain fixpoint on the
-    inputs a multiclass request gives it: request() runs once with the
-    wrappers' entries recording copies of their arguments (every kernel
-    launch, and the class-aware call across classes), then each recorded
-    call runs again through the kernel and through the plain version, on
-    the same card tensors and on their CPU copies. These extra launches are
-    outside any counted run."""
+    inputs a request (a multiclass request, a train step's decode) gives it:
+    request() runs once with the wrappers' entries recording copies of their
+    arguments (every kernel launch, and the class-aware call across
+    classes), then each recorded call runs again through the kernel and
+    through the plain version, on the same card tensors and on their CPU
+    copies. These extra launches are outside any counted run. Returns the
+    checks, the largest |err| and the recorded calls by site."""
     from faster_orefsdet_tpu_torch.ops import nms, nms_cuda
 
     launch, batched = nms_cuda._launch, nms_cuda.batched_nms_mask
@@ -570,7 +598,7 @@ def multiclass_nms_checks(torch, request):
             worst = max(worst, err)
             checks.append({"site": site, "shape": list(keep.shape), "thr": thr, "kept": int(keep.sum()),
                            "mismatches": diff})
-    return checks, worst
+    return checks, worst, seen
 
 
 def phase_async(torch, np, cfg, params, cache, frames, smi):
@@ -637,6 +665,163 @@ def phase_eval(torch, np, cfg, params, smi):
                    "note": "random weights: the AP values check the loop, not the detector"})
         if not all(np.isfinite(res[k]) for k in keys):
             raise AssertionError(f"eval at batch {bs}: an AP value is not finite")
+
+
+def train_rois(torch, np, batch, n: int, seed: int):
+    """A fixed ROI set [1, n, 4] for the first image of `batch`: its valid gt
+    boxes, jittered copies of them, and random boxes inside the image."""
+    rng = np.random.default_rng(seed)
+    gt = batch.gt_boxes[0][batch.gt_valid[0]].cpu().numpy()
+    h, w = batch.image_hw[0].tolist()
+    jit = np.repeat(gt, 4, axis=0) + rng.uniform(-8, 8, (4 * len(gt), 4))
+    xy = rng.uniform(0, [w - 40, h - 40], (n, 2))
+    rand = np.concatenate([xy, xy + rng.uniform(16, 160, (n, 2))], 1)
+    rois = np.concatenate([gt, jit, rand])[:n]
+    rois[:, 0::2] = rois[:, 0::2].clip(0, w)
+    rois[:, 1::2] = rois[:, 1::2].clip(0, h)
+    rois[:, 2:] = np.maximum(rois[:, 2:], rois[:, :2] + 4)
+    return torch.from_numpy(rois.astype(np.float32))[None], torch.ones(1, n, dtype=torch.bool)
+
+
+def phase_train(torch, np, smi):
+    """Fine-tuning of finetune_vovnet at full width: synthetic VGA frames
+    (in memory) through the mapper and train_loader, TRAIN_WARMUP +
+    TRAIN_STEPS train steps from init_params with the launches counted; the
+    NMS kernel on the training decode's own inputs; one step card vs CPU;
+    the loss on a fixed batch at a constant LR; a profile of the step."""
+    from faster_orefsdet_tpu_torch.config import get_config
+    from faster_orefsdet_tpu_torch.data.coco import split_per_class
+    from faster_orefsdet_tpu_torch.data.loader import train_canvas, train_loader
+    from faster_orefsdet_tpu_torch.data.mapper import EpisodicMapper, SupportSampler
+    from faster_orefsdet_tpu_torch.data.synthetic import make_synthetic_setup
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
+    from faster_orefsdet_tpu_torch.ops.nms import nms_mask as nms_plain
+    from faster_orefsdet_tpu_torch.pipelines.train_step import (
+        build_train_state, build_train_step, loss_fn, make_train_model,
+    )
+    from faster_orefsdet_tpu_torch.utils.events import drain_device_metrics
+    from faster_orefsdet_tpu_torch.utils.params import init_params
+
+    cfg = get_config(TRAIN_CONFIG)
+    t_phase = t0 = time.perf_counter()
+    records, entries, imread = make_synthetic_setup(TRAIN_FRAMES, seed=7, image_hw=FRAME_HW, root="train")
+    records = split_per_class(records)
+    canvas = train_canvas(records, cfg)
+    if canvas != TRAIN_CANVAS:
+        raise AssertionError(f"training canvas {canvas}, expected {TRAIN_CANVAS}")
+    mapper = EpisodicMapper(cfg, SupportSampler(entries), canvas_hw=canvas, imread=imread)
+    loader = train_loader(records, mapper, cfg.solver.ims_per_batch, seed=0)
+    setup_s = time.perf_counter() - t0
+    params = init_params(cfg, seed=0)
+    torch.backends.cudnn.allow_tf32 = True  # the library defaults, as phase 11 serves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        # ---- steps, with the kernels' launches counted
+        state, step = build_train_state(cfg, params), build_train_step(cfg)
+        times, window, batches = [], [], []
+
+        def run():
+            for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+                batch = next(loader)
+                batches.append(batch)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                window.append((i, step(state, batch)))
+                torch.cuda.synchronize()
+                if i >= TRAIN_WARMUP:
+                    times.append((time.perf_counter() - t) * 1e3)
+
+        torch.cuda.reset_peak_memory_stats()
+        launches = count_launches(cgm_cuda, nms_cuda, run)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        loader.close()
+    rows = [m for _, m in drain_device_metrics(window)]
+    n_steps = len(rows)
+    finite = all(np.isfinite(v) for m in rows for v in m.values())
+    med = statistics.median(times)
+    batch = batches[0]
+    emit(train={"config": TRAIN_CONFIG, "canvas": list(canvas), "frames": list(FRAME_HW), "shots": cfg.fs.support_shot,
+                "rois": cfg.roi.batch_size_per_image, "steps": n_steps, "warmup_steps": TRAIN_WARMUP,
+                "step_ms_median": med, "step_ms_min": min(times), "step_ms_max": max(times),
+                "queries_per_s": 1e3 * cfg.solver.ims_per_batch / med, "peak_mem_gb": peak, "launches": launches,
+                "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+                "total_loss_trace": [m["total_loss"] for m in rows], "all_finite": finite,
+                "data_setup_s": setup_s, "card": smi})
+    if not finite:
+        raise AssertionError(f"a train step gave a non-finite loss: {rows}")
+    if launches != {"cgm": 0, "nms": n_steps}:
+        raise AssertionError(f"kernel launches {launches} over {n_steps} train steps (expected 0 CGM, 1 NMS a step)")
+    out.update(launches=launches, steps=n_steps, step_ms=med)
+
+    # ---- the NMS kernel on the training decode's own inputs
+    with torch.no_grad():
+        checks, nms_err, seen = nms_checks_on_request(torch, lambda: loss_fn(state.model, batch, state.generator))
+    thr = cfg.centernet.nms_thresh_train
+    ok = ([c["shape"] for c in checks if c["site"] == "kernel"] == [[1, TRAIN_NMS_K]]
+          and all(c["thr"] == thr and not c["mismatches"] for c in checks) and not seen["batched"])
+    boxes, scores, valid = seen["kernel"][0][:3]
+    ms = graph_ms(torch, lambda: nms_cuda.nms_mask(boxes, scores, valid, thr))
+    plain = enqueue_ms(torch, lambda: nms_plain(boxes, scores, valid, thr), 10)  # syncs: no graph
+    n_valid = int(valid.sum())
+    # the work this data needs: IoU per pair of valid boxes, rank compares over the set
+    bnd = bound(TRAIN_NMS_K * (16 + 4 + 1 + 1), n_valid * (n_valid - 1) // 2 * 13 + TRAIN_NMS_K ** 2 * 3)
+    site = {"shape": [1, TRAIN_NMS_K], "thr": thr, "valid": n_valid, "launches_per_step": launches["nms"] / n_steps,
+            "ms": ms, "plain_ms": plain, **bnd, "inputs": "the training decode's own"}
+    emit(train_nms=dict(checks=checks, **site, card=smi))
+    if not ok:
+        raise AssertionError(f"the NMS kernel on the training decode's inputs: {checks}")
+    out.update(nms_err=nms_err, nms_mismatches=sum(c["mismatches"] for c in checks), nms_site=site)
+
+    # ---- one step card vs CPU: same weights, batch and ROIs, no dropout, f32 without TF32
+    torch.backends.cudnn.allow_tf32 = False
+    rois, roi_valid = train_rois(torch, np, batch, cfg.roi.batch_size_per_image, seed=13)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model = make_train_model(cfg, params, device=dev)
+        total, losses = loss_fn(model, batch.to(dev), deterministic=True,
+                                injected_rois=(rois.to(dev), roi_valid.to(dev)))
+        total.backward()
+        got[dev] = ({k: float(v.detach()) for k, v in losses.items()},
+                    {n: p.grad.cpu() for n, p in model.named_parameters() if p.requires_grad})
+    torch.backends.cudnn.allow_tf32 = True
+    loss_err = max(abs(got["cuda"][0][k] - v) / max(abs(v), 1e-12) for k, v in got["cpu"][0].items())
+    grad_err, worst_name = 0.0, None
+    for name, ref in got["cpu"][1].items():
+        err = float((got["cuda"][1][name] - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+        if err > grad_err:
+            grad_err, worst_name = err, name
+    emit(train_card_vs_cpu={"losses_cuda": got["cuda"][0], "losses_cpu": got["cpu"][0], "worst_loss_rel_err": loss_err,
+                            "worst_grad_err_of_largest": grad_err, "worst_grad_tensor": worst_name,
+                            "tensors": len(got["cpu"][1]), "rtol": TRAIN_LOSS_RTOL, "grad_tol": TRAIN_GRAD_TOL})
+    if loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_TOL:
+        raise AssertionError(f"card vs CPU: loss rel err {loss_err:.3e}, grad err {grad_err:.3e} ({worst_name})")
+
+    # ---- learning: a fixed batch, no warmup, a constant LR
+    lcfg = cfg.replace(solver=dataclasses.replace(cfg.solver, warmup_iters=0, steps=(), base_lr=LEARN_LR))
+    lstate, lstep = build_train_state(lcfg, params), build_train_step(lcfg)
+    trace, fixed_ms = [], []
+    for _ in range(LEARN_STEPS):  # timed as above: without the loader's thread at work
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trace.append(lstep(lstate, batch)["total_loss"])
+        torch.cuda.synchronize()
+        fixed_ms.append((time.perf_counter() - t) * 1e3)
+    trace = torch.stack(trace).tolist()
+    late = statistics.mean(trace[-LEARN_WINDOW:])
+    falls = late <= LEARN_RATIO * trace[0]
+    emit(train_learning={"steps": LEARN_STEPS, "lr": LEARN_LR, "trace": trace, "last_mean": late,
+                         "threshold": f"mean of the last {LEARN_WINDOW} <= {LEARN_RATIO} x the first", "falls": falls,
+                         "fixed_batch_step_ms_median": statistics.median(fixed_ms[TRAIN_WARMUP:]), "card": smi})
+    if not falls:
+        raise AssertionError(f"the loss did not fall on a fixed batch: {trace}")
+
+    # ---- where a step's time goes
+    prof = profile_requests(torch, lambda: step(state, batch), med, stages=TRAIN_STAGES)
+    emit(profile={"path": "train", "batch": cfg.solver.ims_per_batch, **prof, "card": smi})
+    emit(train_phase_s=time.perf_counter() - t_phase)
+    return out
 
 
 def replay_ms(torch, graph, reps: int = 20) -> float:
@@ -813,6 +998,18 @@ def main() -> int:
                 nms_ms, nms_enq_ms, nms_plain_ms = nms_ms + ms, nms_enq_ms + enq, nms_plain_ms + plain
                 nms_bytes, nms_flops = nms_bytes + nbytes, nms_flops + flops
 
+    # K2 at the training decode's site, [1, 2048] at the train threshold (not in the request's row)
+    boxes, scores, _ = nms_scenes(np, TRAIN_NMS_K, nms_rng)
+    args = (torch.from_numpy(boxes[:1]).cuda(), torch.from_numpy(scores[:1]).cuda(),
+            torch.ones(1, TRAIN_NMS_K, dtype=torch.bool, device="cuda"))
+    thr = cfg.centernet.nms_thresh_train
+    ms = graph_ms(torch, lambda: nms_cuda.nms_mask(*args, thr))
+    bnd = bound(TRAIN_NMS_K * 22, TRAIN_NMS_K * (TRAIN_NMS_K - 1) // 2 * 13 + TRAIN_NMS_K ** 2 * 3)
+    emit(timing="nms", site="train", batch=1, k=TRAIN_NMS_K, thr=thr, ms=ms,
+         enqueue_ms=enqueue_ms(torch, lambda: nms_cuda.nms_mask(*args, thr), 50),
+         plain_ms=enqueue_ms(torch, lambda: nms_plain(*args, thr), 10), **bnd, share_of_bound=bnd["bound_ms"] / ms,
+         card=smi)
+
     torch.backends.cudnn.allow_tf32 = True  # the library defaults for serving
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -874,11 +1071,14 @@ def main() -> int:
         if not whole:
             raise AssertionError(f"pinned batch {b}: the profiler saw {seen} per replay, the graph holds {expected}")
 
+    # ---- 13. fine-tuning finetune_vovnet
+    train = phase_train(torch, np, smi)
+
     # launches counted by the wrappers on each eager path; the pinned path's
     # from its graphs' captured launches times their replays (phase 7)
     by_path = {"main": launches, "raw_frames": raw_launches, "multiclass": multi_launches,
-               "pinned_replays": pinned_launches}
-    counted = {k: sum(by_path[p][k] for p in ("main", "raw_frames", "multiclass")) for k in ("cgm", "nms")}
+               "pinned_replays": pinned_launches, "train": train["launches"]}
+    counted = {k: sum(by_path[p][k] for p in ("main", "raw_frames", "multiclass", "train")) for k in ("cgm", "nms")}
     common = {"route": "cuda", "library_ms": None}
     emit(kernels=[
         {"name": "cgm_correlate_fused", **common,
@@ -886,13 +1086,16 @@ def main() -> int:
          "replaces": "faster_orefsdet_tpu/ops/pallas_cgm.py:47",
          "launches": counted["cgm"], "launches_by_path": {p: v["cgm"] for p, v in by_path.items()},
          "max_abs_err": cgm_err, "mismatches": cgm_mismatches, "ms": cgm_ms, "enqueue_ms": cgm_enq_ms,
-         "plain_ms": cgm_plain_ms, **bound(cgm_bytes, cgm_flops, cgm_tc_flops)},
+         "plain_ms": cgm_plain_ms, **bound(cgm_bytes, cgm_flops, cgm_tc_flops),
+         "train_site": {"launches_per_step": train["launches"]["cgm"] / train["steps"]}},
         {"name": "nms_mask", **common,
          "source": "faster_orefsdet_tpu_torch/csrc/nms.cu",
          "replaces": "faster_orefsdet_tpu/ops/pallas_nms.py:46",
          "launches": counted["nms"], "launches_by_path": {p: v["nms"] for p, v in by_path.items()},
-         "max_abs_err": max(nms_err, multi_nms_err), "mismatches": nms_mismatches,
-         "ms": nms_ms, "enqueue_ms": nms_enq_ms, "plain_ms": nms_plain_ms, **bound(nms_bytes, nms_flops)},
+         "max_abs_err": max(nms_err, multi_nms_err, train["nms_err"]),
+         "mismatches": nms_mismatches + train["nms_mismatches"],
+         "ms": nms_ms, "enqueue_ms": nms_enq_ms, "plain_ms": nms_plain_ms, **bound(nms_bytes, nms_flops),
+         "train_site": train["nms_site"]},
     ])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

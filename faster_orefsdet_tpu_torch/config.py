@@ -6,17 +6,21 @@ package. The copy holds the same fields with the same defaults, so that
 ``dataclasses.asdict`` of a preset here equals the JAX package's
 ``get_config(name)`` (``tests/test_torch_config.py`` guards that).
 
-Fields named ``use_pallas_*`` name the JAX package's TPU kernels. They stay so
-that the two configs compare equal; the port ignores them and dispatches on
-the tensor's device instead (a CUDA tensor runs the hand-written kernel, a
-CPU tensor its plain PyTorch twin).
+Fields named ``use_pallas_*`` name the JAX package's TPU kernels. A kernel
+wrapper dispatches on the tensor's device (a CUDA tensor runs the
+hand-written kernel, a CPU tensor its plain PyTorch twin), not on a flag.
+``use_pallas_cgm`` still selects the path where the JAX package selects it:
+the fused CGM with the flag (the serving presets), the differentiable
+composition without it (fine-tuning). The NMS flags are not read: the NMS
+wrapper is exact on both devices, so every NMS site goes through it.
 """
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -243,3 +247,48 @@ def get_config(name: str = "finetune_vovnet") -> Config:
         return _NAMED_CONFIGS[name]()
     except KeyError:
         raise KeyError(f"unknown config '{name}'; have {sorted(_NAMED_CONFIGS)}") from None
+
+
+def apply_overrides(cfg: Config, overrides: Sequence[str]) -> Config:
+    """Command-line `key=value` overrides with dotted paths, e.g.
+    `fs.support_shot=5`: values are Python literals (a bare word stays a
+    string), coerced to the field's type where that is unambiguous."""
+
+    def coerce(path: Sequence[str], cur: Any, value: Any) -> Any:
+        if cur is None or isinstance(value, type(cur)):
+            return value
+        where = ".".join(path)
+        if isinstance(cur, bool) and isinstance(value, str):
+            # yacs-style lowercase bools; a leftover string would be truthy
+            low = value.strip().lower()
+            if low in ("true", "1", "yes"):
+                return True
+            if low in ("false", "0", "no"):
+                return False
+            raise ValueError(f"{where}: not a bool: {value!r}")
+        if isinstance(cur, bool) and isinstance(value, int):
+            if value in (0, 1):
+                return bool(value)
+            raise ValueError(f"{where}: not a bool: {value!r}")
+        if isinstance(cur, tuple) and isinstance(value, (list, tuple)):
+            return tuple(value)
+        if isinstance(cur, float) and isinstance(value, int):
+            return float(value)
+        return value
+
+    def set_path(obj: Any, path: Sequence[str], value: Any) -> Any:
+        name = path[0]
+        if not hasattr(obj, name):
+            raise KeyError(f"config has no field {'.'.join(path)}")
+        if len(path) == 1:
+            return dataclasses.replace(obj, **{name: coerce(path, getattr(obj, name), value)})
+        return dataclasses.replace(obj, **{name: set_path(getattr(obj, name), path[1:], value)})
+
+    for ov in overrides:
+        key, _, raw = ov.partition("=")
+        try:
+            value = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            value = raw
+        cfg = set_path(cfg, key.strip().split("."), value)
+    return cfg

@@ -1,6 +1,5 @@
-"""COCO-format dataset records and the support index (counterpart of
-``faster_orefsdet_tpu/data/coco.py``; writing support crops belongs to the
-command-line tools and is not ported yet).
+"""COCO-format dataset records, the support index, and the support crops
+it points to (counterpart of ``faster_orefsdet_tpu/data/coco.py``).
 
 Training records carry one image and the annotations of one class in it,
 so that an episode can sample supports of that class.
@@ -11,7 +10,9 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 
 @dataclass
@@ -40,7 +41,11 @@ def load_coco_json(json_path: str, image_root: str) -> List[ImageRecord]:
     """A minimal COCO instances reader: one record per image, its
     annotations' boxes as xyxy, file names joined to image_root."""
     with open(json_path) as f:
-        coco = json.load(f)
+        return records_from_coco(json.load(f), image_root)
+
+
+def records_from_coco(coco: Dict, image_root: str) -> List[ImageRecord]:
+    """``load_coco_json`` of a COCO instances dict held in memory."""
     recs: Dict[int, ImageRecord] = {
         im["id"]: ImageRecord(
             file_name=os.path.join(image_root, im["file_name"]),
@@ -100,3 +105,67 @@ def load_support_index(path: str) -> List[SupportEntry]:
     with open(path) as f:
         rows = json.load(f)
     return [SupportEntry(**{**r, "support_box": tuple(r["support_box"])}) for r in rows]
+
+
+Imwrite = Callable[[str, np.ndarray], object]
+
+
+def cv2_imwrite(path: str, img: np.ndarray) -> bool:
+    """cv2.imwrite, the JAX package's writer (cv2 imported only when called)."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError("writing images needs cv2, which is not installed: pass imwrite=, a callable "
+                          "(path, [H, W, 3] uint8 BGR array)") from e
+    return cv2.imwrite(path, img)
+
+
+def build_support_crops(
+    records: Sequence[ImageRecord],
+    out_dir: str,
+    crop_size: int = 240,
+    context_ratio: float = 0.15,
+    *,
+    imread: Optional[Callable[[str], Optional[np.ndarray]]] = None,
+    imwrite: Optional[Imwrite] = None,
+) -> List[SupportEntry]:
+    """One support crop per non-crowd annotation: the box with
+    `context_ratio` of context on each side, resized to crop_size x
+    crop_size (bilinear, by PyTorch on the host) with the box mapped along,
+    written as ``out_dir/support_<ann id>.jpg`` by `imwrite`.
+    Images are read by `imread`; both default to cv2's (the default writer
+    makes out_dir). Returns the support index entries."""
+    from ..pipelines.preprocess import resize_image_host
+    from .loader import cv2_imread
+
+    imread = imread or cv2_imread
+    if imwrite is None:
+        os.makedirs(out_dir, exist_ok=True)
+        imwrite = cv2_imwrite
+    entries: List[SupportEntry] = []
+    for rec in records:
+        img = None
+        for ann in rec.annotations:
+            if ann.iscrowd:
+                continue
+            if img is None:
+                img = imread(rec.file_name)
+                if img is None:
+                    break
+            x1, y1, x2, y2 = ann.bbox
+            pad_w, pad_h = (x2 - x1) * context_ratio, (y2 - y1) * context_ratio
+            cx1, cy1 = max(0, int(x1 - pad_w)), max(0, int(y1 - pad_h))
+            cx2 = min(rec.width, int(x2 + pad_w) + 1)
+            cy2 = min(rec.height, int(y2 + pad_h) + 1)
+            crop = img[cy1:cy2, cx1:cx2]
+            if crop.size == 0:
+                continue
+            sy, sx = crop_size / crop.shape[0], crop_size / crop.shape[1]
+            crop = resize_image_host(np.ascontiguousarray(crop), crop_size, crop_size)
+            path = os.path.join(out_dir, f"support_{ann.id}.jpg")
+            imwrite(path, crop)
+            entries.append(SupportEntry(id=ann.id, image_id=rec.image_id, category_id=ann.category_id,
+                                        file_path=path,
+                                        support_box=((x1 - cx1) * sx, (y1 - cy1) * sy, (x2 - cx1) * sx,
+                                                     (y2 - cy1) * sy)))
+    return entries

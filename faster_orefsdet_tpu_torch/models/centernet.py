@@ -1,22 +1,24 @@
-"""CenterNet proposal decode at inference, batched (counterpart of the
-inference half of ``faster_orefsdet_tpu/models/centernet.py``).
+"""CenterNet proposal decode and training losses, batched (counterpart of
+``faster_orefsdet_tpu/models/centernet.py``).
 
-Per image: sqrt(sigmoid) scores, per-level score threshold and pre-NMS
-top-k, cross-level concat, the NMS working-set cap, class-agnostic NMS, the
-kthvalue post-NMS trim, and compaction to the post-NMS capacity. Top-k here
-is a stable descending sort, so ties resolve to the lower index as XLA's
-top_k does.
+Decode, per image: sqrt(sigmoid) scores, per-level score threshold and
+pre-NMS top-k, cross-level concat, the NMS working-set cap, class-agnostic
+NMS (the NMS kernel on the card), the kthvalue post-NMS trim, and compaction
+to the post-NMS capacity. Top-k here is a stable descending sort, so ties
+resolve to the lower index as XLA's top_k does. The training decode uses
+the train budgets: at the full canvas the NMS kernel sees [B, 2048].
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import CenterNetConfig
-from ..ops.heatmap import compute_grids, level_grid_shapes
+from ..ops.heatmap import CenterNetTargets, compute_grids, level_grid_shapes
+from ..ops.losses import binary_heatmap_focal_loss, iou_loss_ltrb
 from ..ops.nms import keep_top_scores
 from ..ops.nms_cuda import nms_mask
 from ..structures.boxes import ltrb_to_xyxy
@@ -57,11 +59,20 @@ def decode_proposals(
     canvas_hw: Tuple[int, int],
     image_hw: torch.Tensor,
     *,
-    nms_budget: int,
+    training: bool = False,
+    nms_budget: Optional[int] = None,
 ) -> Proposals:
     """agn_hms[l] [B,1,H_l,W_l] logits, bbox_regs[l] [B,4,H_l,W_l] (relu'd,
-    stride units), image_hw [B,2] -> Proposals [B, post_nms_topk_test, ...].
-    nms_budget is cfg.static.nms_budget_test: the candidates entering NMS."""
+    stride units), image_hw [B,2] -> Proposals [B, post_nms_topk, ...], with
+    the test or (training=True) the train top-k sizes and NMS threshold.
+    nms_budget caps the candidates entering NMS: the inference builders pass
+    cfg.static.nms_budget_test; by default it is max(2048, post_nms_topk_train)
+    in training, else 1024."""
+    pre_topk = cfg.pre_nms_topk_train if training else cfg.pre_nms_topk_test
+    post_topk = cfg.post_nms_topk_train if training else cfg.post_nms_topk_test
+    nms_th = cfg.nms_thresh_train if training else cfg.nms_thresh_test
+    if nms_budget is None:
+        nms_budget = max(2048, post_topk) if training else 1024
     strides = cfg.fpn_strides
     dev = agn_hms[0].device
     grids = compute_grids(tuple(canvas_hw), tuple(strides), device=dev)
@@ -77,7 +88,7 @@ def decode_proposals(
         g = grids[offsets[li]:offsets[li + 1]]
         vmask = valid_canvas[:, offsets[li]:offsets[li + 1]]
         cand = (hm > cfg.score_thresh) & vmask
-        k = min(cfg.pre_nms_topk_test, hm.shape[1])
+        k = min(pre_topk, hm.shape[1])
         top_scores, top_idx = stable_topk(torch.where(cand, hm, torch.full_like(hm, -1.0)), k)
         cand_boxes.append(ltrb_to_xyxy(g[top_idx], _gather_rows(reg, top_idx)))
         cand_scores.append(torch.sqrt(torch.clamp(top_scores, min=0.0)))
@@ -92,8 +103,8 @@ def decode_proposals(
         boxes = _gather_rows(boxes, top_idx)
         valid = scores > 0.0
 
-    keep = nms_mask(boxes.contiguous(), scores.contiguous(), valid.contiguous(), cfg.nms_thresh_test)
-    post_topk = min(cfg.post_nms_topk_test, scores.shape[1])
+    keep = nms_mask(boxes.contiguous(), scores.contiguous(), valid.contiguous(), nms_th)
+    post_topk = min(post_topk, scores.shape[1])
     keep = keep_top_scores(scores, keep, post_topk)
     sel_scores, sel_idx = stable_topk(torch.where(keep, scores, torch.full_like(scores, -1.0)), post_topk)
     return Proposals(
@@ -101,3 +112,41 @@ def decode_proposals(
         scores=torch.clamp(sel_scores, min=0.0),
         valid=sel_scores > 0.0,
     )
+
+
+def centernet_losses(
+    agn_hms: Sequence[torch.Tensor],
+    bbox_regs: Sequence[torch.Tensor],
+    targets: CenterNetTargets,
+    cfg: CenterNetConfig,
+    canvas_valid: torch.Tensor,
+    *,
+    num_pos_avg: torch.Tensor,
+) -> Dict[str, torch.Tensor]:
+    """The proposal stage's training losses per image: agn_hms / bbox_regs
+    as the head gives them, targets for the batch, canvas_valid [B, M] (the
+    cells that exist in the reference), num_pos_avg the mean positive count
+    (computed once by the caller). The localization loss is normalized by
+    each image's count of pixels with a regression target. Returns
+    {name: [B]}; the caller takes the mean over images."""
+    b = agn_hms[0].shape[0]
+    agn_flat = torch.cat([h.reshape(b, -1) for h in agn_hms], dim=1).float()
+    reg_flat = torch.cat([r.permute(0, 2, 3, 1).reshape(b, -1, 4) for r in bbox_regs], dim=1).float()
+
+    # localization: gIoU over the pixels with a target; unit weights (NOT_NORM_REG)
+    reg_valid = (targets.reg_targets.amax(dim=-1) >= 0) & canvas_valid
+    weights = reg_valid.float()
+    reg_losses = iou_loss_ltrb(reg_flat.clamp(min=0.0), targets.reg_targets.clamp(min=0.0), weights,
+                               loss_type=cfg.loc_loss_type)
+    loss_loc = cfg.reg_weight * reg_losses.sum(-1) / weights.sum(-1).clamp(min=1.0)
+
+    pos_sum, neg_sum = binary_heatmap_focal_loss(
+        agn_flat, targets.heatmap, targets.pos_inds, targets.pos_mask, canvas_valid,
+        beta=cfg.hm_focal_beta, gamma=cfg.loss_gamma, sigmoid_clamp=cfg.sigmoid_clamp,
+        ignore_high_fp=cfg.ignore_high_fp,
+    )
+    return {
+        "loss_centernet_loc": loss_loc,
+        "loss_centernet_agn_pos": cfg.pos_weight * pos_sum / num_pos_avg,
+        "loss_centernet_agn_neg": cfg.neg_weight * neg_sum / num_pos_avg,
+    }

@@ -3,7 +3,8 @@ phases are methods (counterpart of ``faster_orefsdet_tpu/models/detector.py``):
 
   features          backbone + FPN
   refine_support    adaptive pool -> SM block -> spatial transpose quirk
-  correlate         CGM correlation + conv3 fusion (the CGM kernel)
+  correlate         CGM correlation + conv3 fusion (the CGM kernel with
+                    cfg.use_pallas_cgm, else the differentiable composition)
   proposal_head     CenterNet head
   roi_stage         DSA cascade stage
 
@@ -21,25 +22,32 @@ import torch.nn as nn
 from ..config import Config
 from ..ops.adaptive_pool import adaptive_avg_pool2d
 from ..ops.cgm_cuda import cgm_correlate_fused
+from ..ops.correlation import cgm_correlate
 from .cascade_roi import DSACascadeHead, StageOutput
 from .centernet_head import CenterNetHead
 from .fpn import FPN
+from .layers import linear
 from .sm_block import SMBlock
 from .vovnet import VoVNet
 
 # per-level SM pool size == seg_dim: p3 -> 32, p4 -> 16, p5 -> 8
 SM_POOL_SIZES = {"p3": 32, "p4": 16, "p5": 8}
 
+# parameters that fine-tuning never updates: the backbone's stem, stage2 and
+# stage3 (FREEZE_AT=3). Every FrozenBN affine is frozen too; here it is a buffer.
+FROZEN_PREFIXES = ("backbone.stem", "backbone.stage2_", "backbone.stage3_")
+
 Kernels = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def support_kernels(mean_map: torch.Tensor) -> Kernels:
-    """Pool a (shot-mean, spatially transposed) support map [S, S, C] into the
-    three CGM kernels: k1 [C], k13 [3, C] (W taps), k31 [3, C] (H taps), f32."""
-    m = mean_map.float().permute(2, 0, 1)  # [C, S0, S1], S0 the map's first axis
-    k1 = adaptive_avg_pool2d(m, (1, 1))[:, 0, 0].contiguous()
-    k13 = adaptive_avg_pool2d(m, (1, 3))[:, 0, :].t().contiguous()
-    k31 = adaptive_avg_pool2d(m, (3, 1))[:, :, 0].t().contiguous()
+    """Pool a (shot-mean, spatially transposed) support map [..., S, S, C]
+    into the three CGM kernels: k1 [..., C], k13 [..., 3, C] (W taps), k31
+    [..., 3, C] (H taps), f32. A leading axis gives one set per image."""
+    m = mean_map.float().movedim(-1, -3)  # [..., C, S0, S1], S0 the map's first axis
+    k1 = adaptive_avg_pool2d(m, (1, 1))[..., 0, 0].contiguous()
+    k13 = adaptive_avg_pool2d(m, (1, 3))[..., 0, :].transpose(-1, -2).contiguous()
+    k31 = adaptive_avg_pool2d(m, (3, 1))[..., :, 0].transpose(-1, -2).contiguous()
     return k1, k13, k31
 
 
@@ -83,10 +91,19 @@ class CenterNet2Detector(nn.Module):
     def levels(self) -> Tuple[str, ...]:
         return tuple(self.cfg.centernet.in_features)
 
+    def freeze(self) -> "CenterNet2Detector":
+        """Mark the frozen parameters (FROZEN_PREFIXES) requires_grad=False,
+        so that autograd never runs backward through the frozen stages."""
+        for name, p in self.named_parameters():
+            if name.startswith(FROZEN_PREFIXES):
+                p.requires_grad_(False)
+        return self
+
     def cast_compute_weights(self) -> "CenterNet2Detector":
         """Store the weights of the layers that run in the compute dtype in
         that dtype, once, instead of casting them at every use (the same
-        numbers: the cast is the one those layers apply)."""
+        numbers: the cast is the one those layers apply). Serving only:
+        training keeps f32 master weights."""
         if self.dtype is not None:
             self.backbone.to(self.dtype)
             self.fpn.to(self.dtype)
@@ -100,30 +117,44 @@ class CenterNet2Detector(nn.Module):
         x = images.contiguous(memory_format=torch.channels_last)
         return self.fpn(self.backbone(x))
 
-    def refine_support(self, sup_feats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def refine_support(self, sup_feats: Dict[str, torch.Tensor],
+                       generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """Support pyramid [N, C, h_l, w_l] -> SM-refined, spatially transposed
-        maps [N, S_l, S_l, C] (channel-last, as the support cache keeps them)."""
+        maps [N, S_l, S_l, C] (channel-last, as the support cache keeps them).
+        The SM blocks' dropout draws from `generator` when one is given."""
         vips = {"p3": self.vip_p3, "p4": self.vip_p4, "p5": self.vip_p5}
         out = {}
         for level in self.levels:
             size = SM_POOL_SIZES[level]
             x = adaptive_avg_pool2d(sup_feats[level], (size, size)).permute(0, 2, 3, 1)
-            x = vips[level](x)
+            x = vips[level](x, generator)
             out[level] = x.transpose(1, 2)  # the reference's permute(0,3,2,1) quirk
         return out
 
     def correlate(self, query_feats: Dict[str, torch.Tensor],
                   kernels: Dict[str, Kernels]) -> Dict[str, torch.Tensor]:
-        """CGM correlation + conv3 fusion per level, through the fused CGM
-        kernel (its plain twin on the CPU); f32 arithmetic, the result in the
-        level's dtype."""
-        w3 = self.cgm_conv3.weight  # [C, 2C] f32 as stored, columns [attn; q]
-        b3 = self.cgm_conv3.bias
+        """CGM correlation + conv3 fusion per level.
+
+        With cfg.use_pallas_cgm (the serving presets) the whole level runs in
+        the fused CGM kernel (its plain twin on the CPU): one set of taps for
+        the batch, f32 arithmetic, the result in the level's dtype; it has no
+        backward. Without it (fine-tuning) the level is the differentiable
+        composition cgm_correlate -> cgm_conv3 -> relu, as in the JAX
+        package; its taps may carry a leading batch axis, one set per image."""
         out = {}
         for level in self.levels:
-            q = query_feats[level]
-            q_nhwc = q.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-            out[level] = cgm_correlate_fused(q_nhwc, *kernels[level], w3, b3).permute(0, 3, 1, 2)
+            q_nhwc = query_feats[level].contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+            if self.cfg.use_pallas_cgm:
+                # w3 [C, 2C] f32 as stored, columns [attn; q]
+                fused = cgm_correlate_fused(q_nhwc, *kernels[level], self.cgm_conv3.weight, self.cgm_conv3.bias)
+            else:
+                k1, k13, k31 = kernels[level]
+                if k1.dim() == 2:  # per image: [B, C], [B, 3, C] -> broadcast over H, W
+                    k1 = k1[:, None, None, :]
+                    k13, k31 = (k.transpose(0, 1)[:, :, None, None, :] for k in (k13, k31))
+                corr = cgm_correlate(q_nhwc, k1, k13, k31)
+                fused = torch.relu(linear(torch.cat([corr, q_nhwc], dim=-1), self.cgm_conv3))
+            out[level] = fused.permute(0, 3, 1, 2)
         return out
 
     def proposal_head(self, pos_features: Dict[str, torch.Tensor]):

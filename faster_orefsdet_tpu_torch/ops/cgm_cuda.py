@@ -2,7 +2,10 @@
 and its plain twin (counterpart of ``faster_orefsdet_tpu/ops/pallas_cgm.py``).
 
 ``cgm_correlate_fused`` dispatches on the device of q: a CUDA tensor
-launches the kernel (or raises), a CPU tensor runs ``cgm_fused_plain``.
+launches the kernel (or raises), a CPU tensor runs ``cgm_fused_plain``. The
+kernel has no backward, as the JAX package never differentiates its Pallas
+CGM: with grad mode on, inputs that require grad are refused on both
+devices (training runs the differentiable composition instead).
 """
 
 from __future__ import annotations
@@ -40,7 +43,12 @@ def cgm_correlate_fused(q, k1, k13, k31, w3, b3, out_dtype: Optional[torch.dtype
     """Fused CGM for one level over the batch: q [B,H,W,C] (f32 or bf16,
     channel-last contiguous) -> [B,H,W,C] in `out_dtype` (f32 or bf16,
     default q's dtype). Taps and weights as in `cgm_fused_plain`, f32 and
-    contiguous on the CUDA path."""
+    contiguous on the CUDA path. Raises when grad mode is on and an input
+    requires grad: the kernel's result would carry no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k1, k13, k31, w3, b3)):
+        raise RuntimeError("cgm_correlate_fused has no backward: inputs that require grad are refused "
+                           "(run it under torch.no_grad / inference_mode, or train through the "
+                           "composition that CenterNet2Detector.correlate runs without cfg.use_pallas_cgm)")
     if q.is_cuda:
         return _launch(q, k1, k13, k31, w3, b3, out_dtype or q.dtype)
     if q.device.type != "cpu":

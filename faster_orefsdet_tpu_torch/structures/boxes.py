@@ -16,6 +16,13 @@ def area(boxes: torch.Tensor) -> torch.Tensor:
     return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
 
 
+def nonempty_mask(boxes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
+    """Boxes [..., 4] whose width and height both exceed `threshold`."""
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    return (w > threshold) & (h > threshold)
+
+
 def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     """IoU matrix [..., N, M] between xyxy box sets [..., N, 4] and [..., M, 4],
     zero where the boxes do not intersect.
@@ -44,6 +51,28 @@ def clip_boxes(boxes: torch.Tensor, image_hw: torch.Tensor) -> torch.Tensor:
     x2 = torch.minimum(torch.maximum(boxes[..., 2], zero), w)
     y2 = torch.minimum(torch.maximum(boxes[..., 3], zero), h)
     return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+def encode_deltas(src_boxes: torch.Tensor, target_boxes: torch.Tensor, weights) -> torch.Tensor:
+    """Box2BoxTransform.get_deltas: the (dx, dy, dw, dh) [..., 4] that map
+    src (proposal) boxes onto target (gt) boxes, scaled by `weights`."""
+    sw = src_boxes[..., 2] - src_boxes[..., 0]
+    sh = src_boxes[..., 3] - src_boxes[..., 1]
+    scx = src_boxes[..., 0] + 0.5 * sw
+    scy = src_boxes[..., 1] + 0.5 * sh
+
+    tw = target_boxes[..., 2] - target_boxes[..., 0]
+    th = target_boxes[..., 3] - target_boxes[..., 1]
+    tcx = target_boxes[..., 0] + 0.5 * tw
+    tcy = target_boxes[..., 1] + 0.5 * th
+
+    wx, wy, ww, wh = weights
+    eps = 1e-12
+    dx = wx * (tcx - scx) / sw.clamp(min=eps)
+    dy = wy * (tcy - scy) / sh.clamp(min=eps)
+    dw = ww * torch.log(tw.clamp(min=eps) / sw.clamp(min=eps))
+    dh = wh * torch.log(th.clamp(min=eps) / sh.clamp(min=eps))
+    return torch.stack([dx, dy, dw, dh], dim=-1)
 
 
 def apply_deltas(deltas: torch.Tensor, boxes: torch.Tensor, weights) -> torch.Tensor:

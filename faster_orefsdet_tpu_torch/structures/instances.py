@@ -25,3 +25,13 @@ class Detections(NamedTuple):
     scores: torch.Tensor
     classes: torch.Tensor
     valid: torch.Tensor
+
+
+class GroundTruth(NamedTuple):
+    """Fixed-N padded ground truth: boxes [..., N, 4] xyxy in the resized
+    canvas frame; classes [..., N] (0 on the single-class path); valid
+    [..., N] bool."""
+
+    boxes: torch.Tensor
+    classes: torch.Tensor
+    valid: torch.Tensor

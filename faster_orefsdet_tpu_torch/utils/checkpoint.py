@@ -1,0 +1,101 @@
+"""Training checkpoints and portable parameter files (counterpart of
+``faster_orefsdet_tpu/utils/checkpoint.py``).
+
+A checkpoint is one ``torch.save`` file per saved step, holding the model's
+state_dict, the optimizer's, the step count and the generator's state; the
+last `max_to_keep` are kept. ``resume_or_load`` restores the newest into a
+train state, or leaves the state as it is when the directory has none.
+
+``save_params_npz`` / ``load_params_npz`` read and write the JAX package's
+flat ``.npz`` of the flax params tree (keys are ``jax.tree_util.keystr``
+paths such as ``['backbone']['stem1']['conv']['kernel']``, arrays in its
+layouts): a model trained by either package can be fine-tuned or served by
+the other.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..pipelines.train_step import TrainState
+from .params import from_jax_params, to_jax_params
+
+_CKPT = re.compile(r"^step_(\d+)\.pt$")
+_KEY = re.compile(r"\['([^']*)'\]")
+
+
+def _steps(directory: str) -> List[int]:
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(m.group(1)) for m in map(_CKPT.match, os.listdir(directory)) if m)
+
+
+def _path(directory: str, step: int) -> str:
+    return os.path.join(directory, f"step_{step:08d}.pt")
+
+
+def save_checkpoint(directory: str, state: TrainState, step: Optional[int] = None, max_to_keep: int = 5) -> str:
+    """Write the state at `step` (default state.step) and drop all but the
+    newest `max_to_keep` checkpoints. Returns the file's path."""
+    step = state.step if step is None else step
+    os.makedirs(directory, exist_ok=True)
+    path = _path(directory, step)
+    torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+                "step": state.step, "generator": state.generator.get_state()}, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    for old in _steps(directory)[:-max_to_keep]:
+        os.remove(_path(directory, old))
+    return path
+
+
+def latest_step(directory: str) -> Optional[int]:
+    steps = _steps(directory)
+    return steps[-1] if steps else None
+
+
+def resume_or_load(directory: str, state: TrainState) -> TrainState:
+    """Restore the newest checkpoint of `directory` into `state` (in place,
+    onto the state's device); without one the state is left as it is."""
+    step = latest_step(directory)
+    if step is None:
+        return state
+    ckpt = torch.load(_path(directory, step), map_location=state.device, weights_only=True)
+    state.model.load_state_dict(ckpt["model"])
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.generator.set_state(ckpt["generator"].cpu())
+    state.step = int(ckpt["step"])
+    return state
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}['{k}']"
+        out.update(_flatten(v, key) if isinstance(v, Mapping) else {key: v})
+    return out
+
+
+def save_params_npz(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:
+    """Write a state_dict as the JAX package's flat params .npz."""
+    np.savez(path, **_flatten(to_jax_params(state_dict)))
+
+
+def load_params_npz(path: str) -> Dict[str, torch.Tensor]:
+    """Read the JAX package's params .npz (its ``model_final.npz``, or this
+    module's) -> the port's state_dict (f32 CPU tensors)."""
+    tree: Dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            parts = _KEY.findall(key)
+            if not parts or "".join(f"['{p}']" for p in parts) != key:
+                raise ValueError(f"{path}: key {key!r} is not a params path")
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = z[key]
+    return from_jax_params(tree)

@@ -51,6 +51,24 @@ def from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of ``from_jax_params``: a state_dict of the port's
+    detector -> the JAX package's flax ``params`` tree (nested dicts of f32
+    numpy arrays in its layouts)."""
+    tree: Dict = {}
+    for key, t in state_dict.items():
+        arr = t.detach().float().cpu().numpy()
+        parts = key.split(".")
+        if parts[-1] == "weight":
+            parts[-1] = "kernel"
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T  # OIHW -> HWIO, [O, I] -> [I, O]
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.ascontiguousarray(arr)
+    return tree
+
+
 def init_params(cfg: Config, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Seeded random weights for the detector of `cfg` as a state_dict (f32
     CPU tensors, the same numbers on any machine). Weights are N(0, 1/fan_in)

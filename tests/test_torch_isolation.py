@@ -15,6 +15,8 @@ from faster_orefsdet_tpu_torch.config import get_config
 from faster_orefsdet_tpu_torch.data.coco import SupportEntry
 from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
 from faster_orefsdet_tpu_torch.pipelines import evaluate, inference, support_cache
+from faster_orefsdet_tpu_torch.data import loader
+from faster_orefsdet_tpu_torch.pipelines import train_step
 from faster_orefsdet_tpu_torch.pipelines.async_predictor import AsyncPredictor
 
 REPO = Path(__file__).resolve().parent.parent
@@ -84,9 +86,14 @@ def _encode_support_set(cfg, sd):
     lambda cfg, sd: AsyncPredictor(cfg, sd, None),
     lambda cfg, sd: evaluate.evaluate(cfg, sd, None, []),
     _encode_support_set,
+    lambda cfg, sd: train_step.make_train_model(cfg, sd),
+    lambda cfg, sd: train_step.build_train_state(cfg, sd),
+    lambda cfg, sd: loader.train_loader([], None, 1),
+    lambda cfg, sd: loader.collate([]),
 ], ids=["make_detector", "build_inference_fn", "build_batched_inference_fn", "build_support_cache",
         "load_support_cache", "build_serving_fn", "build_pinned_inference_fn",
-        "build_multiclass_inference_fn", "AsyncPredictor", "evaluate", "encode_support_set"])
+        "build_multiclass_inference_fn", "AsyncPredictor", "evaluate", "encode_support_set",
+        "make_train_model", "build_train_state", "train_loader", "collate"])
 def test_builders_default_to_the_card(builder, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
