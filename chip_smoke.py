@@ -75,7 +75,34 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    no dropout, TF32 off): each loss within 1e-3 relative, each gradient
    within 1e-3 of its tensor's largest |grad|; 30 steps on one batch at a
    constant LR of 1e-4 without warmup: the mean of the last 5 losses at
-   most 0.75 x the first; a profile of the step as in phase 12.
+   most 0.75 x the first; a profile of the step as in phase 12;
+14. train graphed: finetune_vovnet through build_train_step_scan (K steps
+   per call, each a replay of one CUDA graph of the whole step after 2 eager
+   warm-up steps): 9 steps (warm-up 2, then chunks of 4 and 3) from one seed
+   against 9 eager steps on the same stored batches, dropout on: under
+   cudnn.deterministic every loss, weight and momentum buffer bit for bit
+   and the generator's state equal; under the library's defaults (cuDNN
+   may sum with atomics) the worst loss and tensor difference at most 3x
+   the largest between three eager runs; 0 CGM and 1 NMS launch a step (captured
+   launches times replays); then 12 chunks of K = 4 fed by train_loader:
+   the median step time with the batches pulled before the clock and with
+   the pulls inside, beside phase 13's eager median, peak memory, a profile
+   of a chunk (device busy, idle share, kernel events a step) and the
+   loader's own batches per second;
+15. finetune_dla: DLA-34 + BiFPN (160 channels, 4 repeats) with trainable
+   BatchNorm, 9 shots, 7x7 pooler, at full width on phase 13's frames: 3 +
+   10 eager steps (every loss finite, every running mean and variance moved
+   and finite, 0 CGM and 1 NMS launch a step); the NMS kernel bit for bit on
+   a step's own decode set; one step card vs CPU (no dropout, TF32 off),
+   each loss, gradient and updated running statistic as its worst |diff|
+   over its tensor's largest: in f64 within 1e-3, in f32 within 1e-3 or 3x
+   the CPU's own f32 vs f64 where that is larger (a random DLA in batch
+   statistics mode amplifies rounding, on any device);
+   2 warm-up steps and a chunk of 4 against 6 eager steps bit for bit under
+   cudnn.deterministic (running statistics included); `evaluate` on 8 synthetic frames with the
+   trained state (finite AP, 2 NMS launches an image, the kernel bit for
+   bit at the decode's [1, 1024] and the ROI's [1, 256] sites at IoU 0.9);
+   the eager and graphed step times.
 
 Each result is one JSON line. The line before the last holds the kernels'
 table; the last line is {"ok": true, "device": {...}}. Run without the
@@ -86,6 +113,7 @@ no result.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -107,6 +135,7 @@ FRAME_HW = (480, 640)  # a VGA camera frame: resized to 320x427 on the 320x448 c
 MULTICLASS_SEEDS = (10, 11, 12)
 MULTICLASS_K = 3 * 256  # classes x post_nms_topk_test: the multiclass request's cross-class NMS
 ASYNC_FRAMES, EVAL_FRAMES, EVAL_SHOTS = 16, 16, 5
+AP_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR@100")
 LEVELS_HW = [(CANVAS_HW[0] // s, CANVAS_HW[1] // s) for s in (8, 16, 32)]
 C = 128
 PROFILE_ITERS = 10
@@ -118,6 +147,18 @@ TRAIN_NMS_K = 2048  # max(2048, post_nms_topk_train): the training decode's NMS 
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-3, 1e-3  # card vs CPU in f32, TF32 off; grads of each tensor's largest |grad|
 # at LR 1e-3 the loss from random weights swung up to 3x its start (PERF.md, fine-tuning findings)
 LEARN_STEPS, LEARN_LR, LEARN_WINDOW, LEARN_RATIO = 30, 1e-4, 5, 0.75
+# phase 14, finetune_vovnet K steps per call (CUDA-graph replays of the step)
+GRAPH_K, GRAPH_EQ_CHUNKS, GRAPH_TIMED_CHUNKS = 4, (2, 4, 3), 6  # the warm-up steps, then chunks of K
+LOADER_BATCHES = 12
+# under cuDNN's defaults graphed vs eager may differ by at most this many
+# times the largest difference between EAGER_RUNS eager runs (atomics in
+# the backward algorithms)
+DEFAULTS_FACTOR, EAGER_RUNS = 3.0, 3
+# phase 15, finetune_dla at full width
+DLA_CONFIG, DLA_WARMUP, DLA_STEPS, DLA_EVAL_FRAMES = "finetune_dla", 3, 10, 8  # 8 frames, a shot from each
+DLA_EQ_CHUNKS, DLA_TIMED_CHUNKS = (2, 4), 3
+DLA_TOL = 1e-3  # card vs CPU: each loss, gradient and running statistic, of its tensor's largest |value|
+DLA_F32_FACTOR = 3.0  # f32 card vs CPU: at most this many times the CPU's own f32 vs f64, where above DLA_TOL
 # the train step's named ranges; the last two are torch.optim's own. Autograd
 # launches the backward's kernels from its own thread, outside "backward".
 TRAIN_STAGES = ("features", "refine_support", "correlate", "proposal_head", "targets", "decode_proposals",
@@ -637,33 +678,41 @@ def phase_async(torch, np, cfg, params, cache, frames, smi):
             raise AssertionError(f"async results differ from their pinned calls ({workers} readback workers)")
 
 
-def phase_eval(torch, np, cfg, params, smi):
-    """evaluate on synthetic frames at batch 1 and 8 (frames and support
-    crops held in memory, read through `imread`)."""
+def eval_data(np, cfg, n_frames, shots, seed=5):
+    """n synthetic VGA frames as eval records, a support crop around each
+    of the first `shots` frames' large ellipse, and the in-memory store
+    that `imread` reads: (records, entries, store)."""
     from faster_orefsdet_tpu_torch.data.coco import Annotation, ImageRecord, SupportEntry
-    from faster_orefsdet_tpu_torch.pipelines.evaluate import encode_support_set, evaluate
 
-    frames, gt_boxes = synthetic_frames(np, EVAL_FRAMES, seed=5)
+    frames, gt_boxes = synthetic_frames(np, n_frames, seed=seed)
     store = {f"frame{i}": f for i, f in enumerate(frames)}
     records = [ImageRecord(f"frame{i}", i + 1, *FRAME_HW,
                            [Annotation(i * 100 + j, tuple(float(v) for v in b), 1) for j, b in enumerate(boxes)])
                for i, boxes in enumerate(gt_boxes)]
     crop = cfg.fs.support_crop_size
     entries = []
-    for i in range(EVAL_SHOTS):  # a crop around each frame's large ellipse
+    for i in range(shots):  # a crop around each frame's large ellipse
         x1, y1, x2, y2 = gt_boxes[i][2]
         ox = int(np.clip((x1 + x2) / 2 - crop / 2, 0, FRAME_HW[1] - crop))
         oy = int(np.clip((y1 + y2) / 2 - crop / 2, 0, FRAME_HW[0] - crop))
         store[f"crop{i}"] = frames[i][oy:oy + crop, ox:ox + crop]
         box = np.clip(np.asarray([x1 - ox, y1 - oy, x2 - ox, y2 - oy]), 0, crop - 1).tolist()
         entries.append(SupportEntry(i, i + 1, 1, f"crop{i}", tuple(box)))
+    return records, entries, store
+
+
+def phase_eval(torch, np, cfg, params, smi):
+    """evaluate on synthetic frames at batch 1 and 8 (frames and support
+    crops held in memory, read through `imread`)."""
+    from faster_orefsdet_tpu_torch.pipelines.evaluate import encode_support_set, evaluate
+
+    records, entries, store = eval_data(np, cfg, EVAL_FRAMES, EVAL_SHOTS)
     cache = encode_support_set(cfg, params, entries, shot=EVAL_SHOTS, imread=store.get)
-    keys = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR@100")
     for bs in (1, 8):
         res = evaluate(cfg, params, cache, records, batch_size=bs, imread=store.get)
         emit(eval={"batch": bs, "frames": len(records), **res, "card": smi,
                    "note": "random weights: the AP values check the loop, not the detector"})
-        if not all(np.isfinite(res[k]) for k in keys):
+        if not all(np.isfinite(res[k]) for k in AP_KEYS):
             raise AssertionError(f"eval at batch {bs}: an AP value is not finite")
 
 
@@ -683,53 +732,29 @@ def train_rois(torch, np, batch, n: int, seed: int):
     return torch.from_numpy(rois.astype(np.float32))[None], torch.ones(1, n, dtype=torch.bool)
 
 
-def phase_train(torch, np, smi):
-    """Fine-tuning of finetune_vovnet at full width: synthetic VGA frames
-    (in memory) through the mapper and train_loader, TRAIN_WARMUP +
-    TRAIN_STEPS train steps from init_params with the launches counted; the
-    NMS kernel on the training decode's own inputs; one step card vs CPU;
-    the loss on a fixed batch at a constant LR; a profile of the step."""
-    from faster_orefsdet_tpu_torch.config import get_config
-    from faster_orefsdet_tpu_torch.data.coco import split_per_class
-    from faster_orefsdet_tpu_torch.data.loader import train_canvas, train_loader
-    from faster_orefsdet_tpu_torch.data.mapper import EpisodicMapper, SupportSampler
-    from faster_orefsdet_tpu_torch.data.synthetic import make_synthetic_setup
+def eager_steps(torch, np, cfg, params, records, mapper, n_warmup: int, n_steps: int):
+    """n_warmup + n_steps build_train_step steps from init weights, fed by
+    train_loader, with the kernels' launches counted: (state, step, step ms
+    after the warm-up (host clock, each step ending in a sync), the metrics
+    rows, the batches, the launches, peak GB)."""
+    from faster_orefsdet_tpu_torch.data.loader import train_loader
     from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
-    from faster_orefsdet_tpu_torch.ops.nms import nms_mask as nms_plain
-    from faster_orefsdet_tpu_torch.pipelines.train_step import (
-        build_train_state, build_train_step, loss_fn, make_train_model,
-    )
+    from faster_orefsdet_tpu_torch.pipelines.train_step import build_train_state, build_train_step
     from faster_orefsdet_tpu_torch.utils.events import drain_device_metrics
-    from faster_orefsdet_tpu_torch.utils.params import init_params
 
-    cfg = get_config(TRAIN_CONFIG)
-    t_phase = t0 = time.perf_counter()
-    records, entries, imread = make_synthetic_setup(TRAIN_FRAMES, seed=7, image_hw=FRAME_HW, root="train")
-    records = split_per_class(records)
-    canvas = train_canvas(records, cfg)
-    if canvas != TRAIN_CANVAS:
-        raise AssertionError(f"training canvas {canvas}, expected {TRAIN_CANVAS}")
-    mapper = EpisodicMapper(cfg, SupportSampler(entries), canvas_hw=canvas, imread=imread)
+    state, step = build_train_state(cfg, params), build_train_step(cfg)
+    times, window, batches = [], [], []
     loader = train_loader(records, mapper, cfg.solver.ims_per_batch, seed=0)
-    setup_s = time.perf_counter() - t0
-    params = init_params(cfg, seed=0)
-    torch.backends.cudnn.allow_tf32 = True  # the library defaults, as phase 11 serves
-    torch.backends.cuda.matmul.allow_tf32 = False
-    out = {}
     try:
-        # ---- steps, with the kernels' launches counted
-        state, step = build_train_state(cfg, params), build_train_step(cfg)
-        times, window, batches = [], [], []
-
         def run():
-            for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            for i in range(n_warmup + n_steps):
                 batch = next(loader)
                 batches.append(batch)
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 window.append((i, step(state, batch)))
                 torch.cuda.synchronize()
-                if i >= TRAIN_WARMUP:
+                if i >= n_warmup:
                     times.append((time.perf_counter() - t) * 1e3)
 
         torch.cuda.reset_peak_memory_stats()
@@ -738,11 +763,62 @@ def phase_train(torch, np, smi):
     finally:
         loader.close()
     rows = [m for _, m in drain_device_metrics(window)]
+    return state, step, times, rows, batches, launches, peak
+
+
+def train_nms_site(torch, cfg, state, batch):
+    """The NMS kernel bit for bit on the [1, TRAIN_NMS_K] set that a step's
+    decode gives it, and its device time there: (checks, max |err|, site)."""
+    from faster_orefsdet_tpu_torch.ops import nms_cuda
+    from faster_orefsdet_tpu_torch.ops.nms import nms_mask as nms_plain
+    from faster_orefsdet_tpu_torch.pipelines.train_step import loss_fn
+
+    with torch.no_grad():
+        checks, nms_err, seen = nms_checks_on_request(torch, lambda: loss_fn(state.model, batch, state.generator))
+    thr = cfg.centernet.nms_thresh_train
+    if ([c["shape"] for c in checks if c["site"] == "kernel"] != [[1, TRAIN_NMS_K]] or seen["batched"]
+            or any(c["thr"] != thr or c["mismatches"] for c in checks)):
+        raise AssertionError(f"the NMS kernel on {cfg.backbone_name}'s training decode inputs: {checks}")
+    boxes, scores, valid = seen["kernel"][0][:3]
+    n_valid = int(valid.sum())
+    # the work this data needs: IoU per pair of valid boxes, rank compares over the set
+    site = {"shape": [1, TRAIN_NMS_K], "thr": thr, "valid": n_valid,
+            "ms": graph_ms(torch, lambda: nms_cuda.nms_mask(boxes, scores, valid, thr)),
+            "plain_ms": enqueue_ms(torch, lambda: nms_plain(boxes, scores, valid, thr), 10),  # syncs: no graph
+            **bound(TRAIN_NMS_K * (16 + 4 + 1 + 1), n_valid * (n_valid - 1) // 2 * 13 + TRAIN_NMS_K ** 2 * 3),
+            "inputs": "the training decode's own"}
+    return checks, nms_err, site
+
+
+def phase_train(torch, np, smi):
+    """Fine-tuning of finetune_vovnet at full width: synthetic VGA frames
+    (in memory) through the mapper and train_loader, TRAIN_WARMUP +
+    TRAIN_STEPS train steps from init_params with the launches counted; the
+    NMS kernel on the training decode's own inputs; one step card vs CPU;
+    the loss on a fixed batch at a constant LR; a profile of the step."""
+    from faster_orefsdet_tpu_torch.config import get_config
+    from faster_orefsdet_tpu_torch.pipelines.train_step import (
+        build_train_state, build_train_step, loss_fn, make_train_model,
+    )
+    from faster_orefsdet_tpu_torch.utils.params import init_params
+
+    cfg = get_config(TRAIN_CONFIG)
+    t_phase = t0 = time.perf_counter()
+    records, mapper = train_data(cfg)
+    setup_s = time.perf_counter() - t0
+    params = init_params(cfg, seed=0)
+    torch.backends.cudnn.allow_tf32 = True  # the library defaults, as phase 11 serves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    # ---- steps, with the kernels' launches counted
+    state, step, times, rows, batches, launches, peak = eager_steps(torch, np, cfg, params, records, mapper,
+                                                                    TRAIN_WARMUP, TRAIN_STEPS)
     n_steps = len(rows)
     finite = all(np.isfinite(v) for m in rows for v in m.values())
     med = statistics.median(times)
     batch = batches[0]
-    emit(train={"config": TRAIN_CONFIG, "canvas": list(canvas), "frames": list(FRAME_HW), "shots": cfg.fs.support_shot,
+    emit(train={"config": TRAIN_CONFIG, "canvas": list(TRAIN_CANVAS), "frames": list(FRAME_HW),
+                "shots": cfg.fs.support_shot,
                 "rois": cfg.roi.batch_size_per_image, "steps": n_steps, "warmup_steps": TRAIN_WARMUP,
                 "step_ms_median": med, "step_ms_min": min(times), "step_ms_max": max(times),
                 "queries_per_s": 1e3 * cfg.solver.ims_per_batch / med, "peak_mem_gb": peak, "launches": launches,
@@ -756,22 +832,9 @@ def phase_train(torch, np, smi):
     out.update(launches=launches, steps=n_steps, step_ms=med)
 
     # ---- the NMS kernel on the training decode's own inputs
-    with torch.no_grad():
-        checks, nms_err, seen = nms_checks_on_request(torch, lambda: loss_fn(state.model, batch, state.generator))
-    thr = cfg.centernet.nms_thresh_train
-    ok = ([c["shape"] for c in checks if c["site"] == "kernel"] == [[1, TRAIN_NMS_K]]
-          and all(c["thr"] == thr and not c["mismatches"] for c in checks) and not seen["batched"])
-    boxes, scores, valid = seen["kernel"][0][:3]
-    ms = graph_ms(torch, lambda: nms_cuda.nms_mask(boxes, scores, valid, thr))
-    plain = enqueue_ms(torch, lambda: nms_plain(boxes, scores, valid, thr), 10)  # syncs: no graph
-    n_valid = int(valid.sum())
-    # the work this data needs: IoU per pair of valid boxes, rank compares over the set
-    bnd = bound(TRAIN_NMS_K * (16 + 4 + 1 + 1), n_valid * (n_valid - 1) // 2 * 13 + TRAIN_NMS_K ** 2 * 3)
-    site = {"shape": [1, TRAIN_NMS_K], "thr": thr, "valid": n_valid, "launches_per_step": launches["nms"] / n_steps,
-            "ms": ms, "plain_ms": plain, **bnd, "inputs": "the training decode's own"}
+    checks, nms_err, site = train_nms_site(torch, cfg, state, batch)
+    site["launches_per_step"] = launches["nms"] / n_steps
     emit(train_nms=dict(checks=checks, **site, card=smi))
-    if not ok:
-        raise AssertionError(f"the NMS kernel on the training decode's inputs: {checks}")
     out.update(nms_err=nms_err, nms_mismatches=sum(c["mismatches"] for c in checks), nms_site=site)
 
     # ---- one step card vs CPU: same weights, batch and ROIs, no dropout, f32 without TF32
@@ -821,6 +884,390 @@ def phase_train(torch, np, smi):
     prof = profile_requests(torch, lambda: step(state, batch), med, stages=TRAIN_STAGES)
     emit(profile={"path": "train", "batch": cfg.solver.ims_per_batch, **prof, "card": smi})
     emit(train_phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+def train_data(cfg, seed: int = 7):
+    """TRAIN_FRAMES synthetic VGA frames in memory, grouped per class, and
+    the episodic mapper onto their training canvas."""
+    from faster_orefsdet_tpu_torch.data.coco import split_per_class
+    from faster_orefsdet_tpu_torch.data.loader import train_canvas
+    from faster_orefsdet_tpu_torch.data.mapper import EpisodicMapper, SupportSampler
+    from faster_orefsdet_tpu_torch.data.synthetic import make_synthetic_setup
+
+    records, entries, imread = make_synthetic_setup(TRAIN_FRAMES, seed=seed, image_hw=FRAME_HW, root="train")
+    records = split_per_class(records)
+    canvas = train_canvas(records, cfg)
+    if canvas != TRAIN_CANVAS:
+        raise AssertionError(f"training canvas {canvas}, expected {TRAIN_CANVAS}")
+    return records, EpisodicMapper(cfg, SupportSampler(entries), canvas_hw=canvas, imread=imread)
+
+
+def take_batches(records, mapper, n: int, seed: int):
+    from faster_orefsdet_tpu_torch.data.loader import train_loader
+
+    loader = train_loader(records, mapper, 1, seed=seed)
+    try:
+        return [next(loader) for _ in range(n)]
+    finally:
+        loader.close()
+
+
+def run_eager(torch, cfg, params, batches):
+    """build_train_step over the batches from a fresh state: (state, {metric: [n]})."""
+    from faster_orefsdet_tpu_torch.pipelines.train_step import build_train_state, build_train_step
+
+    state, step = build_train_state(cfg, params), build_train_step(cfg)
+    rows = [step(state, b) for b in batches]
+    return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def run_graphed(torch, cfg, params, batches, chunks):
+    """build_train_step_scan over the batches in chunks of the given sizes
+    from a fresh state: (state, step_k, {metric: [n]})."""
+    from faster_orefsdet_tpu_torch.pipelines.train_step import (
+        build_train_state, build_train_step_scan, run_scan_chunk,
+    )
+
+    state, step_k = build_train_state(cfg, params), build_train_step_scan(cfg)
+    it = iter(batches)
+    out = [run_scan_chunk(step_k, state, it, kk) for kk in chunks]
+    return state, step_k, {k: torch.cat([o[k] for o in out]) for k in out[0]}
+
+
+def rel_err(x, ref) -> float:
+    """The worst |x - ref| over the largest |ref| (a scalar's relative error)."""
+    scale = float(ref.abs().max())
+    diff = float((x - ref).abs().max())
+    return diff / scale if scale > 0 else (0.0 if diff == 0 else float("inf"))
+
+
+def compare_runs(torch, a, ma, b, mb) -> dict:
+    """Two runs' per-step metrics and final states (the model's weights and
+    running statistics, the momentum buffers, the generator): bit identity,
+    and the worst |diff| of a tensor over its largest |value|."""
+    pairs = list(zip(a.model.state_dict().values(), b.model.state_dict().values()))
+    for ga, gb in zip(a.optimizer.param_groups, b.optimizer.param_groups):
+        pairs += [(a.optimizer.state[p]["momentum_buffer"], b.optimizer.state[q]["momentum_buffer"])
+                  for p, q in zip(ga["params"], gb["params"])]
+    worst = max(rel_err(y, x) for x, y in pairs)
+    by_step = torch.stack([(ma[k] - mb[k]).abs() / ma[k].abs().clamp(min=1e-30) for k in ma]).amax(0)
+    return {"steps": int(ma["total_loss"].numel()), "losses_bit_identical": all(torch.equal(ma[k], mb[k]) for k in ma),
+            "worst_loss_rel_err": float(by_step.max()), "loss_rel_err_by_step": by_step.tolist(), "tensors": len(pairs),
+            "tensors_bit_identical": all(torch.equal(x, y) for x, y in pairs), "worst_tensor_err_of_largest": worst,
+            "generator_equal": torch.equal(a.generator.get_state(), b.generator.get_state()),
+            "steps_taken": [a.step, b.step]}
+
+
+def graphed_vs_eager(torch, cfg, params, batches, chunks, deterministic: bool) -> dict:
+    """Eager steps against the K-step function's warm-up steps and replays on
+    the same batches from the same state. Under cudnn.deterministic (no
+    atomics-based convolution algorithms) the same kernels on the same
+    inputs must give the same bits: every loss, weight, running statistic
+    and momentum buffer. Under the library's default, cuDNN may pick
+    backward algorithms that sum with atomics, so eager runs differ already:
+    graphed vs eager must then stay within DEFAULTS_FACTOR x the largest
+    difference between EAGER_RUNS eager runs, in the worst loss and in the
+    worst tensor (the worst of a diverging run is one noisy draw, so the
+    spread is taken over several pairs)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        e_state, e_m = run_eager(torch, cfg, params, batches)
+        g_state, step_k, g_m = run_graphed(torch, cfg, params, batches, chunks)
+        others = [] if deterministic else [run_eager(torch, cfg, params, batches) for _ in range(EAGER_RUNS - 1)]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    res = compare_runs(torch, e_state, e_m, g_state, g_m)
+    res.update(cudnn_deterministic=deterministic, chunks=list(chunks), launches=step_k.kernel_launches(),
+               graphs={str(k[0][0]): {"captured_launches": g.launches, "replays": g.replays}
+                       for k, g in step_k.graphs.items()})
+    if deterministic:
+        within = res["losses_bit_identical"] and res["tensors_bit_identical"]
+    else:
+        keys = ("worst_loss_rel_err", "worst_tensor_err_of_largest")
+        pairs = [compare_runs(torch, *a, *b) for a, b in itertools.combinations([(e_state, e_m), *others], 2)]
+        res["eager_vs_eager"] = {k: [p[k] for p in pairs] for k in keys}
+        spread = {k: max(p[k] for p in pairs) for k in keys}
+        res["graphed_share_of_eager_spread"] = {
+            k: res[k] / spread[k] if spread[k] > 0 else (0.0 if res[k] == 0 else float("inf")) for k in keys}
+        within = all(v <= DEFAULTS_FACTOR for v in res["graphed_share_of_eager_spread"].values())
+    finite = all(bool(torch.isfinite(v).all()) for v in g_m.values())
+    res["ok"] = bool(res["generator_equal"] and res["steps_taken"][0] == res["steps_taken"][1] == len(batches)
+                     and finite and within and res["launches"] == {"cgm": 0, "nms": len(batches)})
+    return res
+
+
+def chunk_times(torch, step_k, state, loader, n_chunks: int):
+    """n chunks of GRAPH_K steps: each chunk's wall ms over K with its
+    batches pulled before the clock starts, and with the pulls inside."""
+    from faster_orefsdet_tpu_torch.pipelines.train_step import run_scan_chunk
+
+    step_ms, with_loader_ms = [], []
+    for i in range(2 * n_chunks):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i % 2:  # the loader inside the window
+            run_scan_chunk(step_k, state, loader, GRAPH_K)
+        else:
+            batches = [next(loader) for _ in range(GRAPH_K)]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step_k(state, batches)
+        torch.cuda.synchronize()
+        (with_loader_ms if i % 2 else step_ms).append((time.perf_counter() - t) * 1e3 / GRAPH_K)
+    return step_ms, with_loader_ms
+
+
+def phase_train_graphed(torch, np, smi, eager_ms: float):
+    """finetune_vovnet K steps per call: graphed against eager on stored
+    batches (deterministic and default cuDNN), then the graphed step's time,
+    launches and profile beside phase 13's eager step, and the loader's own
+    rate."""
+    from faster_orefsdet_tpu_torch.config import get_config
+    from faster_orefsdet_tpu_torch.data.loader import train_loader
+    from faster_orefsdet_tpu_torch.pipelines.train_step import build_train_state, build_train_step_scan
+    from faster_orefsdet_tpu_torch.utils.params import init_params
+
+    cfg = get_config(TRAIN_CONFIG)
+    t_phase = time.perf_counter()
+    records, mapper = train_data(cfg)
+    params = init_params(cfg, seed=0)
+    batches = take_batches(records, mapper, sum(GRAPH_EQ_CHUNKS), seed=3)
+    checks = [graphed_vs_eager(torch, cfg, params, batches, GRAPH_EQ_CHUNKS, det) for det in (True, False)]
+    for c in checks:
+        emit(train_graphed_vs_eager={"config": TRAIN_CONFIG, **c, "card": smi})
+    if not all(c["ok"] for c in checks):
+        raise AssertionError(f"graphed train steps differ from eager ones: {checks}")
+
+    # ---- time: 2 warm-up steps, the capture, then chunks of K fed by train_loader
+    state, step_k = build_train_state(cfg, params), build_train_step_scan(cfg)
+    loader = train_loader(records, mapper, cfg.solver.ims_per_batch, seed=0)
+    try:
+        step_k(state, [next(loader) for _ in range(GRAPH_K)])  # warm-up steps, capture, replays
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = step_k.kernel_launches()
+        step_ms, with_loader_ms = chunk_times(torch, step_k, state, loader, GRAPH_TIMED_CHUNKS)
+        after = step_k.kernel_launches()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        fixed = [next(loader) for _ in range(GRAPH_K)]
+        for _ in range(4):  # the loader alone: drain what it holds, then time it
+            next(loader)
+        t = time.perf_counter()
+        for _ in range(LOADER_BATCHES):
+            next(loader)
+        loader_bps = LOADER_BATCHES / (time.perf_counter() - t)
+    finally:
+        loader.close()
+    n = 2 * GRAPH_TIMED_CHUNKS * GRAPH_K
+    launches = {k: after[k] - before[k] for k in after}
+    med = statistics.median(step_ms)
+    prof = profile_requests(torch, lambda: step_k(state, fixed), med * GRAPH_K, stages=())
+    per_step = {"device_busy_ms": prof["device_busy_ms"] / GRAPH_K, "idle_share": prof["idle_share"],
+                "kernel_events": prof["kernel_launches_per_request"] / GRAPH_K,
+                "own_kernel_ms_and_launches": {k: [v[0] / GRAPH_K, v[1] / GRAPH_K]
+                                               for k, v in prof["own_kernel_ms_and_launches_per_request"].items()}}
+    emit(train_graphed={"config": TRAIN_CONFIG, "k": GRAPH_K, "steps": n, "step_ms_median": med,
+                        "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+                        "queries_per_s": 1e3 * cfg.solver.ims_per_batch / med,
+                        "step_ms_median_with_loader": statistics.median(with_loader_ms),
+                        "eager_step_ms_median_phase13": eager_ms, "speedup_over_eager": eager_ms / med,
+                        "loader_alone_batches_per_s": loader_bps, "peak_mem_gb": peak, "launches": launches,
+                        "launches_per_step": {k: v / n for k, v in launches.items()},
+                        "graphs": {str(k[0][0]): {"captured_launches": g.launches, "replays": g.replays}
+                                   for k, g in step_k.graphs.items()},
+                        "profile_per_step": per_step, "top_kernels_ms_per_chunk": prof["top_kernels_ms"][:6],
+                        "card": smi})
+    if launches != {"cgm": 0, "nms": n}:
+        raise AssertionError(f"graphed steps launched {launches} over {n} steps (expected 0 CGM, 1 NMS a step)")
+    emit(train_graphed_phase_s=time.perf_counter() - t_phase)
+    return {"launches": {k: checks[0]["launches"][k] + checks[1]["launches"][k] + launches[k] for k in launches},
+            "step_ms": med}
+
+
+def dla_step_outputs(torch, cfg, params, batch, rois, dtype, dev) -> dict:
+    """One finetune_dla loss and backward in `dtype` on `dev` (no dropout,
+    the given ROIs): {"loss/<name>", "grad/<parameter>", "stat/<buffer>"
+    (the updated running statistics): CPU tensor}."""
+    from faster_orefsdet_tpu_torch.pipelines.train_step import loss_fn, make_train_model
+    from faster_orefsdet_tpu_torch.utils.params import is_batch_stat
+
+    model = make_train_model(cfg, params, device=dev).to(dtype)
+    total, losses = loss_fn(model, batch.to(dev), deterministic=True,
+                            injected_rois=tuple(t.to(dev) for t in rois))
+    total.backward()
+    return {**{f"loss/{k}": v.detach().cpu() for k, v in losses.items()},
+            **{f"grad/{n}": p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None},
+            **{f"stat/{k}": v.cpu() for k, v in model.state_dict().items() if is_batch_stat(k)}}
+
+
+def dla_card_vs_cpu(torch, cfg, params, batch, rois) -> dict:
+    """One finetune_dla step on the card and on the CPU from the same
+    weights, batch and ROIs, TF32 off, in f64 and in f32; each loss,
+    gradient and updated running statistic as its tensor's worst |diff|
+    over its largest |value| (rel_err).
+
+    A random DLA in batch-statistics mode amplifies rounding: BatchNorm over
+    few positions at the deep levels, and fusion weights whose gradient is a
+    sum that cancels to near 0. So the f64 run is held at DLA_TOL, and the
+    CPU's own f32 against its f64 (the witness) measures what f32 rounding
+    alone does to each quantity: the card's f32 is held against the CPU's
+    f32 at DLA_TOL, or DLA_F32_FACTOR x the witness where that is larger."""
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = {(dtype, dev): dla_step_outputs(torch, cfg, params, batch, rois, dtype, dev)
+               for dtype in (torch.float64, torch.float32) for dev in ("cuda", "cpu")}
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    f64, f32 = torch.float64, torch.float32
+    names = list(got[f64, "cpu"])
+    if any(list(v) != names for v in got.values()):
+        raise AssertionError("finetune_dla card vs CPU: the runs give different sets of tensors")
+
+    def errs(a, b):
+        return {k: rel_err(got[a][k].double(), got[b][k].double()) for k in names}
+
+    e64, e32 = errs((f64, "cuda"), (f64, "cpu")), errs((f32, "cuda"), (f32, "cpu"))
+    witness, card_truth = errs((f32, "cpu"), (f64, "cpu")), errs((f32, "cuda"), (f64, "cpu"))
+    limit32 = {k: max(DLA_TOL, DLA_F32_FACTOR * witness[k]) for k in names}
+    out = {"limit": DLA_TOL, "f32_factor_of_witness": DLA_F32_FACTOR,
+           "counts": {kind: sum(k.startswith(kind + "/") for k in names) for kind in ("loss", "grad", "stat")}}
+    for kind in ("loss", "grad", "stat"):
+        keys = [k for k in names if k.startswith(kind + "/")]
+        for label, e in (("f64", e64), ("f32", e32), ("f32_cpu_vs_f64_cpu", witness), ("f32_card_vs_f64_cpu",
+                                                                                        card_truth)):
+            worst = max(keys, key=e.get)
+            out[f"{kind}_worst_{label}"] = [e[worst], worst]
+    # the quantities that f32 rounding moves beyond DLA_TOL: card vs CPU in
+    # f32, the witness, the card's f32 against the CPU's f64, and the limit
+    loose = sorted((k for k in names if max(e32[k], witness[k]) > DLA_TOL), key=lambda k: -e32[k])
+    out["f32_beyond_tol"] = [[k, e32[k], witness[k], card_truth[k], limit32[k]] for k in loose[:12]]
+    out["f32_beyond_tol_count"] = len(loose)
+    out["f32_worst_share_of_limit"] = max(e32[k] / limit32[k] for k in names)
+    out["ok"] = bool(max(e64.values()) <= DLA_TOL and all(e32[k] <= limit32[k] for k in names))
+    return out
+
+
+def phase_dla(torch, np, smi):
+    """finetune_dla at full width: eager steps with the launches counted and
+    the BatchNorm statistics moving, K2 on a step's own decode set, one step
+    card vs CPU, graphed against eager, evaluation with K2 held at both
+    serving sites, and the eager and graphed step times."""
+    from faster_orefsdet_tpu_torch.config import get_config
+    from faster_orefsdet_tpu_torch.data.loader import train_loader
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
+    from faster_orefsdet_tpu_torch.ops.nms import nms_mask as nms_plain
+    from faster_orefsdet_tpu_torch.pipelines.evaluate import encode_support_set, evaluate
+    from faster_orefsdet_tpu_torch.pipelines.inference import build_inference_fn
+    from faster_orefsdet_tpu_torch.pipelines.preprocess import preprocess_host
+    from faster_orefsdet_tpu_torch.pipelines.train_step import build_train_step_scan
+    from faster_orefsdet_tpu_torch.utils.params import init_params, is_batch_stat
+
+    cfg = get_config(DLA_CONFIG)
+    t_phase = time.perf_counter()
+    records, mapper = train_data(cfg)
+    params = init_params(cfg, seed=0)
+    out = {}
+
+    # ---- eager steps, launches counted
+    state, step, times, rows, batches, launches, peak = eager_steps(torch, np, cfg, params, records, mapper,
+                                                                    DLA_WARMUP, DLA_STEPS)
+    n_steps = len(rows)
+    finite = all(np.isfinite(v) for m in rows for v in m.values())
+    stats = {k: v for k, v in state.model.state_dict().items() if is_batch_stat(k)}
+    moved = sum(not torch.equal(v.cpu(), params[k]) for k, v in stats.items())
+    stats_finite = all(bool(torch.isfinite(v).all()) for v in stats.values())
+    eager_ms = statistics.median(times)
+    emit(dla_train={"config": DLA_CONFIG, "canvas": list(TRAIN_CANVAS), "shots": cfg.fs.support_shot,
+                    "fpn_channels": cfg.fpn.out_channels, "bifpn_repeats": cfg.fpn.bifpn_repeats,
+                    "pooler": cfg.roi.pooler_resolution, "steps": n_steps, "warmup_steps": DLA_WARMUP,
+                    "step_ms_median": eager_ms, "step_ms_min": min(times), "step_ms_max": max(times),
+                    "queries_per_s": 1e3 / eager_ms, "peak_mem_gb": peak, "launches": launches,
+                    "total_loss_trace": [m["total_loss"] for m in rows], "all_finite": finite,
+                    "bn_statistics": len(stats), "bn_statistics_moved": moved, "bn_statistics_finite": stats_finite,
+                    "card": smi})
+    if not finite or moved != len(stats) or not stats_finite or not stats:
+        raise AssertionError(f"finetune_dla steps: finite {finite}, statistics moved {moved}/{len(stats)}")
+    if launches != {"cgm": 0, "nms": n_steps}:
+        raise AssertionError(f"finetune_dla launches {launches} over {n_steps} steps (expected 0 CGM, 1 NMS a step)")
+    batch = batches[0]
+
+    # ---- K2 on the training decode's own set
+    checks, nms_err, train_site = train_nms_site(torch, cfg, state, batch)
+    train_site["launches_per_step"] = launches["nms"] / n_steps
+    emit(dla_train_nms=dict(checks=checks, **train_site, card=smi))
+
+    # ---- one step card vs CPU
+    rois, roi_valid = train_rois(torch, np, batch, cfg.roi.batch_size_per_image, seed=13)
+    card_vs_cpu = dla_card_vs_cpu(torch, cfg, params, batch, (rois, roi_valid))
+    emit(dla_card_vs_cpu={**card_vs_cpu, "card": smi})
+    if not card_vs_cpu["ok"]:
+        raise AssertionError(f"finetune_dla card vs CPU: {card_vs_cpu}")
+
+    # ---- graphed against eager, the BatchNorm statistics included
+    eq = graphed_vs_eager(torch, cfg, params, batches[:sum(DLA_EQ_CHUNKS)], DLA_EQ_CHUNKS, deterministic=True)
+    emit(dla_graphed_vs_eager={**eq, "card": smi})
+    if not eq["ok"]:
+        raise AssertionError(f"finetune_dla graphed steps differ from eager ones: {eq}")
+
+    # ---- evaluation with the trained state (running statistics) in eval mode
+    sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    erecords, entries, store = eval_data(np, cfg, DLA_EVAL_FRAMES, DLA_EVAL_FRAMES, seed=6)
+    cache = encode_support_set(cfg, sd, entries, shot=DLA_EVAL_FRAMES, imread=store.get)
+    res = {}
+    eval_launches = count_launches(cgm_cuda, nms_cuda,
+                                   lambda: res.update(evaluate(cfg, sd, cache, erecords, batch_size=1,
+                                                               imread=store.get)))
+    infer = build_inference_fn(cfg, sd)
+    inp = cfg.input
+    canvas, hw, _ = preprocess_host(store["frame0"], inp.min_size_test, inp.max_size_test, CANVAS_HW,
+                                    inp.pixel_mean, inp.pixel_std)
+    canvas = canvas.cuda()
+    serve_checks, serve_err, serve_seen = nms_checks_on_request(torch, lambda: infer(cache, canvas, hw))
+    dboxes, dscores, dvalid = serve_seen["kernel"][0][:3]
+    k_dec, thr_dec = cfg.static.nms_budget_test, cfg.centernet.nms_thresh_test
+    n_valid = int(dvalid.sum())
+    serve_site = {"shape": [1, k_dec], "thr": thr_dec, "valid": n_valid,
+                  "ms": graph_ms(torch, lambda: nms_cuda.nms_mask(dboxes, dscores, dvalid, thr_dec)),
+                  "plain_ms": enqueue_ms(torch, lambda: nms_plain(dboxes, dscores, dvalid, thr_dec), 10),
+                  **bound(k_dec * 22, n_valid * (n_valid - 1) // 2 * 13 + k_dec ** 2 * 3)}
+    emit(dla_eval={"frames": len(erecords), "shots": len(entries), **res, "launches": eval_launches,
+                   "nms_on_a_request": serve_checks, "decode_site": serve_site, "card": smi,
+                   "note": "random weights: the AP values check the loop, not the detector"})
+    sites = [(c["shape"], c["thr"]) for c in serve_checks if c["site"] == "kernel"]
+    if not all(np.isfinite(res[k]) for k in AP_KEYS):
+        raise AssertionError("finetune_dla eval: an AP value is not finite")
+    if eval_launches != {"cgm": 0, "nms": 2 * len(erecords)}:
+        raise AssertionError(f"finetune_dla eval launches {eval_launches} (expected 0 CGM, 2 NMS an image)")
+    if sites != [([1, k_dec], thr_dec), ([1, cfg.centernet.post_nms_topk_test], cfg.roi.nms_thresh_test)] \
+            or any(c["mismatches"] for c in serve_checks):
+        raise AssertionError(f"the NMS kernel on a finetune_dla request's inputs: {serve_checks}")
+
+    # ---- the graphed step's time beside the eager one
+    step_k = build_train_step_scan(cfg)
+    loader = train_loader(records, mapper, cfg.solver.ims_per_batch, seed=1)
+    try:
+        step_k(state, [next(loader) for _ in range(GRAPH_K)])
+        before = step_k.kernel_launches()
+        graphed_ms, _ = chunk_times(torch, step_k, state, loader, DLA_TIMED_CHUNKS)
+        after = step_k.kernel_launches()
+    finally:
+        loader.close()
+    g_launches = {k: after[k] - before[k] for k in after}
+    g_med = statistics.median(graphed_ms)
+    emit(dla_timing={"eager_step_ms_median": eager_ms, "graphed_step_ms_median": g_med,
+                     "graphed_step_ms_min": min(graphed_ms), "graphed_step_ms_max": max(graphed_ms),
+                     "speedup": eager_ms / g_med, "graphed_launches": g_launches, "card": smi})
+    if g_launches != {"cgm": 0, "nms": DLA_TIMED_CHUNKS * GRAPH_K * 2}:
+        raise AssertionError(f"finetune_dla graphed launches {g_launches}")
+    emit(dla_phase_s=time.perf_counter() - t_phase)
+    out.update(train_launches=launches, graphed_launches={k: eq["launches"][k] + g_launches[k] for k in g_launches},
+               eval_launches=eval_launches, nms_err=max(nms_err, serve_err),
+               nms_mismatches=sum(c["mismatches"] for c in checks + serve_checks), train_site=train_site,
+               serve_site=serve_site)
     return out
 
 
@@ -1074,11 +1521,22 @@ def main() -> int:
     # ---- 13. fine-tuning finetune_vovnet
     train = phase_train(torch, np, smi)
 
+    # ---- 14. finetune_vovnet, K steps per call: CUDA-graph replays of the step
+    graphed = phase_train_graphed(torch, np, smi, train["step_ms"])
+
+    # ---- 15. finetune_dla (DLA-34 + BiFPN, trainable BatchNorm) at full width
+    dla = phase_dla(torch, np, smi)
+
     # launches counted by the wrappers on each eager path; the pinned path's
-    # from its graphs' captured launches times their replays (phase 7)
+    # and the graphed train steps' from their graphs' captured launches times
+    # their replays (phases 7, 14 and 15), plus the K-step function's eager
+    # warm-up steps
     by_path = {"main": launches, "raw_frames": raw_launches, "multiclass": multi_launches,
-               "pinned_replays": pinned_launches, "train": train["launches"]}
-    counted = {k: sum(by_path[p][k] for p in ("main", "raw_frames", "multiclass", "train")) for k in ("cgm", "nms")}
+               "pinned_replays": pinned_launches, "train": train["launches"], "train_graphed": graphed["launches"],
+               "dla_train": dla["train_launches"], "dla_train_graphed": dla["graphed_launches"],
+               "dla_eval": dla["eval_launches"]}
+    eager_paths = ("main", "raw_frames", "multiclass", "train", "dla_train", "dla_eval")
+    counted = {k: sum(by_path[p][k] for p in eager_paths) for k in ("cgm", "nms")}
     common = {"route": "cuda", "library_ms": None}
     emit(kernels=[
         {"name": "cgm_correlate_fused", **common,
@@ -1092,10 +1550,11 @@ def main() -> int:
          "source": "faster_orefsdet_tpu_torch/csrc/nms.cu",
          "replaces": "faster_orefsdet_tpu/ops/pallas_nms.py:46",
          "launches": counted["nms"], "launches_by_path": {p: v["nms"] for p, v in by_path.items()},
-         "max_abs_err": max(nms_err, multi_nms_err, train["nms_err"]),
-         "mismatches": nms_mismatches + train["nms_mismatches"],
+         "max_abs_err": max(nms_err, multi_nms_err, train["nms_err"], dla["nms_err"]),
+         "mismatches": nms_mismatches + train["nms_mismatches"] + dla["nms_mismatches"],
          "ms": nms_ms, "enqueue_ms": nms_enq_ms, "plain_ms": nms_plain_ms, **bound(nms_bytes, nms_flops),
-         "train_site": train["nms_site"]},
+         "train_site": train["nms_site"], "dla_train_site": dla["train_site"],
+         "dla_serving_decode_site": dla["serve_site"]},
     ])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,8 +1,9 @@
 """faster_orefsdet_tpu_torch: the PyTorch/CUDA port of faster_orefsdet_tpu.
 
-The serving path of the published VoVNet-19-slim-eSE few-shot detector (support
-cache -> query path -> packed detections) in PyTorch, with the JAX package's
-two Pallas TPU kernels (fused CGM + conv3, greedy NMS) as hand-written CUDA
+The published VoVNet-19-slim-eSE few-shot detector and its DLA-34 + BiFPN
+family in PyTorch: serving (support cache -> query path -> packed
+detections) and single-card episodic fine-tuning, with the JAX package's two
+Pallas TPU kernels (fused CGM + conv3, greedy NMS) as hand-written CUDA
 kernels for Hopper (``csrc/``). Module names follow the JAX package, which
 stays the reference the port is tested against; the port imports nothing of
 it. Entry points run on the CUDA device unless given ``device="cpu"``, where

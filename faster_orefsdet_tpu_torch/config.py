@@ -205,6 +205,33 @@ def finetune_vovnet_25shot() -> Config:
     return Config()
 
 
+def finetune_r50_c4_1x() -> Config:
+    """configs/fsod/finetune_R_50_C4_1x.yaml: ResNet-50 + FPN (res3-res5 ->
+    P3-P5), a 4x4 main ROI pooler, 9 shots, LR steps (10000, 12000). The
+    port's detector does not build the resnet_fpn family yet."""
+    cfg = Config(backbone_name="resnet_fpn", output_dir="./output/fsod/r50")
+    return cfg.replace(
+        roi=dataclasses.replace(cfg.roi, pooler_resolution=4),
+        fpn=dataclasses.replace(cfg.fpn, in_features=("res3", "res4", "res5")),
+        fs=dataclasses.replace(cfg.fs, support_shot=9),
+        solver=dataclasses.replace(cfg.solver, steps=(10000, 12000)),
+    )
+
+
+def finetune_dla() -> Config:
+    """configs/fsod/finetune_dla.yaml: DLA-34 with trainable BatchNorm +
+    BiFPN (160 channels, 4 repeats), a 7x7 main ROI pooler, the decode's
+    test NMS at 0.9, 9 shots, LR steps (10000, 12000), 12100 iterations."""
+    cfg = Config(backbone_name="dla_bifpn", output_dir="./output/fsod/dla")
+    return cfg.replace(
+        fpn=dataclasses.replace(cfg.fpn, out_channels=160, in_features=("dla3", "dla4", "dla5")),
+        roi=dataclasses.replace(cfg.roi, pooler_resolution=7),
+        centernet=dataclasses.replace(cfg.centernet, nms_thresh_test=0.9),
+        fs=dataclasses.replace(cfg.fs, support_shot=9),
+        solver=dataclasses.replace(cfg.solver, steps=(10000, 12000), max_iter=12100),
+    )
+
+
 def serving_vovnet() -> Config:
     """The published model with the serving knobs on: bf16 compute and the
     fused CGM and NMS kernels."""
@@ -234,6 +261,8 @@ def serving_vovnet_turbo() -> Config:
 _NAMED_CONFIGS = {
     "finetune_vovnet": finetune_vovnet_25shot,
     "finetune_vovnet_25shot": finetune_vovnet_25shot,
+    "finetune_R_50_C4_1x": finetune_r50_c4_1x,
+    "finetune_dla": finetune_dla,
     "serving_vovnet": serving_vovnet,
     "serving_vovnet_fast": serving_vovnet_fast,
     "serving_vovnet_turbo": serving_vovnet_turbo,

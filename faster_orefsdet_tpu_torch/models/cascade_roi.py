@@ -22,7 +22,7 @@ from ..ops.roi_align import multilevel_roi_align
 from ..structures.boxes import clip_boxes, encode_deltas, pairwise_iou
 from ..structures.instances import Detections, GroundTruth
 from .centernet import stable_topk
-from .layers import linear
+from .layers import at_least_f32, linear
 
 ROI_STRIDES = (8, 16, 32)
 
@@ -65,7 +65,7 @@ class DSACascadeHead(nn.Module):
         branch = torch.cat([linear(q8, self.dsa_conv1), linear(s8, self.dsa_conv2)], dim=-1)
         attn8 = fused + branch
         x = attn8.reshape(*attn8.shape[:2], -1)  # HWC flatten
-        x = torch.relu(linear(x, getattr(self, f"stage{stage}_fc1"))).float()
+        x = at_least_f32(torch.relu(linear(x, getattr(self, f"stage{stage}_fc1"))))
         scores = linear(x, getattr(self, f"stage{stage}_cls"))
         deltas = linear(x, getattr(self, f"stage{stage}_bbox"))
         return StageOutput(scores=scores, deltas=deltas)

@@ -23,6 +23,7 @@ from ..ops.nms import keep_top_scores
 from ..ops.nms_cuda import nms_mask
 from ..structures.boxes import ltrb_to_xyxy
 from ..structures.instances import Proposals
+from .layers import at_least_f32
 
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -130,8 +131,8 @@ def centernet_losses(
     each image's count of pixels with a regression target. Returns
     {name: [B]}; the caller takes the mean over images."""
     b = agn_hms[0].shape[0]
-    agn_flat = torch.cat([h.reshape(b, -1) for h in agn_hms], dim=1).float()
-    reg_flat = torch.cat([r.permute(0, 2, 3, 1).reshape(b, -1, 4) for r in bbox_regs], dim=1).float()
+    agn_flat = at_least_f32(torch.cat([h.reshape(b, -1) for h in agn_hms], dim=1))
+    reg_flat = at_least_f32(torch.cat([r.permute(0, 2, 3, 1).reshape(b, -1, 4) for r in bbox_regs], dim=1))
 
     # localization: gIoU over the pixels with a target; unit weights (NOT_NORM_REG)
     reg_valid = (targets.reg_targets.amax(dim=-1) >= 0) & canvas_valid

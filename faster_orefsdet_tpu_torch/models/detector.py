@@ -1,7 +1,7 @@
 """CenterNet2Detector: the few-shot ore detector as one nn.Module whose
 phases are methods (counterpart of ``faster_orefsdet_tpu/models/detector.py``):
 
-  features          backbone + FPN
+  features          backbone + neck (VoVNet + FPN, or DLA-34 + BiFPN)
   refine_support    adaptive pool -> SM block -> spatial transpose quirk
   correlate         CGM correlation + conv3 fusion (the CGM kernel with
                     cfg.use_pallas_cgm, else the differentiable composition)
@@ -21,20 +21,27 @@ import torch.nn as nn
 
 from ..config import Config
 from ..ops.adaptive_pool import adaptive_avg_pool2d
+from ..ops.cgm_cuda import CHANNELS as CGM_CHANNELS
 from ..ops.cgm_cuda import cgm_correlate_fused
 from ..ops.correlation import cgm_correlate
+from .bifpn import BiFPN
 from .cascade_roi import DSACascadeHead, StageOutput
 from .centernet_head import CenterNetHead
+from .dla import DLA
 from .fpn import FPN
-from .layers import linear
+from .layers import at_least_f32, linear
 from .sm_block import SMBlock
 from .vovnet import VoVNet
 
 # per-level SM pool size == seg_dim: p3 -> 32, p4 -> 16, p5 -> 8
 SM_POOL_SIZES = {"p3": 32, "p4": 16, "p5": 8}
 
-# parameters that fine-tuning never updates: the backbone's stem, stage2 and
-# stage3 (FREEZE_AT=3). Every FrozenBN affine is frozen too; here it is a buffer.
+# the backbone families the port builds
+BACKBONES = ("vovnet_fpn", "dla_bifpn")
+
+# parameters that fine-tuning never updates: VoVNet's stem, stage2 and stage3
+# (FREEZE_AT=3; the DLA builders ignore it). Every FrozenBN affine is frozen
+# too; here it is a buffer.
 FROZEN_PREFIXES = ("backbone.stem", "backbone.stage2_", "backbone.stage3_")
 
 Kernels = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -44,7 +51,7 @@ def support_kernels(mean_map: torch.Tensor) -> Kernels:
     """Pool a (shot-mean, spatially transposed) support map [..., S, S, C]
     into the three CGM kernels: k1 [..., C], k13 [..., 3, C] (W taps), k31
     [..., 3, C] (H taps), f32. A leading axis gives one set per image."""
-    m = mean_map.float().movedim(-1, -3)  # [..., C, S0, S1], S0 the map's first axis
+    m = at_least_f32(mean_map).movedim(-1, -3)  # [..., C, S0, S1], S0 the map's first axis
     k1 = adaptive_avg_pool2d(m, (1, 1))[..., 0, 0].contiguous()
     k13 = adaptive_avg_pool2d(m, (1, 3))[..., 0, :].transpose(-1, -2).contiguous()
     k31 = adaptive_avg_pool2d(m, (3, 1))[..., :, 0].transpose(-1, -2).contiguous()
@@ -61,8 +68,8 @@ def compute_dtype(cfg: Config) -> Optional[torch.dtype]:
 class CenterNet2Detector(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.backbone_name != "vovnet_fpn":
-            raise ValueError(f"backbone_name {cfg.backbone_name!r}: the port has 'vovnet_fpn'")
+        if cfg.backbone_name not in BACKBONES:
+            raise ValueError(f"backbone_name {cfg.backbone_name!r}: the port has {BACKBONES}")
         if cfg.quantize != "none":
             raise ValueError(f"quantize {cfg.quantize!r}: the port has the float path only")
         if cfg.fpn.top_levels != 0:
@@ -70,10 +77,19 @@ class CenterNet2Detector(nn.Module):
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
         c = cfg.fpn.out_channels
-        self.backbone = VoVNet(cfg.vovnet.conv_body, cfg.vovnet.out_features, dtype=self.dtype)
-        chans = VoVNet.out_channels(cfg.vovnet.conv_body)
-        self.fpn = FPN([chans[f] for f in cfg.fpn.in_features], cfg.fpn.in_features, c,
-                       cfg.fpn.fuse_type, dtype=self.dtype)
+        if cfg.use_pallas_cgm and c != CGM_CHANNELS:
+            raise ValueError(f"use_pallas_cgm with {c} channels: the CGM kernel takes {CGM_CHANNELS}")
+        if cfg.backbone_name == "dla_bifpn":
+            levels = ("dla3", "dla4", "dla5")
+            self.backbone = DLA(cfg.dla.num_layers, levels, norm=cfg.dla.norm, dtype=self.dtype)
+            chans = DLA.out_channels(cfg.dla.num_layers)
+            self.fpn = BiFPN(levels, tuple(chans[f] for f in levels), c, cfg.fpn.bifpn_repeats, cfg.fpn.bifpn_norm,
+                             dtype=self.dtype)
+        else:
+            self.backbone = VoVNet(cfg.vovnet.conv_body, cfg.vovnet.out_features, dtype=self.dtype)
+            chans = VoVNet.out_channels(cfg.vovnet.conv_body)
+            self.fpn = FPN([chans[f] for f in cfg.fpn.in_features], cfg.fpn.in_features, c,
+                           cfg.fpn.fuse_type, dtype=self.dtype)
         self.vip_p3 = SMBlock(c, SM_POOL_SIZES["p3"])
         self.vip_p4 = SMBlock(c, SM_POOL_SIZES["p4"])
         self.vip_p5 = SMBlock(c, SM_POOL_SIZES["p5"])
@@ -112,9 +128,14 @@ class CenterNet2Detector(nn.Module):
         return self
 
     # ---------------------------------------------------------------- phases
-    def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """images [B, 3, H, W] normalized -> {'p3','p4','p5'} [B, C, H_l, W_l]."""
+    def features(self, images: torch.Tensor, train: bool = False) -> Dict[str, torch.Tensor]:
+        """images [B, 3, H, W] normalized -> {'p3','p4','p5'} [B, C, H_l, W_l].
+        train=True puts trainable norms (DLA's BatchNorm) in batch-statistics
+        mode and updates their running statistics; backbones without them
+        ignore it."""
         x = images.contiguous(memory_format=torch.channels_last)
+        if self.cfg.backbone_name == "dla_bifpn":
+            return self.fpn(self.backbone(x, train=train))
         return self.fpn(self.backbone(x))
 
     def refine_support(self, sup_feats: Dict[str, torch.Tensor],

@@ -18,6 +18,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, or in f64 when it is f64 (an f64 run of the port is its
+    own oracle where f32 rounding is amplified)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _dtype(x: torch.Tensor, w: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.dtype:
     return dtype if dtype is not None else torch.promote_types(x.dtype, w.dtype)
 
@@ -58,7 +64,38 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.scale, self.bias, eps=1e-5)
+        return F.group_norm(at_least_f32(x), self.num_groups, self.scale, self.bias, eps=1e-5)
+
+
+class BatchNorm(nn.Module):
+    """Trainable BatchNorm with flax's semantics and names: affine `scale` /
+    `bias`, running statistics `mean` / `var` (the flax ``batch_stats``
+    leaves), eps 1e-5, momentum 0.9 on the running value (torch's 0.1 on
+    the batch's). The output is f32 (f64 for an f64 input).
+
+    forward(x, train=True) normalizes by the batch's statistics over N, H, W
+    (biased variance) and moves the running statistics toward them, the
+    variance with the biased one as flax does (torch would use the unbiased
+    one, N/(N-1) larger). train=False normalizes by the running statistics.
+    The update is in place on the buffers, so a CUDA graph can capture it."""
+
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = at_least_f32(x)
+        if not train:
+            return F.batch_norm(x, self.mean, self.var, self.scale, self.bias, training=False, eps=self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+            self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        return F.batch_norm(x, None, None, self.scale, self.bias, training=True, eps=self.eps)
 
 
 class ConvNorm(nn.Module):

@@ -27,10 +27,11 @@ def adaptive_pool_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 def adaptive_avg_pool2d(x: torch.Tensor, output_size) -> torch.Tensor:
     """Pool the two trailing (spatial) axes of x [..., H, W] to output_size
-    (out_h, out_w); computes and returns f32."""
+    (out_h, out_w); computes and returns f32 (f64 for an f64 x)."""
     out_h, out_w = output_size
     h, w = x.shape[-2], x.shape[-1]
-    ph = adaptive_pool_matrix(h, out_h, device=x.device)
-    pw = adaptive_pool_matrix(w, out_w, device=x.device)
-    x = torch.einsum("oh,...hw->...ow", ph, x.float())
+    dt = torch.promote_types(x.dtype, torch.float32)
+    ph = adaptive_pool_matrix(h, out_h, device=x.device).to(dt)
+    pw = adaptive_pool_matrix(w, out_w, device=x.device).to(dt)
+    x = torch.einsum("oh,...hw->...ow", ph, x.to(dt))
     return torch.einsum("pw,...ow->...op", pw, x)

@@ -58,7 +58,7 @@ def roi_align(
 ) -> torch.Tensor:
     """ROIAlignV2 over one level. feature [B, C, H, W]; boxes [B, R, 4] xyxy
     image coords -> [B, R, P, P, C] channel-last, in the feature's dtype (the
-    products run in f32)."""
+    products run in f32, or f64 for an f64 feature)."""
     hh, ww = feature.shape[-2], feature.shape[-1]
     b = boxes.float()
     sx = b[..., 0] * spatial_scale - 0.5
@@ -69,9 +69,10 @@ def roi_align(
     h = torch.clamp(ey - sy, min=1e-6)
     ay = _interp_matrix(sy, h, hh, output_size, sampling_ratio)  # [B,R,P,H]
     ax = _interp_matrix(sx, w, ww, output_size, sampling_ratio)  # [B,R,P,W]
-    feat = feature.permute(0, 2, 3, 1).float()  # [B,H,W,C]
-    t = torch.einsum("brph,bhwc->brpwc", ay, feat).to(feature.dtype)
-    out = torch.einsum("brqw,brpwc->brpqc", ax, t.float())
+    dt = torch.promote_types(feature.dtype, torch.float32)
+    feat = feature.permute(0, 2, 3, 1).to(dt)  # [B,H,W,C]
+    t = torch.einsum("brph,bhwc->brpwc", ay.to(dt), feat).to(feature.dtype)
+    out = torch.einsum("brqw,brpwc->brpqc", ax.to(dt), t.to(dt))
     return out.to(feature.dtype)
 
 

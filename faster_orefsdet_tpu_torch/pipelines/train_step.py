@@ -18,12 +18,19 @@ Batch layout (fixed shapes, NCHW as the rest of the port):
 Randomness (the SM blocks' dropout, the ROI sampling keys) comes from one
 torch.Generator on the model's device, held in the train state. A step
 returns its metrics as device tensors, so it never waits for the device.
+Trainable norms (DLA's BatchNorm) run in batch-statistics mode in both
+feature passes, the query's first, and update their running statistics in
+place, as the JAX package's loss_fn with batch_stats does.
+
+``build_train_step_scan`` runs K steps per call: on the card, each step is
+one replay of a CUDA graph of the whole step (forward, backward, clip,
+SGD), the same arithmetic as ``build_train_step``'s.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -34,7 +41,8 @@ from ..models.centernet import _level_valid_mask, centernet_losses, decode_propo
 from ..models.detector import CenterNet2Detector, support_kernels
 from ..ops.heatmap import more_pos_inds, render_targets
 from ..ops.roi_align import multilevel_roi_align
-from ..solver import build_optimizer, build_schedule, optimizer_step
+from ..ops import cgm_cuda, nms_cuda
+from ..solver import build_optimizer, build_schedule, optimizer_step, set_lr, sgd_update
 from ..structures.boxes import apply_deltas
 from ..structures.instances import GroundTruth
 from ..utils.device import resolve_device
@@ -95,8 +103,8 @@ def loss_fn(
     shot = min(cfg.fs.support_shot, s)
 
     with record_function("features"):
-        qfeats = model.features(batch.images)
-        sfeats = model.features(batch.support_images.reshape(b * s, *batch.support_images.shape[2:]))
+        qfeats = model.features(batch.images, train=True)
+        sfeats = model.features(batch.support_images.reshape(b * s, *batch.support_images.shape[2:]), train=True)
 
     # support ROI pools for the DSA head: the shot-mean over the positive way
     # only (the mapper orders the positive way first)
@@ -227,3 +235,136 @@ def build_train_step(cfg: Config, deterministic: bool = False
         return {"total_loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
 
     return train_step
+
+
+WARMUP_STEPS = 2  # eager steps of each batch shape before its capture
+
+
+class _StepGraph:
+    """One captured train step: the graph, its static batch, its output (the
+    metrics stacked), the kernel launches captured into it and its replays."""
+
+    def __init__(self, graph, batch: TrainBatch, out: torch.Tensor, launches: Dict[str, int]):
+        self.graph, self.batch, self.out, self.launches = graph, batch, out, launches
+        self.replays = 0
+
+
+class TrainStepK:
+    """step_k(state, batches) -> {metric: [len(batches)] tensor}: one train
+    step per batch on `state`, in order (see ``build_train_step_scan``)."""
+
+    def __init__(self, cfg: Config):
+        _check_trainable(cfg)
+        self.cfg = cfg
+        self.schedule = build_schedule(cfg.solver)
+        self.eager = build_train_step(cfg)
+        self.graphs: Dict[tuple, _StepGraph] = {}
+        self._eager_steps: Dict[tuple, int] = {}
+        self._eager_launches = {"cgm": 0, "nms": 0}
+        self._state: Optional[TrainState] = None
+        self._stream = None
+        self._names: Optional[List[str]] = None
+
+    def __call__(self, state: TrainState, batches: Sequence[TrainBatch]) -> Dict[str, torch.Tensor]:
+        if state.device.type != "cuda":
+            rows = [self._counted(lambda: self.eager(state, b)) for b in batches]
+            return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        if self._state is None:
+            self._state, self._stream = state, torch.cuda.Stream(state.device)
+        elif state is not self._state:
+            raise ValueError("this step function's graphs belong to another train state: build one per state")
+        rows = [self._step(state, b.to(state.device)) for b in batches]
+        out = torch.stack(rows)
+        return {k: out[:, i] for i, k in enumerate(self._names)}
+
+    def _step(self, state: TrainState, batch: TrainBatch) -> torch.Tensor:
+        key = tuple((tuple(t.shape), t.stride(), t.dtype) for t in batch)
+        g = self.graphs.get(key)
+        if g is None and self._eager_steps.get(key, 0) >= WARMUP_STEPS:
+            g = self.graphs[key] = self._capture(state, batch)
+        if g is None:
+            return self._warmup(state, batch, key)
+        for static, t in zip(g.batch, batch):
+            static.copy_(t, non_blocking=True)
+        set_lr(state.optimizer, self.schedule(state.step))
+        g.graph.replay()
+        g.replays += 1
+        state.step += 1
+        return g.out.clone()  # the next replay overwrites g.out
+
+    def _counted(self, run):
+        """run() with the kernel launches it makes added to the eager count."""
+        before = (cgm_cuda.counter.launches, nms_cuda.counter.launches)
+        out = run()
+        self._eager_launches["cgm"] += cgm_cuda.counter.launches - before[0]
+        self._eager_launches["nms"] += nms_cuda.counter.launches - before[1]
+        return out
+
+    def _warmup(self, state: TrainState, batch: TrainBatch, key: tuple) -> torch.Tensor:
+        """A real eager step on the capture's stream (lazy state is made there)."""
+        cur = torch.cuda.current_stream(state.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            metrics = self._counted(lambda: self.eager(state, batch))
+            out = torch.stack(list(metrics.values()))
+        cur.wait_stream(self._stream)
+        for t in batch:  # made on the caller's stream, read on the capture's
+            t.record_stream(self._stream)
+        out.record_stream(cur)
+        self._eager_steps[key] = self._eager_steps.get(key, 0) + 1
+        self._names = list(metrics)
+        return out
+
+    def _capture(self, state: TrainState, batch: TrainBatch) -> _StepGraph:
+        """Capture loss, backward, clip and SGD update on the static batch. The
+        gradients are dropped first, so that the backward in the capture
+        allocates them from the graph's pool; the generator is registered, so
+        that each replay draws anew. A capture that fails raises."""
+        static = TrainBatch(*(torch.empty_like(t) for t in batch))
+        for s, t in zip(static, batch):
+            s.copy_(t)
+        self._stream.wait_stream(torch.cuda.current_stream(state.device))
+        state.optimizer.zero_grad(set_to_none=True)
+        before = (cgm_cuda.counter.launches, nms_cuda.counter.launches)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(state.generator)
+        # thread_local: the loader's thread may copy to the card meanwhile
+        with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
+            total, losses = loss_fn(state.model, static, state.generator)
+            total.backward()
+            sgd_update(state.optimizer, self.cfg.solver)
+            out = torch.stack([total.detach(), *(v.detach() for v in losses.values())])
+        launches = {"cgm": cgm_cuda.counter.launches - before[0], "nms": nms_cuda.counter.launches - before[1]}
+        return _StepGraph(graph, static, out, launches)
+
+    def kernel_launches(self) -> Dict[str, int]:
+        """The kernel launches of every step taken: the eager warm-up steps'
+        and, for each graph, its captured launches times its replays (the
+        wrappers' counters advance when a call is captured, not when a graph
+        replays)."""
+        return {k: self._eager_launches[k] + sum(g.launches[k] * g.replays for g in self.graphs.values())
+                for k in self._eager_launches}
+
+
+def build_train_step_scan(cfg: Config) -> TrainStepK:
+    """step_k(state, batches) -> {metric: [k] device tensor}: k train steps
+    on `state`, one per batch, the same updates as k ``build_train_step``
+    calls from the same state, batches and generator.
+
+    On the card the first WARMUP_STEPS steps of each batch shape run eagerly
+    (real steps of the run, on the capture's stream), then the whole step
+    (loss, backward, clip, SGD update) is captured once into a CUDA graph
+    with static batch buffers, the generator registered and each group's LR
+    read from a device tensor; every later step of that shape copies its
+    batch in, writes the scheduled LR and replays the graph, a few host
+    calls instead of some 3000 launches. The graphs hold the state's
+    parameters, optimizer buffers and generator: use one step function per
+    train state, and build it anew after replacing any of them (resuming
+    before its first step is fine). On the CPU it runs k eager steps."""
+    return TrainStepK(cfg)
+
+
+def run_scan_chunk(step_k: TrainStepK, state: TrainState, loader: Iterator[TrainBatch], kk: int
+                   ) -> Dict[str, torch.Tensor]:
+    """Pull kk batches from the loader and take kk steps: {metric: [kk]}."""
+    return step_k(state, [next(loader) for _ in range(kk)])

@@ -10,15 +10,23 @@ optax does. Groups:
 
   base   every trainable parameter not below;
   head   the cascade box predictors' cls / bbox layers (head_lr_factor x LR);
-  norm   the GroupNorm affines (weight_decay_norm);
-  frozen the backbone's stem, stage2 and stage3, and every FrozenBN affine:
+  norm   the GroupNorm and trainable BatchNorm affines (weight_decay_norm);
+  frozen VoVNet's stem, stage2 and stage3, and every FrozenBN affine:
          requires_grad=False, never in the optimizer.
+
+The update is the port's own foreach arithmetic over the groups of a
+``torch.optim.SGD`` (which holds the groups and the momentum buffers, and
+so the checkpoint's layout): each group's LR is a 0-dim tensor on the
+device, written by ``set_lr`` before the update and read by it there, so
+that a CUDA graph of the update (``sgd_update``) reads each step's LR. A
+trainable parameter without a gradient takes a zero one, as optax's does
+(weight decay and momentum still move it).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
 import torch
 
@@ -89,13 +97,14 @@ def clip_gradients(params: Iterable[torch.Tensor], cfg: SolverConfig) -> None:
 
 
 def param_label(name: str, trainable: bool = True) -> str:
-    """'frozen' | 'head' | 'norm' | 'base' of a state_dict key; buffers (the
-    FrozenBN affines) are frozen."""
-    if not trainable or name.startswith(FROZEN_PREFIXES):
+    """'frozen' | 'head' | 'norm' | 'base' of a state_dict key, by the JAX
+    package's rules; buffers (FrozenBN affines, BatchNorm statistics) are
+    frozen."""
+    if not trainable or name.startswith(FROZEN_PREFIXES) or ".norm." in name:
         return "frozen"
     if "_cls." in name or "_bbox." in name:
         return "head"
-    if "_gn." in name:
+    if "_gn." in name or ".gn." in name or ".bn." in name:
         return "norm"
     return "base"
 
@@ -109,7 +118,7 @@ def param_labels(model: torch.nn.Module) -> Dict[str, str]:
 def build_optimizer(cfg: SolverConfig, model: torch.nn.Module) -> torch.optim.SGD:
     """torch.optim.SGD over the model's trainable parameters in the groups
     base / head / norm; each group carries its `lr_factor`. Call
-    ``optimizer_step`` to clip, set the scheduled LR and step."""
+    ``optimizer_step`` to clip, set the scheduled LR and update."""
     groups: Dict[str, list] = {"base": [], "head": [], "norm": []}
     for name, p in model.named_parameters():
         if p.requires_grad and param_label(name) != "frozen":
@@ -124,11 +133,47 @@ def build_optimizer(cfg: SolverConfig, model: torch.nn.Module) -> torch.optim.SG
     return torch.optim.SGD(param_groups, lr=cfg.base_lr, momentum=cfg.momentum, nesterov=cfg.nesterov)
 
 
-def optimizer_step(optimizer: torch.optim.Optimizer, cfg: SolverConfig, schedule: Schedule, count: int) -> None:
-    """One update at optimizer step `count` (from 0): clip the gradients,
-    set each group's LR to schedule(count) x its factor, step."""
-    clip_gradients((p for g in optimizer.param_groups for p in g["params"]), cfg)
-    lr = schedule(count)
-    for g in optimizer.param_groups:
+def _lr_tensors(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
+    """Each group's LR as a 0-dim f32 tensor on its parameters' device."""
+    lrs = getattr(optimizer, "lr_tensors", None)
+    if lrs is None:
+        lrs = optimizer.lr_tensors = [torch.zeros((), device=g["params"][0].device) for g in optimizer.param_groups]
+    return lrs
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Write lr x each group's factor into the group's LR tensor (a fill on
+    the device, no wait) and into its `lr` entry."""
+    for g, t in zip(optimizer.param_groups, _lr_tensors(optimizer)):
         g["lr"] = lr * g["lr_factor"]
-    optimizer.step()
+        t.fill_(g["lr"])
+
+
+@torch.no_grad()
+def sgd_update(optimizer: torch.optim.Optimizer, cfg: SolverConfig) -> None:
+    """Clip the gradients, then per group: add the decayed weights, fold into
+    the momentum trace (zeros before the first step), step by the group's LR
+    tensor. No host value is read, so a CUDA graph can hold it."""
+    clip_gradients((p for g in optimizer.param_groups for p in g["params"]), cfg)
+    for g, lr in zip(optimizer.param_groups, _lr_tensors(optimizer)):
+        params = g["params"]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        if g["weight_decay"]:
+            grads = torch._foreach_add(grads, params, alpha=g["weight_decay"])
+        bufs = []
+        for p in params:
+            state = optimizer.state[p]
+            if state.get("momentum_buffer") is None:
+                state["momentum_buffer"] = torch.zeros_like(p)
+            bufs.append(state["momentum_buffer"])
+        torch._foreach_mul_(bufs, cfg.momentum)
+        torch._foreach_add_(bufs, grads)
+        step = torch._foreach_add(grads, bufs, alpha=cfg.momentum) if cfg.nesterov else bufs
+        torch._foreach_sub_(params, torch._foreach_mul(step, lr))
+
+
+def optimizer_step(optimizer: torch.optim.Optimizer, cfg: SolverConfig, schedule: Schedule, count: int) -> None:
+    """One update at optimizer step `count` (from 0): set each group's LR to
+    schedule(count) x its factor, clip the gradients, update."""
+    set_lr(optimizer, schedule(count))
+    sgd_update(optimizer, cfg)

@@ -10,7 +10,9 @@ train state, or leaves the state as it is when the directory has none.
 flat ``.npz`` of the flax params tree (keys are ``jax.tree_util.keystr``
 paths such as ``['backbone']['stem1']['conv']['kernel']``, arrays in its
 layouts): a model trained by either package can be fine-tuned or served by
-the other.
+the other. A model with trainable BatchNorm (finetune_dla) keeps its running
+statistics in ``batch_stats.npz`` beside the params file, in the same
+layout, as the JAX package's train command does.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from ..pipelines.train_step import TrainState
-from .params import from_jax_params, to_jax_params
+from .params import from_jax_params, to_jax_batch_stats, to_jax_params
 
 _CKPT = re.compile(r"^step_(\d+)\.pt$")
 _KEY = re.compile(r"\['([^']*)'\]")
@@ -80,14 +82,36 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+BATCH_STATS_NPZ = "batch_stats.npz"
+
+
+def batch_stats_path(params_path: str) -> str:
+    """Where the running statistics of a params file are: beside it."""
+    return os.path.join(os.path.dirname(params_path), BATCH_STATS_NPZ)
+
+
 def save_params_npz(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:
-    """Write a state_dict as the JAX package's flat params .npz."""
+    """Write a state_dict as the JAX package's flat params .npz, and its
+    running statistics, if it has any, as ``batch_stats.npz`` beside it."""
     np.savez(path, **_flatten(to_jax_params(state_dict)))
+    stats = to_jax_batch_stats(state_dict)
+    if stats is not None:
+        np.savez(batch_stats_path(path), **_flatten(stats))
 
 
-def load_params_npz(path: str) -> Dict[str, torch.Tensor]:
+def load_params_npz(path: str, batch_stats: bool = False) -> Dict[str, torch.Tensor]:
     """Read the JAX package's params .npz (its ``model_final.npz``, or this
-    module's) -> the port's state_dict (f32 CPU tensors)."""
+    module's) -> the port's state_dict (f32 CPU tensors). batch_stats=True
+    adds the running statistics of ``batch_stats.npz`` beside it, when that
+    file exists."""
+    sd = from_jax_params(_read_tree(path))
+    stats = batch_stats_path(path)
+    if batch_stats and os.path.exists(stats):
+        sd.update(from_jax_params({}, _read_tree(stats)))
+    return sd
+
+
+def _read_tree(path: str) -> Dict:
     tree: Dict = {}
     with np.load(path) as z:
         for key in z.files:
@@ -98,4 +122,4 @@ def load_params_npz(path: str) -> Dict[str, torch.Tensor]:
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = z[key]
-    return from_jax_params(tree)
+    return tree

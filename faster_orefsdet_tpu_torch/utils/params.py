@@ -7,13 +7,15 @@ The port's modules carry the flax tree's names, so a flax path
 keeps its name. Layout changes: conv kernels HWIO -> OIHW, dense kernels
 [I, O] -> Linear [O, I]. FrozenBN is the folded affine (``scale``, ``bias``)
 in both. The ROI head's fc1 needs no permutation: the port flattens the
-pooled features in HWC order, as the JAX package does.
+pooled features in HWC order, as the JAX package does. A trainable
+BatchNorm's running statistics, the flax ``batch_stats`` collection
+(``.../bn/mean``, ``.../bn/var``), are the buffers of the same names.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -33,11 +35,20 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX package's flax ``params`` tree (nested dicts of numpy arrays)
-    -> the port's CenterNet2Detector state_dict (f32 CPU tensors)."""
+BATCH_STATS = ("mean", "var")  # the leaves of a flax BatchNorm's batch_stats
+
+
+def is_batch_stat(key: str) -> bool:
+    """Whether a state_dict key is a running statistic (a batch_stats leaf)."""
+    return key.rsplit(".", 1)[-1] in BATCH_STATS
+
+
+def from_jax_params(tree: Mapping, batch_stats: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """The JAX package's flax ``params`` tree (nested dicts of numpy arrays),
+    and its ``batch_stats`` tree when the model has one, -> the port's
+    CenterNet2Detector state_dict (f32 CPU tensors)."""
     sd = {}
-    for key, arr in _flatten(tree).items():
+    for key, arr in {**_flatten(tree), **_flatten(batch_stats or {})}.items():
         arr = np.array(arr, dtype=np.float32)  # a writable copy
         if key.endswith(".kernel") or key == "kernel":
             key = key[: -len("kernel")] + "weight"
@@ -54,7 +65,18 @@ def from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
 def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """The inverse of ``from_jax_params``: a state_dict of the port's
     detector -> the JAX package's flax ``params`` tree (nested dicts of f32
-    numpy arrays in its layouts)."""
+    numpy arrays in its layouts), without the running statistics."""
+    return _to_tree({k: v for k, v in state_dict.items() if not is_batch_stat(k)})
+
+
+def to_jax_batch_stats(state_dict: Mapping[str, torch.Tensor]) -> Optional[Dict]:
+    """The state_dict's running statistics as the flax ``batch_stats`` tree,
+    or None when the model has none (as the JAX package's train state)."""
+    stats = {k: v for k, v in state_dict.items() if is_batch_stat(k)}
+    return _to_tree(stats) if stats else None
+
+
+def _to_tree(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     tree: Dict = {}
     for key, t in state_dict.items():
         arr = t.detach().float().cpu().numpy()
@@ -72,8 +94,9 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
 def init_params(cfg: Config, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Seeded random weights for the detector of `cfg` as a state_dict (f32
     CPU tensors, the same numbers on any machine). Weights are N(0, 1/fan_in)
-    so that activations stay O(1) through the deep chain; norm scales are
-    near 1; the heatmap bias sits at a low prior and the box bias at 8 strides."""
+    so that activations stay O(1) through the deep chain; norm scales and
+    BiFPN fusion weights are near 1, running means 0 and variances 1; the
+    heatmap bias sits at a low prior and the box bias at 8 strides."""
     g = np.random.default_rng(seed)
     template = CenterNet2Detector(cfg).state_dict()
     prior_bias = -math.log((1.0 - cfg.centernet.prior_prob) / cfg.centernet.prior_prob)
@@ -82,8 +105,12 @@ def init_params(cfg: Config, seed: int = 0) -> Dict[str, torch.Tensor]:
         shape = tuple(t.shape)
         noise = g.standard_normal(shape).astype(np.float32)
         leaf = key.rsplit(".", 1)[-1]
-        if key.endswith(("norm.scale", "_gn.scale")):
+        if key.endswith(("norm.scale", "gn.scale", "bn.scale")) or leaf.startswith("weights_f"):
             v = 1.0 + 0.1 * noise
+        elif leaf == "mean":
+            v = np.zeros(shape, np.float32)
+        elif leaf == "var":
+            v = np.ones(shape, np.float32)
         elif key.startswith("head.scale"):
             v = np.ones(shape, np.float32)
         elif key == "head.agn_hm.bias":

@@ -1,0 +1,313 @@
+"""The finetune_dla family in the port against the JAX package, on the CPU:
+DLA-34 and BiFPN, in batch-statistics (train) and running-statistics (eval)
+mode, the running-statistics update with flax's biased variance, the
+detector's features, `loss_fn` with trainable BatchNorm (losses, gradients,
+new statistics), the solver's labels, and the params / batch_stats files
+both ways. One jit of the JAX side, run in float64 (see `setup`); the same
+weights through `utils.params.to_jax_params` / `to_jax_batch_stats`.
+
+Sizes: 2 images of 96x128, 2 shots of 64x64, the DLA-34 spec, BiFPN at 160
+channels with 2 repeats (the first with laterals, the second without).
+Tolerances: outputs within 1e-4 of each map's largest |value|; running
+statistics rtol 1e-5 with a floor of 1e-5 of each tensor's largest |value|
+(a deep layer's batch mean near 0 inherits its input's 1e-6 differences);
+losses rtol 1e-4; gradients within 1e-3 of each tensor's largest |grad|,
+the port in f64 (see `port_loss`). Measured worst: outputs 3.4e-5 (train) /
+3.7e-6 (eval) of the largest, statistics 2.5e-6 of the largest, losses
+6.0e-6 (f32) / 1.2e-7 (f64) relative, gradients 2.3e-6 of the largest."""
+
+import dataclasses
+
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from faster_orefsdet_tpu.config import get_config as jax_get_config
+from faster_orefsdet_tpu.pipelines.inference import make_detector as jax_make_detector
+from faster_orefsdet_tpu.pipelines.train_step import TrainBatch as JaxBatch
+from faster_orefsdet_tpu.pipelines.train_step import loss_fn as jax_loss_fn
+from faster_orefsdet_tpu.solver import param_labels as jax_param_labels
+from faster_orefsdet_tpu.utils.checkpoint import load_params_npz as jax_load_npz
+from faster_orefsdet_tpu.utils.checkpoint import save_params_npz as jax_save_npz
+from faster_orefsdet_tpu_torch.config import get_config
+from faster_orefsdet_tpu_torch.models.detector import CenterNet2Detector
+from faster_orefsdet_tpu_torch.models.layers import BatchNorm
+from faster_orefsdet_tpu_torch.pipelines.train_step import loss_fn, make_train_model
+from faster_orefsdet_tpu_torch.solver import build_optimizer, param_labels
+from faster_orefsdet_tpu_torch.utils import checkpoint
+from faster_orefsdet_tpu_torch.utils.params import (
+    from_jax_params, init_params, is_batch_stat, to_jax_batch_stats, to_jax_params,
+)
+from test_torch_train_step import from_jax_params_labels, make_inputs, port_batch, small
+
+OUT_TOL = 1e-4  # of each map's largest |value|
+STAT_RTOL = 1e-5
+LOSS_RTOL, GRAD_TOL = 1e-4, 1e-3
+PARTS = ["backbone", "fpn", "vip", "cgm_conv3", "head", "roi"]
+
+
+def dla_cfg(get):
+    cfg = small(get("finetune_dla"))
+    return cfg.replace(fpn=dataclasses.replace(cfg.fpn, bifpn_repeats=2))
+
+
+def nhwc(t):
+    return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+def assert_close_of_largest(got, ref, tol, what):
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(np.asarray(got, np.float64) - ref).max())
+    assert err <= tol * scale, f"{what}: max err {err:.3e}, largest |value| {scale:.3e}"
+
+
+def assert_stats_close(got, ref, what):
+    np.testing.assert_allclose(got, ref, rtol=STAT_RTOL, atol=STAT_RTOL * float(np.abs(ref).max()), err_msg=what)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """Seeded weights with non-trivial running statistics, the inputs, and
+    the JAX package's results in one jit: backbone and BiFPN outputs in both
+    modes with the updated statistics, and value_and_grad of loss_fn with
+    batch_stats (dropout off, injected ROIs)."""
+    cfg, jcfg = dla_cfg(get_config), dla_cfg(jax_get_config)
+    sd = init_params(cfg, seed=3)
+    g = np.random.default_rng(0)
+    for k in sd:
+        if k.endswith(".mean"):
+            sd[k] = torch.from_numpy(g.uniform(-0.5, 0.5, tuple(sd[k].shape)).astype(np.float32))
+        elif k.endswith(".var"):
+            sd[k] = torch.from_numpy(g.uniform(0.5, 1.5, tuple(sd[k].shape)).astype(np.float32))
+    params, stats = to_jax_params(sd), to_jax_batch_stats(sd)
+    x = make_inputs()
+    model = jax_make_detector(jcfg)
+
+    def neck(train):
+        return lambda m, img: (lambda b: (b, m.fpn(b)))(m.backbone(img, train=train))
+
+    def run(params, stats, x):
+        jbatch = JaxBatch(x["images"], x["hw"], x["gt"], jnp.zeros(x["gt"].shape[:2], jnp.int32), x["valid"],
+                          x["sup"], x["sup_boxes"])
+        v = {"params": params, "batch_stats": stats}
+        (bu, p), upd = model.apply(v, jbatch.images, method=neck(True), mutable=["batch_stats"])
+        bu_e, p_e = model.apply(v, jbatch.images, method=neck(False))
+        (total, (losses, new_stats)), grads = jax.value_and_grad(
+            lambda prm: jax_loss_fn(prm, jbatch, model, jcfg, jax.random.PRNGKey(0), batch_stats=stats,
+                                    deterministic=True, injected_rois=(x["rois"], x["roi_valid"])),
+            has_aux=True)(params)
+        return {"train": (bu, p), "eval": (bu_e, p_e)}, upd["batch_stats"], total, losses, new_stats, grads
+
+    # in float64: flax's BatchNorm takes the batch variance as E[x^2] - E[x]^2,
+    # which in f32 loses about 1e-5 of it where the mean is large against the
+    # spread, and the BatchNorm backward over 16-24 positions per channel
+    # (the deepest level) amplifies that to 1e-2 of a gradient
+    with jax.enable_x64(True):
+        f64 = jax.tree.map(lambda a: np.asarray(a, np.float64) if np.asarray(a).dtype == np.float32 else a,
+                           (params, stats, x))
+        outs, upd, total, losses, new_stats, grads = jax.tree.map(np.asarray, jax.jit(run)(*f64))
+    return dict(cfg=cfg, sd=sd, params=jax.tree.map(np.asarray, params), x=x, outs=outs,
+                upd=from_jax_params({}, upd), total=float(total), losses={k: float(v) for k, v in losses.items()},
+                new_stats=from_jax_params({}, new_stats), grads=from_jax_params(grads))
+
+
+def port_model(s):
+    model = CenterNet2Detector(s["cfg"])
+    model.load_state_dict(s["sd"])
+    return model
+
+
+def images(s):
+    return torch.from_numpy(s["x"]["images"]).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("mode", ["train", "eval"])
+def test_backbone_matches_jax(setup, mode):
+    with torch.no_grad():
+        got = port_model(setup).backbone(images(setup), train=mode == "train")
+    ref = setup["outs"][mode][0]
+    assert set(got) == set(ref) == {"dla3", "dla4", "dla5"}
+    for k in ref:
+        assert_close_of_largest(nhwc(got[k]), ref[k], OUT_TOL, f"{mode} {k}")
+
+
+@pytest.mark.parametrize("mode", ["train", "eval"])
+def test_bifpn_matches_jax(setup, mode):
+    """The port's BiFPN on the JAX backbone's outputs (GroupNorm: no mode)."""
+    bottom_up = {k: torch.from_numpy(np.array(v, np.float32)).permute(0, 3, 1, 2) for k, v in setup["outs"][mode][0].items()}
+    with torch.no_grad():
+        got = port_model(setup).fpn(bottom_up)
+    for k, ref in setup["outs"][mode][1].items():
+        assert_close_of_largest(nhwc(got[k]), ref, OUT_TOL, f"{mode} {k}")
+
+
+@pytest.mark.parametrize("mode", ["train", "eval"])
+def test_features_match_jax(setup, mode):
+    model = port_model(setup)
+    with torch.no_grad():
+        got = model.features(images(setup), train=mode == "train")
+    for k, ref in setup["outs"][mode][1].items():
+        assert_close_of_largest(nhwc(got[k]), ref, OUT_TOL, f"{mode} {k}")
+    stats = {k: v for k, v in model.state_dict().items() if is_batch_stat(k)}
+    if mode == "eval":  # eval mode reads the running statistics and leaves them
+        assert all(torch.equal(v, setup["sd"][k]) for k, v in stats.items())
+    else:
+        assert all(not torch.equal(v, setup["sd"][k]) for k, v in stats.items())
+
+
+def test_running_statistics_match_jax(setup):
+    """One train-mode pass: every BatchNorm's mean and var as flax moves them
+    (momentum 0.9, the biased batch variance)."""
+    model = port_model(setup)
+    with torch.no_grad():
+        model.backbone(images(setup), train=True)
+    sd = model.state_dict()
+    assert set(setup["upd"]) == {k for k in sd if is_batch_stat(k)} and len(setup["upd"]) == 2 * 39
+    for k, ref in setup["upd"].items():
+        assert_stats_close(sd[k].numpy(), ref.numpy(), k)
+
+
+def test_batchnorm_layer_is_flax_not_torch():
+    """The layer alone on the same input: output and statistics as flax's
+    BatchNorm(momentum 0.9, eps 1e-5); torch's BatchNorm2d would move the
+    variance by the unbiased batch variance, N/(N-1) times the biased one."""
+    g = np.random.default_rng(4)
+    x = g.standard_normal((2, 3, 5, 6)).astype(np.float32) * 2 + 1
+    scale = (1 + 0.1 * g.standard_normal(6)).astype(np.float32)
+    bias = (0.1 * g.standard_normal(6)).astype(np.float32)
+    mean0 = g.uniform(-1, 1, 6).astype(np.float32)
+    var0 = g.uniform(0.5, 2, 6).astype(np.float32)
+    bn = fnn.BatchNorm(momentum=0.9, epsilon=1e-5)
+    v = {"params": {"scale": scale, "bias": bias}, "batch_stats": {"mean": mean0, "var": var0}}
+    y_ref, upd = bn.apply(v, jnp.asarray(x), use_running_average=False, mutable=["batch_stats"])
+    layer = BatchNorm(6)
+    layer.load_state_dict({k: torch.from_numpy(a) for k, a in
+                           (("scale", scale), ("bias", bias), ("mean", mean0), ("var", var0))})
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        y = layer(xt, train=True)
+    np.testing.assert_allclose(nhwc(y), np.asarray(y_ref), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(layer.mean.numpy(), np.asarray(upd["batch_stats"]["mean"]), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(layer.var.numpy(), np.asarray(upd["batch_stats"]["var"]), rtol=1e-6)
+    ref_bn = torch.nn.BatchNorm2d(6, eps=1e-5, momentum=0.1)
+    ref_bn.running_mean.copy_(torch.from_numpy(mean0))
+    ref_bn.running_var.copy_(torch.from_numpy(var0))
+    ref_bn.train()(xt)
+    n = x.shape[0] * x.shape[1] * x.shape[2]
+    biased = (layer.var.numpy() - 0.9 * var0) / 0.1
+    np.testing.assert_allclose(ref_bn.running_var.numpy(), 0.9 * var0 + 0.1 * biased * n / (n - 1), rtol=1e-5)
+    with torch.no_grad():  # eval mode: the running statistics, unchanged
+        before = layer.var.clone()
+        y_eval = layer(xt, train=False)
+    y_eval_ref = bn.apply({"params": v["params"], "batch_stats": {"mean": layer.mean.numpy(), "var": before.numpy()}},
+                          jnp.asarray(x), use_running_average=True)
+    np.testing.assert_allclose(nhwc(y_eval), np.asarray(y_eval_ref), rtol=1e-5, atol=1e-5)
+    assert torch.equal(layer.var, before)
+
+
+@pytest.fixture(scope="module")
+def port_loss(setup):
+    """The port's loss_fn and backward in f32 (as it trains) and in f64 (its
+    gradients held against the f64 JAX ones: in f32 a random DLA's
+    BatchNorm backward over few positions amplifies rounding to 1e-2 of a
+    gradient, in either package)."""
+    x = setup["x"]
+    rois = (torch.from_numpy(x["rois"]), torch.from_numpy(x["roi_valid"]))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        model = make_train_model(setup["cfg"], setup["sd"], device="cpu").to(dtype)
+        batch = port_batch(x)
+        batch = batch._replace(images=batch.images.to(dtype), support_images=batch.support_images.to(dtype))
+        total, losses = loss_fn(model, batch, deterministic=True, injected_rois=rois)
+        total.backward()
+        out[dtype] = dict(model=model, total=float(total.detach()),
+                          losses={k: float(v.detach()) for k, v in losses.items()})
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_losses_match_jax(setup, port_loss, dtype):
+    got = port_loss[dtype]
+    assert set(got["losses"]) == set(setup["losses"])
+    for k, ref in setup["losses"].items():
+        assert np.isfinite(ref) and ref != 0.0, k
+        np.testing.assert_allclose(got["losses"][k], ref, rtol=LOSS_RTOL, err_msg=k)
+    np.testing.assert_allclose(got["total"], setup["total"], rtol=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("part", PARTS)
+def test_gradients_match_jax(setup, port_loss, part):
+    """Every parameter's gradient within GRAD_TOL of its tensor's largest
+    |grad|, both packages in f64. DLA's deeper trees compute `project`
+    without using it: no gradient in the port, a zero one in JAX."""
+    checked = 0
+    for name, param in port_loss[torch.float64]["model"].named_parameters():
+        if not name.startswith(part):
+            continue
+        ref = setup["grads"][name].double()
+        got = torch.zeros_like(param) if param.grad is None else param.grad
+        if param.grad is None:
+            assert ".project." in name and not ref.abs().max() > 0, name
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        assert err <= GRAD_TOL * scale, f"{name}: max err {err:.3e}, largest |grad| {scale:.3e}"
+        checked += 1
+    assert checked > 0
+
+
+def test_new_batch_stats_match_jax(setup, port_loss):
+    """loss_fn's two train-mode passes (query, then support) move the running
+    statistics as the JAX loss_fn's new_batch_stats (the port in f32)."""
+    sd = port_loss[torch.float32]["model"].state_dict()
+    for k, ref in setup["new_stats"].items():
+        assert_stats_close(sd[k].numpy(), ref.numpy(), k)
+
+
+def test_solver_labels_match_jax(setup, port_loss):
+    """The labels of every parameter are the JAX solver's (BatchNorm and
+    GroupNorm affines in `norm`, nothing frozen in DLA); the running
+    statistics are buffers, in no optimizer group."""
+    model = port_loss[torch.float32]["model"]
+    jlabels = {k: str(v) for k, v in from_jax_params_labels(jax_param_labels(setup["params"])).items()}
+    labels = param_labels(model)
+    params = dict(model.named_parameters())
+    assert set(jlabels) == set(params)
+    assert {k: labels[k] for k in params} == jlabels
+    assert all(p.requires_grad for p in params.values())
+    assert {labels[k] for k in labels if is_batch_stat(k)} == {"frozen"}
+    assert any(".bn." in k and v == "norm" for k, v in jlabels.items())
+    opt = build_optimizer(setup["cfg"].solver, model)
+    grouped = {id(p): g["name"] for g in opt.param_groups for p in g["params"]}
+    assert all(grouped[id(p)] == labels[k] for k, p in params.items())
+
+
+def test_params_and_batch_stats_files_cross_both_ways(setup, tmp_path):
+    """The port's model_final.npz + batch_stats.npz load in the JAX package,
+    and the JAX package's load in the port."""
+    sd = setup["sd"]
+    mine = tmp_path / "port" / "model_final.npz"
+    mine.parent.mkdir()
+    checkpoint.save_params_npz(str(mine), sd)
+    params = jax_load_npz(str(mine), setup["params"])
+    stats = jax_load_npz(str(mine.parent / "batch_stats.npz"), to_jax_batch_stats(sd))
+    back = from_jax_params(jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, stats))
+    assert back.keys() == sd.keys() and all(torch.equal(back[k], sd[k]) for k in sd)
+
+    theirs = tmp_path / "jax" / "model_final.npz"
+    theirs.parent.mkdir()
+    jax_save_npz(str(theirs), params)
+    jax_save_npz(str(theirs.parent / "batch_stats.npz"), stats)
+    loaded = checkpoint.load_params_npz(str(theirs), batch_stats=True)
+    assert loaded.keys() == sd.keys() and all(torch.equal(loaded[k], sd[k]) for k in sd)
+    assert not any(is_batch_stat(k) for k in checkpoint.load_params_npz(str(theirs)))
+
+
+def test_cgm_kernel_refuses_other_widths():
+    """K1 takes C = 128; a DLA model at 160 channels with use_pallas_cgm
+    is refused at construction instead of launching it on the wrong width."""
+    with pytest.raises(ValueError, match="CGM kernel takes 128"):
+        CenterNet2Detector(get_config("finetune_dla").replace(use_pallas_cgm=True))
+    assert not get_config("finetune_dla").use_pallas_cgm

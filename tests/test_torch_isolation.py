@@ -22,6 +22,27 @@ from faster_orefsdet_tpu_torch.pipelines.async_predictor import AsyncPredictor
 REPO = Path(__file__).resolve().parent.parent
 
 
+def _run_blocked(blocked, body: str) -> subprocess.CompletedProcess:
+    """Run `body` in a fresh interpreter in which importing a package of
+    `blocked` raises."""
+    code = f"BLOCKED = {tuple(blocked)!r}\n" + textwrap.dedent(
+        """
+        import importlib, importlib.abc, sys
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"blocked import of {name}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        """
+    ) + textwrap.dedent(body)
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO)}
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
 def _import_every_module(blocked):
     """Import every module of the port and chip_smoke.py in a fresh
     interpreter in which importing a package of `blocked` raises."""
@@ -54,7 +75,23 @@ def _import_every_module(blocked):
 
 
 def test_port_imports_without_jax():
-    _import_every_module(("jax", "jaxlib", "flax", "optax", "orbax", "faster_orefsdet_tpu"))
+    _import_every_module(("jax", "jaxlib", "flax", "optax", "orbax", "faster_orefsdet_tpu", "yaml"))
+
+
+@pytest.mark.parametrize("module", ["config_yaml", "models.dla", "models.bifpn"])
+def test_new_module_imports_alone(module):
+    """The yaml reader, DLA and BiFPN import with none of jax, flax, yaml,
+    cv2 or PIL present (the card's machine has no PyYAML); the reader
+    reads the reference's configs there."""
+    out = _run_blocked(("jax", "jaxlib", "flax", "optax", "faster_orefsdet_tpu", "yaml", "cv2", "PIL"), f"""
+        import importlib
+        importlib.import_module("faster_orefsdet_tpu_torch.{module}")
+        from faster_orefsdet_tpu_torch.config_yaml import load_yaml_config
+        assert load_yaml_config("configs/fsod/finetune_dla.yaml").fpn.out_channels == 160
+        loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not loaded, loaded
+        """)
+    assert out.returncode == 0, out.stderr
 
 
 def test_port_imports_without_image_libraries():

@@ -214,10 +214,10 @@ def test_uint8_batch_is_normalized_like_jax():
 
 # ------------------------------------------------------------ the CGM split
 
-def _correlate_inputs(g, b=2):
-    q = {lvl: torch.from_numpy(g.standard_normal((b, 128, h, w), dtype=np.float32))
+def _correlate_inputs(g, b=2, c=128):
+    q = {lvl: torch.from_numpy(g.standard_normal((b, c, h, w), dtype=np.float32))
          for lvl, (h, w) in (("p3", (12, 16)), ("p4", (6, 8)), ("p5", (3, 4)))}
-    maps = {lvl: torch.from_numpy(g.standard_normal((b, s, s, 128), dtype=np.float32))
+    maps = {lvl: torch.from_numpy(g.standard_normal((b, s, s, c), dtype=np.float32))
             for lvl, s in (("p3", 32), ("p4", 16), ("p5", 8))}
     return q, maps
 
@@ -260,16 +260,22 @@ def test_correlate_composition_is_differentiable_and_equals_fused():
 
 def test_serving_correlate_still_fused(monkeypatch):
     """Every serving preset goes through cgm_correlate_fused (the CGM kernel
-    on the card) once per level; fine-tuning never does."""
+    on the card) once per level; fine-tuning never does. A preset of a
+    backbone family the port does not build yet is refused."""
     from faster_orefsdet_tpu_torch.config import PRESETS
     from faster_orefsdet_tpu_torch.models import detector
 
     calls = []
     monkeypatch.setattr(detector, "cgm_correlate_fused", lambda *a, **k: calls.append(1) or a[0])
-    q, maps = _correlate_inputs(np.random.default_rng(1), b=1)
-    kernels = {k: support_kernels(v[0]) for k, v in maps.items()}
     for name in PRESETS:
+        cfg = get_config(name)
+        if cfg.backbone_name not in detector.BACKBONES:
+            with pytest.raises(ValueError, match="the port has"):
+                CenterNet2Detector(cfg)
+            continue
+        q, maps = _correlate_inputs(np.random.default_rng(1), b=1, c=cfg.fpn.out_channels)
+        kernels = {k: support_kernels(v[0]) for k, v in maps.items()}
         calls.clear()
         with torch.no_grad():
-            CenterNet2Detector(get_config(name)).correlate(q, kernels)
+            CenterNet2Detector(cfg).correlate(q, kernels)
         assert len(calls) == (3 if name.startswith("serving") else 0), name
