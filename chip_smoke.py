@@ -10,14 +10,18 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 2. build: compiles the CUDA kernels of faster_orefsdet_tpu_torch/csrc with nvcc;
 3. kernels: the CGM kernel against its plain twin at the p3/p4/p5 shapes of a
    320x448 canvas (batch 1 and 8) and at ragged tile edges (1x1, 3x5, 7x33 at
-   batch 3), bf16 and f32 q: its f32 result within |err| <= CGM_ATOL +
+   batch 3), and at 64, 160 and 256 channels at the three levels (batch 1
+   and 8) and at 1 and 100 channels at 7x33 (batch 3), bf16 and f32 q: its
+   f32 result within |err| <= CGM_ATOL +
    CGM_RTOL*|ref|, its result in q's dtype that f32 result rounded once, bit
    for bit. The NMS kernel against the plain fixpoint, bit for bit, at K in
-   {1, 63, 64, 65, 256, 512, 1000, 1024, 1792, 2048} on batches of 10 scenes
-   (random, dense chains, score ties, invalid padding, ascending scores, all
-   scores equal), at K in {256, 1024} on each scene alone (batch 1), and the
-   class-aware NMS at the multiclass site's K = 768 (three classes of 256,
-   class-offset boxes) against its plain version;
+   {1, 63, 64, 65, 256, 512, 1000, 1024, 1792, 2048, 2049, 2304, 4096, 8192}
+   on batches of 10 scenes (random, dense chains, score ties, invalid
+   padding, ascending scores, all scores equal), at K in {256, 1024} on each
+   scene alone (batch 1), at K = 16384 on one scene (past K = 2304 against
+   the plain fixpoint on the card only: the CPU's takes too long), and the
+   class-aware NMS at the multiclass sites' K = 768 and 2304 (3 and 9
+   classes of 256, class-offset boxes) against its plain version;
 4. main path: seeded init_params under serving_vovnet (bf16), a 25-shot support
    cache from 256x256 crops, then 3 batch-1 requests (build_inference_fn) and
    2 batch-8 uint8 requests (build_batched_inference_fn) on 320x448 canvases
@@ -37,9 +41,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    values printed); two held results must not alias. The wrappers' counters
    advance at capture, so this path's launches are each graph's captured
    launches times its replays;
-8. multiclass: three 25-shot caches stacked, build_multiclass_inference_fn at
-   batch 1: 9 CGM launches and 2 NMS launches (decode on [3, 1024], across
-   classes on [1, 768]); the NMS kernel bit for bit against the plain
+8. multiclass: nine 25-shot caches stacked, build_multiclass_inference_fn at
+   batch 1: 27 CGM launches and 2 NMS launches (decode on [9, 1024], across
+   classes on [1, 2304]); the NMS kernel bit for bit against the plain
    fixpoint on the inputs that request gave it at each site (and the
    class-aware call against its plain version); card vs CPU in f32 by phase
    5's criteria within each class; one class stacked against
@@ -53,9 +57,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    calls captured in a CUDA graph, the replay timed with CUDA events; L2
    warm) and as enqueued from the host (events around 50 calls), its plain
    twin (events), and K2 alone at the training decode's site ([1, 2048] at
-   IoU 0.9, random scenes); then end to end in bf16 with the library's
-   default TF32 settings: the eager and the pinned path at batch 1 and 8,
-   and the three-class request;
+   IoU 0.9, random scenes), K2 past 2048 ranks (the nine-class request's
+   [1, 2304] on the inputs phase 8 recorded, [1, 4096] on random scenes)
+   and K1 at 160 channels (f32 q, batch 1 and 8); then end to end in bf16
+   with the library's default TF32 settings: the eager and the pinned path
+   at batch 1 and 8, and the nine-class request;
 12. profile: the same batch-1 and batch-8 requests, eager and pinned, under
    torch.profiler: device busy time, idle share, launches, each of the
    port's own kernels' device time and launches, each stage's device span
@@ -102,7 +108,20 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    cudnn.deterministic (running statistics included); `evaluate` on 8 synthetic frames with the
    trained state (finite AP, 2 NMS launches an image, the kernel bit for
    bit at the decode's [1, 1024] and the ROI's [1, 256] sites at IoU 0.9);
-   the eager and graphed step times.
+   the eager and graphed step times;
+16. workflow: a seeded checkpoint in the reference's key layout written as
+   a .pth, converted (load_torch_pth, convert_torch_checkpoint) and saved
+   as the params npz (round trip equal); cli/build_support on a synthetic
+   COCO set held in memory (12 VGA scenes); cli/demo under serving_vovnet
+   at full width with --params on 8 VGA frames by image glob (3 CGM and 2
+   NMS launches an image), on 16 frames as a video by --frame-batch 8, by
+   --parallel (against the glob run at |dscore| <= 1e-5) and with --debug
+   on 2 frames (finite overlays from the same forward pass: 3 CGM and 2
+   NMS launches an image); the glob and the video runs in f32 card
+   vs CPU by phase 5's criteria; visualize_features on one frame in f32,
+   every map finite and within 1e-3 of its largest card vs CPU; and
+   finetune_dla with use_pallas_cgm (the CGM kernel at 160 channels) on 2
+   frames: 3 CGM launches an image, card vs CPU by phase 5's criteria.
 
 Each result is one JSON line. The line before the last holds the kernels'
 table; the last line is {"ok": true, "device": {...}}. Run without the
@@ -115,6 +134,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -132,8 +152,17 @@ PREPROCESS_ATOL = 2e-3  # 0-255 scale: the resize's f32 matrix products summed i
 ASYNC_ATOL = 1e-4  # frame coordinates and scores: the same graph on the same canvas
 CANVAS_HW, IMAGE_HW = (320, 448), (320.0, 427.0)
 FRAME_HW = (480, 640)  # a VGA camera frame: resized to 320x427 on the 320x448 canvas
-MULTICLASS_SEEDS = (10, 11, 12)
-MULTICLASS_K = 3 * 256  # classes x post_nms_topk_test: the multiclass request's cross-class NMS
+POST_NMS_TOPK = 256  # serving_vovnet's post_nms_topk_test
+MULTICLASS_CLASSES = 9
+MULTICLASS_SEEDS = tuple(range(10, 10 + MULTICLASS_CLASSES))
+MULTICLASS_K = MULTICLASS_CLASSES * POST_NMS_TOPK  # the multiclass request's cross-class NMS: 2304
+NMS_WIDE_K = (2049, 2304, 4096, 8192)  # the sweep past 2048 ranks (phase 3, batches of 10 scenes)
+NMS_LARGEST_K = 16384  # 64 classes of 256, one scene
+WIDE_NMS_K = 4096  # phase 11's K2 row on random scenes past 2048 ranks (16 classes of 256)
+NMS_CPU_K = 2304  # up to this K phase 3 also holds K2 against the plain fixpoint on the CPU
+CGM_OTHER_WIDTHS = (64, 160, 256)  # K1 off its tuned 128 channels
+CGM_RAGGED_WIDTHS = (1, 100)  # widths off the 32-deep slabs and the 16-byte rows
+DLA_CHANNELS = 160  # finetune_dla's BiFPN width: K1's site with use_pallas_cgm
 ASYNC_FRAMES, EVAL_FRAMES, EVAL_SHOTS = 16, 16, 5
 AP_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR@100")
 LEVELS_HW = [(CANVAS_HW[0] // s, CANVAS_HW[1] // s) for s in (8, 16, 32)]
@@ -157,6 +186,11 @@ DEFAULTS_FACTOR, EAGER_RUNS = 3.0, 3
 # phase 15, finetune_dla at full width
 DLA_CONFIG, DLA_WARMUP, DLA_STEPS, DLA_EVAL_FRAMES = "finetune_dla", 3, 10, 8  # 8 frames, a shot from each
 DLA_EQ_CHUNKS, DLA_TIMED_CHUNKS = (2, 4), 3
+# phase 16, the workflow: .pth -> npz -> support crops -> demo -> feature maps
+WORKFLOW_CONFIG = "serving_vovnet"
+WORKFLOW_COCO_IMAGES = 12  # synthetic VGA scenes with 1-6 ores each: the support crops' COCO set
+WORKFLOW_GLOB, WORKFLOW_VIDEO, WORKFLOW_FRAME_BATCH = 8, 16, 8
+WORKFLOW_MAP_TOL = 1e-3  # feature maps card vs CPU in f32, of each map's largest
 DLA_TOL = 1e-3  # card vs CPU: each loss, gradient and running statistic, of its tensor's largest |value|
 DLA_F32_FACTOR = 3.0  # f32 card vs CPU: at most this many times the CPU's own f32 vs f64, where above DLA_TOL
 # the train step's named ranges; the last two are torch.optim's own. Autograd
@@ -261,15 +295,30 @@ def bound(nbytes: float, flops: float, tc_flops: float = 0.0) -> dict:
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
+def nms_row(torch, args, thr, k, nv):
+    """A timing row of nms_mask on args (boxes, scores, valid on the card):
+    device-only ms, event ms, the plain fixpoint's ms, and the bound for
+    [1, k] boxes of which nv are valid (IoU per valid pair, rank compares)."""
+    from faster_orefsdet_tpu_torch.ops import nms_cuda
+    from faster_orefsdet_tpu_torch.ops.nms import nms_mask as nms_plain
+
+    ms = graph_ms(torch, lambda: nms_cuda.nms_mask(*args, thr))
+    row = {"ms": ms, "enqueue_ms": enqueue_ms(torch, lambda: nms_cuda.nms_mask(*args, thr), 50),
+           "plain_ms": enqueue_ms(torch, lambda: nms_plain(*args, thr), 10),
+           **bound(k * 22, nv * (nv - 1) // 2 * 13 + nv * nv * 3)}
+    row["share_of_bound"] = row["bound_ms"] / ms
+    return row
+
+
 # ------------------------------------------------------------------ inputs
-def cgm_inputs(torch, g, b, h, w, dtype):
+def cgm_inputs(torch, g, b, h, w, dtype, c=C):
     dev = "cuda"
-    q = torch.randn(b, h, w, C, device=dev, generator=g).to(dtype)
-    k1 = torch.randn(C, device=dev, generator=g)
-    k13 = torch.randn(3, C, device=dev, generator=g)
-    k31 = torch.randn(3, C, device=dev, generator=g)
-    w3 = torch.randn(C, 2 * C, device=dev, generator=g) / (2 * C) ** 0.5  # nn.Linear's [out, in]
-    b3 = 0.1 * torch.randn(C, device=dev, generator=g)
+    q = torch.randn(b, h, w, c, device=dev, generator=g).to(dtype)
+    k1 = torch.randn(c, device=dev, generator=g)
+    k13 = torch.randn(3, c, device=dev, generator=g)
+    k31 = torch.randn(3, c, device=dev, generator=g)
+    w3 = torch.randn(c, 2 * c, device=dev, generator=g) / (2 * c) ** 0.5  # nn.Linear's [out, in]
+    b3 = 0.1 * torch.randn(c, device=dev, generator=g)
     return q, k1, k13, k31, w3, b3
 
 
@@ -357,11 +406,14 @@ def greedy_match(np, got_b, got_s, ref_b, ref_s, iou_min):
 def phase_kernels(torch, np, cgm_cuda, nms_cuda, nms_plain, nms_batched_plain):
     g = torch.Generator(device="cuda").manual_seed(0)
     cgm_err, cgm_mismatches = 0.0, 0
-    # the main path's levels at batch 1 and 8, and ragged tile edges at batch 3
-    shapes = [(b, h, w) for b in (1, 8) for (h, w) in LEVELS_HW] + [(3, 1, 1), (3, 3, 5), (3, 7, 33)]
-    for (b, h, w) in shapes:
+    # the main path's levels at batch 1 and 8, and ragged tile edges at batch
+    # 3, at C = 128; then the other widths at the main path's levels
+    shapes = [(b, h, w, C) for b in (1, 8) for (h, w) in LEVELS_HW] + [(3, 1, 1, C), (3, 3, 5, C), (3, 7, 33, C)]
+    shapes += [(b, h, w, c) for c in CGM_OTHER_WIDTHS for b in (1, 8) for (h, w) in LEVELS_HW]
+    shapes += [(3, 7, 33, c) for c in CGM_RAGGED_WIDTHS]
+    for (b, h, w, c) in shapes:
         for dtype in (torch.bfloat16, torch.float32):
-            args = cgm_inputs(torch, g, b, h, w, dtype)
+            args = cgm_inputs(torch, g, b, h, w, dtype, c)
             out32 = cgm_cuda.cgm_correlate_fused(*args, out_dtype=torch.float32)
             out = cgm_cuda.cgm_correlate_fused(*args)  # in q's dtype, as the main path calls it
             torch.cuda.synchronize()
@@ -373,15 +425,15 @@ def phase_kernels(torch, np, cgm_cuda, nms_cuda, nms_plain, nms_batched_plain):
             # the tolerance is held on the f32 result)
             rounded = int((out != out32.to(dtype)).sum())
             cgm_err, cgm_mismatches = max(cgm_err, float(err.max())), cgm_mismatches + bad + rounded
-            emit(check="cgm", batch=b, hw=[h, w], q_dtype=str(dtype)[6:], max_abs_err=float(err.max()),
+            emit(check="cgm", batch=b, hw=[h, w], channels=c, q_dtype=str(dtype)[6:], max_abs_err=float(err.max()),
                  out_of_tolerance=bad, out_dtype=str(out.dtype)[6:], rounding_mismatches=rounded)
             if bad or rounded or out.dtype != dtype or not torch.isfinite(out32).all():
-                raise AssertionError(f"CGM kernel disagrees with its plain twin at {b}x{h}x{w}")
+                raise AssertionError(f"CGM kernel disagrees with its plain twin at {b}x{h}x{w}x{c}")
     rng = np.random.default_rng(0)
     nms_mismatches, nms_err = 0, 0.0
-    for k in (1, 63, 64, 65, 256, 512, 1000, 1024, 1792, 2048):
+    for k in (1, 63, 64, 65, 256, 512, 1000, 1024, 1792, 2048) + NMS_WIDE_K:
         boxes, scores, valid = nms_scenes(np, k, rng)
-        # the whole batch of 8 scenes, and at the main path's K (decode 1024,
+        # the whole batch of 10 scenes, and at the main path's K (decode 1024,
         # ROI 256) each scene alone, as a batch-1 request launches it
         n = len(scores)
         slices = [slice(0, n)] + ([slice(i, i + 1) for i in range(n)] if k in (256, 1024) else [])
@@ -391,38 +443,57 @@ def phase_kernels(torch, np, cgm_cuda, nms_cuda, nms_plain, nms_batched_plain):
                 dev = tuple(t.cuda() for t in cpu)
                 keep = nms_cuda.nms_mask(*dev, thr)
                 torch.cuda.synchronize()
-                diff, err = compare_masks(torch, keep, nms_plain(*dev, thr), nms_plain(*cpu, thr))
+                # past NMS_CPU_K the CPU's fixpoint takes too long: the plain version runs on the card only
+                ref_cpu = nms_plain(*cpu, thr) if k <= NMS_CPU_K else None
+                diff, err = compare_masks(torch, keep, nms_plain(*dev, thr), ref_cpu)
                 nms_mismatches, nms_err = nms_mismatches + diff, max(nms_err, err)
                 emit(check="nms", batch=int(keep.shape[0]), scenes=[s.start, s.stop], k=k, thr=thr,
-                     kept=int(keep.sum()), mismatches=diff)
+                     kept=int(keep.sum()), mismatches=diff, plain_on_cpu=ref_cpu is not None)
                 if diff:
                     raise AssertionError(f"NMS kernel differs from the plain fixpoint at K={k}")
-    # the multiclass site: three classes of 256 (class-major, as the
-    # multiclass path lays them out) through the class-offset trick, whose
-    # boxes reach about three times the scenes' extent
-    k = MULTICLASS_K
+    # K = 16384 (64 classes of 256) on the first scene: 32 MiB of mask
+    k = NMS_LARGEST_K
     boxes, scores, valid = nms_scenes(np, k, np.random.default_rng(k))
-    classes = np.broadcast_to(np.arange(k) // (k // len(MULTICLASS_SEEDS)), scores.shape).astype(np.int32)
+    dev = tuple(torch.from_numpy(a[:1]).cuda() for a in (boxes, scores, valid))
     for thr in (0.6, 0.9):
-        cpu = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (boxes, scores, classes, valid))
-        dev = tuple(t.cuda() for t in cpu)
-        keep = nms_cuda.batched_nms_mask(*dev, thr)
+        keep = nms_cuda.nms_mask(*dev, thr)
         torch.cuda.synchronize()
-        diff, err = compare_masks(torch, keep, nms_batched_plain(*dev, thr), nms_batched_plain(*cpu, thr))
+        diff, err = compare_masks(torch, keep, nms_plain(*dev, thr), None)
         nms_mismatches, nms_err = nms_mismatches + diff, max(nms_err, err)
-        emit(check="nms_class_offset", batch=int(keep.shape[0]), k=k, classes=len(MULTICLASS_SEEDS), thr=thr,
-             kept=int(keep.sum()), mismatches=diff)
+        emit(check="nms", batch=1, scenes=[0, 1], k=k, thr=thr, kept=int(keep.sum()), mismatches=diff,
+             plain_on_cpu=False)
         if diff:
-            raise AssertionError(f"class-aware NMS differs from the plain fixpoint at K={k}")
+            raise AssertionError(f"NMS kernel differs from the plain fixpoint at K={k}")
+    # the multiclass sites: classes of 256 (class-major, as the multiclass
+    # path lays them out) through the class-offset trick, whose boxes reach
+    # about n_classes times the scenes' extent
+    for n_cls in (3, MULTICLASS_CLASSES):
+        k = n_cls * POST_NMS_TOPK
+        boxes, scores, valid = nms_scenes(np, k, np.random.default_rng(k))
+        classes = np.broadcast_to(np.arange(k) // POST_NMS_TOPK, scores.shape).astype(np.int32)
+        for thr in (0.6, 0.9):
+            cpu = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (boxes, scores, classes, valid))
+            dev = tuple(t.cuda() for t in cpu)
+            keep = nms_cuda.batched_nms_mask(*dev, thr)
+            torch.cuda.synchronize()
+            diff, err = compare_masks(torch, keep, nms_batched_plain(*dev, thr), nms_batched_plain(*cpu, thr))
+            nms_mismatches, nms_err = nms_mismatches + diff, max(nms_err, err)
+            emit(check="nms_class_offset", batch=int(keep.shape[0]), k=k, classes=n_cls, thr=thr,
+                 kept=int(keep.sum()), mismatches=diff)
+            if diff:
+                raise AssertionError(f"class-aware NMS differs from the plain fixpoint at K={k}")
     return cgm_err, cgm_mismatches, nms_err, nms_mismatches
 
 
 def compare_masks(torch, keep, ref_card, ref_cpu):
     """Mismatches and max |err| of a kernel's keep mask against the plain
-    fixpoint's on the same tensors on the card and on their CPU copies."""
-    diff = int((keep != ref_card).sum()) + int((keep.cpu() != ref_cpu).sum())
-    err = max(float((keep.float() - ref_card.float()).abs().max()),
-              float((keep.cpu().float() - ref_cpu.float()).abs().max()))
+    fixpoint's on the same tensors on the card and, unless ref_cpu is None,
+    on their CPU copies."""
+    diff = int((keep != ref_card).sum())
+    err = float((keep.float() - ref_card.float()).abs().max())
+    if ref_cpu is not None:
+        diff += int((keep.cpu() != ref_cpu).sum())
+        err = max(err, float((keep.cpu().float() - ref_cpu.float()).abs().max()))
     return diff, err
 
 
@@ -564,9 +635,11 @@ def phase_multiclass(torch, np, cfg, params, serve1, singles, img32):
               for s in MULTICLASS_SEEDS]
     mcache = stack_support_caches(caches)
     multi = build_multiclass_inference_fn(cfg, params)
-    out = {}
-    launches = count_launches(cgm_cuda, nms_cuda,
-                              lambda: out.update(p=pack_detections(multi(mcache, singles[0], IMAGE_HW))))
+    out, seen = {}, {}
+    # the counted run records what K2 gets, so that the cross-class site's
+    # launches and inputs are this run's own
+    launches = count_launches(cgm_cuda, nms_cuda, lambda: seen.update(record_nms_calls(
+        torch, lambda: out.update(p=pack_detections(multi(mcache, singles[0], IMAGE_HW))))))
     p = out["p"]
     classes = p[:, 5][p[:, 6] > 0.5]
     ok_out = bool(tuple(p.shape) == (100, 7) and torch.isfinite(p).all() and len(classes) > 0
@@ -584,13 +657,14 @@ def phase_multiclass(torch, np, cfg, params, serve1, singles, img32):
     one = unpack_detections_np(pack_detections(multi(stack_support_caches(caches[:1]), singles[0], IMAGE_HW)))
     single = unpack_detections_np(pack_detections(serve1(caches[0], singles[0], IMAGE_HW)))
     one_class = match(np, one, single, PINNED_DSCORE)
-    nms_checks, nms_err, _ = nms_checks_on_request(torch, lambda: multi(mcache, singles[0], IMAGE_HW))
+    nms_checks, nms_err = check_nms_calls(torch, seen)
+    cross = [args for args in seen["kernel"] if list(args[0].shape[:2]) == [1, MULTICLASS_K]]
     emit(multiclass={"classes": len(caches), "launches": launches,
-                     "valid_per_class": np.bincount(classes.long().cpu().numpy(), minlength=3).tolist(),
+                     "valid_per_class": np.bincount(classes.long().cpu().numpy(), minlength=len(caches)).tolist(),
                      "card_vs_cpu_f32": card_vs_cpu, "one_class_vs_build_inference_fn": one_class,
                      "nms_on_the_request_inputs": nms_checks})
     if not ok_out:
-        raise AssertionError("multiclass detections are not finite [100, 7] with classes 0..2")
+        raise AssertionError(f"multiclass detections are not finite [100, 7] with classes 0..{len(caches) - 1}")
     if launches != {"cgm": 3 * len(caches), "nms": 2}:
         raise AssertionError(f"kernel launch counts {launches} on the multiclass path")
     if not (card_vs_cpu["ok"] and one_class["ok"]):
@@ -598,19 +672,27 @@ def phase_multiclass(torch, np, cfg, params, serve1, singles, img32):
     sites = [c["shape"] for c in nms_checks if c["site"] == "kernel"]
     if sites != [[len(caches), 1024], [1, MULTICLASS_K]] or any(c["mismatches"] for c in nms_checks):
         raise AssertionError(f"the NMS kernel on the multiclass request's own inputs: {nms_checks}")
-    return multi, mcache, launches, nms_err
+    # K2 at the cross-class site: its launches in the counted run, and the
+    # inputs of the first (class-offset boxes, scores, valid, threshold)
+    return multi, mcache, launches, nms_err, {"launches": len(cross), "args": cross[0]}
 
 
 def nms_checks_on_request(torch, request):
     """The NMS kernel held bit for bit against the plain fixpoint on the
     inputs a request (a multiclass request, a train step's decode) gives it:
-    request() runs once with the wrappers' entries recording copies of their
-    arguments (every kernel launch, and the class-aware call across
-    classes), then each recorded call runs again through the kernel and
-    through the plain version, on the same card tensors and on their CPU
-    copies. These extra launches are outside any counted run. Returns the
-    checks, the largest |err| and the recorded calls by site."""
-    from faster_orefsdet_tpu_torch.ops import nms, nms_cuda
+    record_nms_calls, then check_nms_calls. Returns the checks, the largest
+    |err| and the recorded calls by site."""
+    seen = record_nms_calls(torch, request)
+    checks, worst = check_nms_calls(torch, seen)
+    return checks, worst, seen
+
+
+def record_nms_calls(torch, request):
+    """Runs request() once with the wrappers' entries recording copies of
+    their arguments (every kernel launch, and the class-aware call across
+    classes); returns the recorded calls by site. The recording launches
+    nothing, so request() may be a counted run."""
+    from faster_orefsdet_tpu_torch.ops import nms_cuda
 
     launch, batched = nms_cuda._launch, nms_cuda.batched_nms_mask
     seen = {"kernel": [], "batched": []}
@@ -627,6 +709,16 @@ def nms_checks_on_request(torch, request):
         torch.cuda.synchronize()
     finally:
         nms_cuda._launch, nms_cuda.batched_nms_mask = launch, batched
+    return seen
+
+
+def check_nms_calls(torch, seen):
+    """Each recorded call runs again through the kernel and through the
+    plain version, on the same card tensors and on their CPU copies. These
+    extra launches are outside any counted run. Returns the checks and the
+    largest |err|."""
+    from faster_orefsdet_tpu_torch.ops import nms, nms_cuda
+
     pairs = {"kernel": (nms_cuda.nms_mask, nms.nms_mask), "batched": (nms_cuda.batched_nms_mask, nms.batched_nms_mask)}
     checks, worst = [], 0.0
     for site, calls in seen.items():
@@ -639,7 +731,7 @@ def nms_checks_on_request(torch, request):
             worst = max(worst, err)
             checks.append({"site": site, "shape": list(keep.shape), "thr": thr, "kept": int(keep.sum()),
                            "mismatches": diff})
-    return checks, worst, seen
+    return checks, worst
 
 
 def phase_async(torch, np, cfg, params, cache, frames, smi):
@@ -1271,6 +1363,273 @@ def phase_dla(torch, np, smi):
     return out
 
 
+# the reference's module path of each of the port's modules (the inverse of
+# utils/torch_convert.convert_torch_checkpoint's renames)
+_HEAD = "proposal_generator.centernet_head"
+_REFERENCE_PATHS = (
+    (r"backbone\.stem(\d)\.(conv|norm)", "backbone.bottom_up.stem.stem_{0}/{1}"),
+    (r"backbone\.stage(\d)_block(\d+)\.layer(\d+)\.(conv|norm)",
+     "backbone.bottom_up.stage{0}.OSA{0}_{b}.layers.{2}.OSA{0}_{b}_{2}/{3}"),
+    (r"backbone\.stage(\d)_block(\d+)\.concat\.(conv|norm)",
+     "backbone.bottom_up.stage{0}.OSA{0}_{b}.concat.OSA{0}_{b}_concat/{2}"),
+    (r"backbone\.stage(\d)_block(\d+)\.ese\.fc", "backbone.bottom_up.stage{0}.OSA{0}_{b}.ese.fc"),
+    (r"fpn\.(lateral|output)(\d)", "backbone.fpn_{0}{1}"),
+    (r"head\.bbox_tower(\d+)", _HEAD + ".bbox_tower.{t0}"),
+    (r"head\.bbox_tower(\d+)_gn", _HEAD + ".bbox_tower.{t1}"),
+    (r"head\.(bbox_pred|agn_hm)", _HEAD + ".{0}"),
+    (r"head\.scale(\d+)", _HEAD + ".scales.{0}"),
+    (r"roi\.dsa_conv(\d)", "roi_heads.conv{0}"),
+    (r"roi\.stage(\d+)_fc1", "roi_heads.box_head.{0}.fc1"),
+    (r"roi\.stage(\d+)_cls", "roi_heads.box_predictor.{0}.cls_score"),
+    (r"roi\.stage(\d+)_bbox", "roi_heads.box_predictor.{0}.bbox_pred"),
+    (r"(vip_p\d)\.reweight_(fc\d)", "{0}.reweighting.{1}"),
+    (r"(vip_p\d\.(?:mlp_h|mlp_w|proj))", "{0}"),
+    (r"cgm_conv3", "conv3"),
+)
+
+
+def reference_checkpoint(torch, np, model_sd, seed: int) -> dict:
+    """A seeded random checkpoint in the reference's key layout, for the
+    port's VoVNet + FPN detector whose state_dict is `model_sd`: each of its
+    modules under the reference's name and in the reference's form (FrozenBN
+    as weight, bias, running mean and variance; the ROI head's and the CGM
+    fusion's Linear layers as 1x1 convs). Weights N(0, 1/fan_in), norm
+    scales near 1, the heatmap bias at a low prior and the box bias at 8
+    strides, as init_params draws them."""
+    import re
+
+    g = np.random.default_rng(seed)
+
+    def rand(shape, offset=0.0, std=None):
+        std = std if std is not None else (1.0 / np.sqrt(np.prod(shape[1:])) if len(shape) > 1 else 0.1)
+        return torch.from_numpy((offset + std * g.standard_normal(shape)).astype(np.float32))
+
+    ref = {}
+    for key, t in model_sd.items():
+        module, leaf = key.rsplit(".", 1)
+        shape = tuple(t.shape)
+        for pattern, path in _REFERENCE_PATHS:
+            m = re.fullmatch(pattern, module)
+            if m:
+                groups = m.groups()
+                idx = {"b": int(groups[1]) + 1 if module.startswith("backbone.stage") else 0,
+                       "t0": 3 * int(groups[0]) if module.startswith("head.bbox_tower") else 0,
+                       "t1": 3 * int(groups[0]) + 1 if module.startswith("head.bbox_tower") else 0}
+                path = path.format(*groups, **idx)
+                break
+        else:
+            raise KeyError(f"no reference name for {key}")
+        if module.endswith("norm"):  # FrozenBN, folded by the converter into scale and bias
+            if leaf == "scale":
+                ref[f"{path}.weight"], ref[f"{path}.bias"] = rand(shape, 1.0), rand(shape)
+                ref[f"{path}.running_mean"] = rand(shape)
+                ref[f"{path}.running_var"] = torch.from_numpy(g.uniform(0.5, 1.5, shape).astype(np.float32))
+        elif module.endswith("_gn"):  # GroupNorm's affine
+            ref[f"{path}.{'weight' if leaf == 'scale' else 'bias'}"] = rand(shape, 1.0 if leaf == "scale" else 0.0)
+        elif module.startswith("head.scale"):
+            ref[f"{path}.scale"] = torch.ones(shape)
+        elif leaf == "weight" and re.fullmatch(r"roi\.dsa_conv\d|cgm_conv3", module):
+            ref[f"{path}.weight"] = rand(shape)[:, :, None, None]
+        elif key == "head.agn_hm.bias":
+            ref[f"{path}.bias"] = rand(shape, -4.6)
+        elif key == "head.bbox_pred.bias":
+            ref[f"{path}.bias"] = rand(shape, 8.0)
+        else:
+            ref[f"{path}.{leaf}"] = rand(shape)
+    return ref
+
+
+class MemoryMedia:
+    """The demo's readers and writers on frames held in memory: `store`
+    {path: frame, or a list of frames for a video}; what the demo draws,
+    writes and overlays is recorded in `draws`, `written` and `debugs`."""
+
+    def __init__(self, np, store):
+        self.np, self.store, self.draws, self.written, self.debugs = np, store, [], {}, []
+
+    def media(self):
+        import fnmatch
+
+        from faster_orefsdet_tpu_torch.cli.demo import Media
+
+        np, written = self.np, self.written
+
+        class Sink(list):
+            def __init__(self, path):
+                super().__init__()
+                written[path] = self
+
+            def write(self, frame):
+                self.append(frame)
+
+            def release(self):
+                pass
+
+        def open_video(source):
+            frames = self.store[source]
+            return iter(frames), 25.0, frames[0].shape[:2]
+
+        def draw(img, boxes, scores, thresh):
+            self.draws.append({"boxes": np.asarray(boxes, np.float64).reshape(-1, 4),
+                               "scores": np.asarray(scores, np.float64)})
+            return img
+
+        def debug(image, agn_hms, proposals, out_dir, **kw):
+            self.debugs.append((image, agn_hms, proposals, kw))
+
+        return Media(imread=self.store.get, imwrite=written.__setitem__,
+                     glob=lambda pattern: sorted(fnmatch.filter(self.store, pattern)), open_video=open_video,
+                     open_writer=lambda path, fps, size_wh: Sink(path), draw=draw, debug=debug)
+
+
+def match_frames(np, got, ref, max_dscore) -> dict:
+    """Phase 5's criteria on each frame's detections (frame coordinates,
+    valid ones only, as the demo draws them)."""
+    checks = [match(np, {"boxes": g["boxes"], "scores": g["scores"], "valid": np.ones(len(g["scores"]), bool)},
+                    {"boxes": r["boxes"], "scores": r["scores"], "valid": np.ones(len(r["scores"]), bool)},
+                    max_dscore) for g, r in zip(got, ref)]
+    return {"frames": [len(got), len(ref)], "all_matched": len(got) == len(ref) and all(c["ok"] for c in checks),
+            "max_dscore": max((c["max_dscore"] for c in checks), default=0.0),
+            "matched": sum(c["matched"] for c in checks), "valid": sum(c["valid"][1] for c in checks)}
+
+
+def phase_workflow(torch, np, smi):
+    """The user's single-card workflow at full width: a reference-layout
+    .pth converted to the port's npz; support crops built from a COCO set;
+    the demo by image glob, by video frame batches, by the async predictor
+    and with --debug; visualize_features; finetune_dla with the fused CGM at
+    160 channels. Card against CPU, and the kernels' launches per image."""
+    import json
+    import tempfile
+
+    from faster_orefsdet_tpu_torch.cli import build_support, demo, visualize_features
+    from faster_orefsdet_tpu_torch.config import apply_overrides, get_config
+    from faster_orefsdet_tpu_torch.data.synthetic import generate_ore_dataset
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
+    from faster_orefsdet_tpu_torch.pipelines.evaluate import encode_support_set
+    from faster_orefsdet_tpu_torch.data.coco import load_support_index
+    from faster_orefsdet_tpu_torch.utils.checkpoint import load_params_npz, save_params_npz
+    from faster_orefsdet_tpu_torch.utils.params import init_params
+    from faster_orefsdet_tpu_torch.utils.torch_convert import convert_torch_checkpoint, load_torch_pth
+
+    t_phase = time.perf_counter()
+    cfg = get_config(WORKFLOW_CONFIG)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- the reference's checkpoint -> the port's params file
+        model_sd = init_params(cfg, seed=0)
+        pth, npz = os.path.join(tmp, "model_final.pth"), os.path.join(tmp, "model_final.npz")
+        torch.save({"model": reference_checkpoint(torch, np, model_sd, seed=16)}, pth)
+        sd = convert_torch_checkpoint(load_torch_pth(pth))
+        save_params_npz(npz, sd)
+        back = load_params_npz(npz)
+        same = back.keys() == sd.keys() == model_sd.keys() and all(
+            torch.equal(back[k], sd[k]) and sd[k].shape == model_sd[k].shape for k in sd)
+        emit(workflow_weights={"tensors": len(sd), "npz_round_trip_equal": same})
+        if not same:
+            raise AssertionError("the converted checkpoint does not round-trip through the npz or miss keys")
+
+        # ---- support crops from a COCO set held in memory
+        images, coco = generate_ore_dataset(num_images=WORKFLOW_COCO_IMAGES, image_hw=FRAME_HW, seed=16)
+        store = {os.path.join("coco", fn): img for fn, img in images.items()}
+        with open(os.path.join(tmp, "instances.json"), "w") as f:
+            json.dump(coco, f)
+        entries, index = build_support.build_support(
+            os.path.join(tmp, "instances.json"), "coco", os.path.join(tmp, "support"), cfg.fs.support_crop_size,
+            imread=store.get, imwrite=store.__setitem__)
+        emit(workflow_support={"annotations": len(coco["annotations"]), "crops": len(entries),
+                               "shots_used": cfg.fs.support_shot})
+        if len(entries) < cfg.fs.support_shot or load_support_index(index)[0].file_path not in store:
+            raise AssertionError(f"build_support gave {len(entries)} crops")
+
+        frames, _ = synthetic_frames(np, WORKFLOW_VIDEO, seed=17)
+        store.update({f"frames/frame{i}.png": f for i, f in enumerate(frames[:WORKFLOW_GLOB])})
+        store["clip"] = frames
+
+        def run(argv, device="cuda", opts=()):
+            media = MemoryMedia(np, store)
+            args = demo.parse_args(argv + ["--support-index", index, "--params", npz, "--confidence", "0.0",
+                                           "--config", WORKFLOW_CONFIG, "--device", device, "--output",
+                                           os.path.join(tmp, "out"), *opts])
+            launches = count_launches(cgm_cuda, nms_cuda, lambda: demo.run(args, media.media()))
+            return media, launches
+
+        glob_args = ["--input", "frames/*.png"]
+        video_args = ["--video-input", "clip", "--frame-batch", str(WORKFLOW_FRAME_BATCH)]
+
+        # ---- serving_vovnet as configured (bf16): the launches per image, then pinned vs eager
+        g16, launches = run(glob_args)
+        per_image = {k: v / WORKFLOW_GLOB for k, v in launches.items()}
+        finite = all(np.isfinite(d["boxes"]).all() and np.isfinite(d["scores"]).all() and len(d["scores"]) > 0
+                     for d in g16.draws)
+        par, par_launches = run(glob_args + ["--parallel"])
+        pinned_vs_eager = match_frames(np, par.draws, g16.draws, PINNED_DSCORE)
+        vid16, vid_launches = run(video_args)
+        dbg, dbg_launches = run(["--input", "frames/frame[01].png", "--debug"])
+        dbg_ok = len(dbg.debugs) == 2 and all(
+            len(hms) == 3 and all(torch.isfinite(h).all() and h.shape[-1] == 1 for h in hms)
+            and bool(torch.isfinite(p.boxes).all()) and int(p.valid.sum()) > 0 for _, hms, p, _ in dbg.debugs)
+        emit(workflow_demo={
+            "config": WORKFLOW_CONFIG, "dtype": "bfloat16", "glob_frames": len(g16.draws), "launches": launches,
+            "launches_per_image": per_image, "finite": finite, "parallel_vs_glob": pinned_vs_eager,
+            "parallel_launches_counted": par_launches, "video_frames_drawn": len(vid16.draws),
+            "video_frames_written": len(vid16.written.get(os.path.join(tmp, "out", "clip_out.mp4"), [])),
+            "video_launches": vid_launches, "debug_overlays": len(dbg.debugs), "debug_launches": dbg_launches,
+            "debug_finite": dbg_ok, "card": smi})
+        if per_image != {"cgm": 3, "nms": 2} or not finite or len(g16.draws) != WORKFLOW_GLOB:
+            raise AssertionError(f"demo by glob: launches {launches}, finite {finite}")
+        if not pinned_vs_eager["all_matched"]:
+            raise AssertionError(f"demo --parallel against the glob run: {pinned_vs_eager}")
+        batches = -(-WORKFLOW_VIDEO // WORKFLOW_FRAME_BATCH)
+        if len(vid16.draws) != WORKFLOW_VIDEO or vid_launches != {"cgm": 3 * batches, "nms": 2 * batches}:
+            raise AssertionError(f"demo by video: {len(vid16.draws)} frames, launches {vid_launches}")
+        if not dbg_ok or dbg_launches != {"cgm": 3 * 2, "nms": 2 * 2}:  # one forward pass an image
+            raise AssertionError(f"demo --debug: overlays {len(dbg.debugs)}, launches {dbg_launches}")
+
+        # ---- card vs CPU in f32, by phase 5's criteria
+        f32 = ["compute_dtype=float32"]
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card_vs_cpu = {}
+        for name, argv in (("glob", glob_args), ("video", video_args)):
+            runs = {d: run(argv, d, f32)[0].draws for d in ("cuda", "cpu")}
+            card_vs_cpu[name] = match_frames(np, runs["cuda"], runs["cpu"], MATCH_DSCORE)
+
+        # ---- visualize_features on one frame, card vs CPU in f32
+        cfg32 = apply_overrides(cfg, f32)
+        params = load_params_npz(npz)
+        maps = {}
+        for d in ("cuda", "cpu"):
+            cache = encode_support_set(cfg32, params, load_support_index(index), imread=store.get, device=d)
+            maps[d] = visualize_features.feature_maps(cfg32, params, cache, frames[0], device=d)
+        worst = {k: float(np.abs(maps["cuda"][k] - v).max() / np.abs(v).max()) for k, v in maps["cpu"].items()}
+        maps_ok = len(worst) == 9 and all(np.isfinite(m).all() for d in maps.values() for m in d.values()) and \
+            max(worst.values()) <= WORKFLOW_MAP_TOL
+
+        # ---- finetune_dla with the fused CGM at 160 channels (random weights from seed 0 on both sides)
+        dla = {}
+        for d in ("cuda", "cpu"):
+            media = MemoryMedia(np, store)
+            args = demo.parse_args(["--input", "frames/frame[01].png", "--support-index", index, "--config",
+                                    "finetune_dla", "--confidence", "0.0", "--device", d, "--output",
+                                    os.path.join(tmp, "dla"), "use_pallas_cgm=true"])
+            dla[d] = (media, count_launches(cgm_cuda, nms_cuda, lambda: demo.run(args, media.media())))
+        dla_match = match_frames(np, dla["cuda"][0].draws, dla["cpu"][0].draws, MATCH_DSCORE)
+        emit(workflow_card_vs_cpu={"f32": card_vs_cpu, "feature_maps_worst_of_largest": worst,
+                                   "finetune_dla_use_pallas_cgm": {"channels": get_config("finetune_dla").fpn.out_channels,
+                                                                   "launches": dla["cuda"][1], **dla_match},
+                                   "card": smi})
+        if not all(c["all_matched"] for c in card_vs_cpu.values()):
+            raise AssertionError(f"demo card vs CPU: {card_vs_cpu}")
+        if not maps_ok:
+            raise AssertionError(f"visualize_features card vs CPU: {worst}")
+        if dla["cuda"][1] != {"cgm": 3 * 2, "nms": 2 * 2} or not dla_match["all_matched"]:
+            raise AssertionError(f"finetune_dla with use_pallas_cgm: launches {dla['cuda'][1]}, {dla_match}")
+        out.update(glob_launches=launches, dla_launches=dla["cuda"][1])
+    emit(workflow_phase_s=time.perf_counter() - t_phase)
+    return out
+
+
 def replay_ms(torch, graph, reps: int = 20) -> float:
     """Device time of one replay of a captured graph: CUDA events around
     each replay, the median of `reps`."""
@@ -1393,7 +1752,8 @@ def main() -> int:
     pinned_launches = phase_pinned(torch, np, cfg, params, cache, serve1, serve8, singles, u8, hw8)
 
     # ---- 8. multiclass serving: three classes, K2 across classes
-    multi, mcache, multi_launches, multi_nms_err = phase_multiclass(torch, np, cfg, params, serve1, singles, img32)
+    multi, mcache, multi_launches, multi_nms_err, multi_site = phase_multiclass(
+        torch, np, cfg, params, serve1, singles, img32)
 
     # ---- 9. the async predictor on VGA frames
     phase_async(torch, np, cfg, params, cache, list(rng.integers(0, 256, (ASYNC_FRAMES, *FRAME_HW, 3), np.uint8)),
@@ -1457,6 +1817,43 @@ def main() -> int:
          plain_ms=enqueue_ms(torch, lambda: nms_plain(*args, thr), 10), **bnd, share_of_bound=bnd["bound_ms"] / ms,
          card=smi)
 
+    # K2 past 2048 ranks (not in the request's row): the 9-class request's
+    # cross-class call on the inputs phase 8's counted run gave it
+    # (class-offset boxes), and [1, 4096] random scenes (16 classes' width)
+    boxes, scores, valid, thr = multi_site["args"]
+    nv = int(valid.sum())
+    wide_site = {"launches": multi_site["launches"], "batch": 1, "k": MULTICLASS_K, "valid": nv, "thr": thr,
+                 **nms_row(torch, (boxes, scores, valid), thr, MULTICLASS_K, nv)}
+    emit(timing="nms", site="multiclass9", **wide_site, card=smi)
+    boxes, scores, _ = nms_scenes(np, WIDE_NMS_K, nms_rng)
+    args = (torch.from_numpy(boxes[:1]).cuda(), torch.from_numpy(scores[:1]).cuda(),
+            torch.ones(1, WIDE_NMS_K, dtype=torch.bool, device="cuda"))
+    thr = cfg.roi.nms_thresh_test
+    wide_random = {"batch": 1, "k": WIDE_NMS_K, "thr": thr, **nms_row(torch, args, thr, WIDE_NMS_K, WIDE_NMS_K)}
+    emit(timing="nms", site="random", **wide_random, card=smi)
+
+    # K1 at 160 channels (finetune_dla's BiFPN; f32 q, as that config
+    # serves) at the three levels, batch 1 and 8, and their sums
+    cgm160 = {}
+    for b in (1, 8):
+        tot = dict.fromkeys(("ms", "enqueue_ms", "plain_ms", "bytes", "flops", "tc_flops"), 0.0)
+        for (lh, lw) in LEVELS_HW:
+            args = cgm_inputs(torch, g, b, lh, lw, torch.float32, DLA_CHANNELS)
+            row = {"ms": graph_ms(torch, lambda: cgm_cuda.cgm_correlate_fused(*args)),
+                   "enqueue_ms": enqueue_ms(torch, lambda: cgm_cuda.cgm_correlate_fused(*args), 50),
+                   "plain_ms": enqueue_ms(torch, lambda: cgm_cuda.cgm_fused_plain(*args), 50)}
+            n = b * lh * lw * DLA_CHANNELS
+            work = {"bytes": n * 4 + n * 4 + (2 * DLA_CHANNELS ** 2 + 8 * DLA_CHANNELS) * 4,
+                    "flops": n * 15, "tc_flops": n * 2 * 2 * DLA_CHANNELS}
+            bnd = bound(work["bytes"], work["flops"], work["tc_flops"])
+            emit(timing="cgm", channels=DLA_CHANNELS, batch=b, hw=[lh, lw], **row, **bnd,
+                 share_of_bound=bnd["bound_ms"] / row["ms"], card=smi)
+            tot = {key: v + {**row, **work}[key] for key, v in tot.items()}
+        cgm160[b] = {"ms": tot["ms"], "enqueue_ms": tot["enqueue_ms"], "plain_ms": tot["plain_ms"],
+                     **bound(tot["bytes"], tot["flops"], tot["tc_flops"])}
+        emit(timing="cgm", channels=DLA_CHANNELS, batch=b, levels="p3+p4+p5", **cgm160[b],
+             share_of_bound=cgm160[b]["bound_ms"] / tot["ms"], card=smi)
+
     torch.backends.cudnn.allow_tf32 = True  # the library defaults for serving
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -1490,8 +1887,9 @@ def main() -> int:
               "pinned_batch1_ms_median": p1[0], "pinned_batch1_ms_min": p1[1], "pinned_batch1_ms_max": p1[2],
               "pinned_batch8_ms_median": p8[0], "pinned_batch8_images_per_s": 8e3 / p8[0],
               "pinned_peak_mem_gb": pinned_peak,
-              "multiclass3_batch1_ms_median": m1[0], "multiclass3_batch1_ms_min": m1[1],
-              "multiclass3_batch1_ms_max": m1[2], "card": smi})
+              f"multiclass{MULTICLASS_CLASSES}_batch1_ms_median": m1[0],
+              f"multiclass{MULTICLASS_CLASSES}_batch1_ms_min": m1[1],
+              f"multiclass{MULTICLASS_CLASSES}_batch1_ms_max": m1[2], "card": smi})
 
     # ---- 12. where a request's time goes: the same requests under torch.profiler
     for b, wall in ((1, b1[0]), (8, b8[0])):
@@ -1527,6 +1925,9 @@ def main() -> int:
     # ---- 15. finetune_dla (DLA-34 + BiFPN, trainable BatchNorm) at full width
     dla = phase_dla(torch, np, smi)
 
+    # ---- 16. the workflow: reference .pth -> npz -> support crops -> demo -> feature maps
+    workflow = phase_workflow(torch, np, smi)
+
     # launches counted by the wrappers on each eager path; the pinned path's
     # and the graphed train steps' from their graphs' captured launches times
     # their replays (phases 7, 14 and 15), plus the K-step function's eager
@@ -1534,8 +1935,10 @@ def main() -> int:
     by_path = {"main": launches, "raw_frames": raw_launches, "multiclass": multi_launches,
                "pinned_replays": pinned_launches, "train": train["launches"], "train_graphed": graphed["launches"],
                "dla_train": dla["train_launches"], "dla_train_graphed": dla["graphed_launches"],
-               "dla_eval": dla["eval_launches"]}
-    eager_paths = ("main", "raw_frames", "multiclass", "train", "dla_train", "dla_eval")
+               "dla_eval": dla["eval_launches"], "workflow_glob": workflow["glob_launches"],
+               "workflow_dla_c160": workflow["dla_launches"]}
+    eager_paths = ("main", "raw_frames", "multiclass", "train", "dla_train", "dla_eval", "workflow_glob",
+                   "workflow_dla_c160")
     counted = {k: sum(by_path[p][k] for p in eager_paths) for k in ("cgm", "nms")}
     common = {"route": "cuda", "library_ms": None}
     emit(kernels=[
@@ -1545,7 +1948,8 @@ def main() -> int:
          "launches": counted["cgm"], "launches_by_path": {p: v["cgm"] for p, v in by_path.items()},
          "max_abs_err": cgm_err, "mismatches": cgm_mismatches, "ms": cgm_ms, "enqueue_ms": cgm_enq_ms,
          "plain_ms": cgm_plain_ms, **bound(cgm_bytes, cgm_flops, cgm_tc_flops),
-         "train_site": {"launches_per_step": train["launches"]["cgm"] / train["steps"]}},
+         "train_site": {"launches_per_step": train["launches"]["cgm"] / train["steps"]},
+         "c160_site": {"launches": workflow["dla_launches"]["cgm"], "batch8": cgm160[8], "batch1": cgm160[1]}},
         {"name": "nms_mask", **common,
          "source": "faster_orefsdet_tpu_torch/csrc/nms.cu",
          "replaces": "faster_orefsdet_tpu/ops/pallas_nms.py:46",
@@ -1554,7 +1958,8 @@ def main() -> int:
          "mismatches": nms_mismatches + train["nms_mismatches"] + dla["nms_mismatches"],
          "ms": nms_ms, "enqueue_ms": nms_enq_ms, "plain_ms": nms_plain_ms, **bound(nms_bytes, nms_flops),
          "train_site": train["nms_site"], "dla_train_site": dla["train_site"],
-         "dla_serving_decode_site": dla["serve_site"]},
+         "dla_serving_decode_site": dla["serve_site"],
+         "multiclass9_site": wide_site, f"k{WIDE_NMS_K}_random": wide_random},
     ])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,7 @@
 //
 // Replaces the JAX package's Pallas TPU kernel
 // faster_orefsdet_tpu/ops/pallas_cgm.py::_cgm_kernel. Per pixel, with
-// q [B,H,W,C] (the channels-last memory of an NCHW map), C = 128:
+// q [B,H,W,C] (the channels-last memory of an NCHW map), any C >= 1:
 //
 //   c2   = relu(relu(q * k1) * k1)
 //   d1   = relu(stencil_w(q, k13))          3 taps along W, zero padded
@@ -42,6 +42,16 @@
 // products (wgmma would be faster, but needs W3's hi and lo, 256 KB, in
 // shared memory); at batch 1 the chain of one block: W3's 128 KB into shared
 // memory, one phase 1, the products of one tile.
+//
+// Other widths (C != 128, as DLA-34 + BiFPN's 160) run cgm_any_kernel, a
+// simpler kernel on the same 3xTF32 products: a grid of (32-pixel tiles,
+// 256-channel slices of the output), 8 warps a block, each half of the
+// depth padded with zeros to whole 32-deep slabs. For each slab the block
+// builds its [attn | q] columns from q (scalar loads; attn's stencils are
+// evaluated per value) while the matching 256 x 32 piece of W3 lands by
+// cp.async, both in shared memory, then runs the products. Shared memory
+// does not grow with C; above 256 channels attn is computed once per
+// output slice.
 //
 // Changed from the first port of this kernel: that one ran the projection as
 // f32 FMAs on the CUDA cores, one output channel per thread, each step
@@ -107,7 +117,7 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
 // rows; mma step 0 takes the first two of them as logical k = t4 and t4 + 4,
 // step 1 the last two, for A and B alike. Consecutive mma go to different
 // accumulators, so that one's latency hides behind the others.
-template <int MT, bool A_LO>
+template <int MT, bool A_LO, int S = STRIDE>
 __device__ __forceinline__ void project(float (&acc)[MT][4][4], const float* arow,
                                         const float* brow, int k0, int k1) {
 #pragma unroll 2
@@ -115,8 +125,8 @@ __device__ __forceinline__ void project(float (&acc)[MT][4][4], const float* aro
     unsigned ah[MT][2][4], al[MT][2][4], bh[4][4], bl[4][4];  // [tile][step or k][reg]
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi) {
-      const float4 r0 = *reinterpret_cast<const float4*>(arow + (mi * 16) * STRIDE + kk);
-      const float4 r1 = *reinterpret_cast<const float4*>(arow + (mi * 16 + 8) * STRIDE + kk);
+      const float4 r0 = *reinterpret_cast<const float4*>(arow + (mi * 16) * S + kk);
+      const float4 r1 = *reinterpret_cast<const float4*>(arow + (mi * 16 + 8) * S + kk);
       const float v[2][4] = {{r0.x, r1.x, r0.y, r1.y}, {r0.z, r1.z, r0.w, r1.w}};
 #pragma unroll
       for (int s = 0; s < 2; ++s)
@@ -130,7 +140,7 @@ __device__ __forceinline__ void project(float (&acc)[MT][4][4], const float* aro
     }
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
-      const float4 bv = *reinterpret_cast<const float4*>(brow + (ni * 8) * STRIDE + kk);
+      const float4 bv = *reinterpret_cast<const float4*>(brow + (ni * 8) * S + kk);
       split_tf32(bv.x, bh[ni][0], bl[ni][0]);
       split_tf32(bv.y, bh[ni][1], bl[ni][1]);
       split_tf32(bv.z, bh[ni][2], bl[ni][2]);
@@ -351,6 +361,164 @@ cudaError_t dispatch(const T* q, const float* k1, const float* k13, const float*
   return launch<T, 1>(q, k1, k13, k31, w3, b3, out, out_bf16, B, H, W, sms, s);
 }
 
+// ---- any C
+
+constexpr int ANY_K = 32;              // depth of a slab
+constexpr int ANY_STRIDE = ANY_K + 16; // floats per shared row: conflict-free fragment loads
+constexpr int ANY_WARPS = 8;           // 32 output channels each
+constexpr int ANY_N = 32 * ANY_WARPS;  // output channels of a block
+constexpr int ANY_MT = 2;              // m16 tiles: 32 pixels a tile
+constexpr int ANY_TM = 16 * ANY_MT;
+constexpr int ANY_THREADS = 32 * ANY_WARPS;
+constexpr size_t ANY_SMEM = sizeof(float) * (ANY_TM + ANY_N) * ANY_STRIDE;
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+
+// 4 bytes from gmem into smem, or 4 zero bytes when `full` is false
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(full ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __uint_as_float(static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p))) << 16);
+}
+
+// attn = c2 + d2 + q of channel ch at pixel pix of the flattened B*H*W; the
+// nine loads are issued together from clamped addresses, then the zero
+// padding is applied
+template <typename T>
+__device__ __forceinline__ float attn_at(const T* __restrict__ q, const float* __restrict__ k1,
+                                         const float* __restrict__ k13, const float* __restrict__ k31,
+                                         int pix, int ch, int C, int H, int W) {
+  const int w = pix % W;
+  const int h = (pix / W) % H;
+  const T* img = q + (size_t)(pix - h * W - w) * C + ch;  // the image's (0, 0)
+  const int wl = max(w - 1, 0), wr = min(w + 1, W - 1);
+  float v[3][3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const T* row = img + (size_t)min(max(h + r - 1, 0), H - 1) * W * C;
+    v[r][0] = load1(row + (size_t)wl * C);
+    v[r][1] = load1(row + (size_t)w * C);
+    v[r][2] = load1(row + (size_t)wr * C);
+  }
+  const float t0 = __ldg(k13 + ch), t1 = __ldg(k13 + C + ch), t2 = __ldg(k13 + 2 * C + ch);
+  float d2 = 0.f;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    if (h + r - 1 < 0 || h + r - 1 >= H) continue;
+    const float left = w > 0 ? v[r][0] : 0.f;
+    const float right = w + 1 < W ? v[r][2] : 0.f;
+    d2 += fmaxf(left * t0 + v[r][1] * t1 + right * t2, 0.f) * __ldg(k31 + r * C + ch);
+  }
+  const float qc = v[1][1];
+  const float tk = __ldg(k1 + ch);
+  return fmaxf(fmaxf(qc * tk, 0.f) * tk, 0.f) + fmaxf(d2, 0.f) + qc;
+}
+
+// grid (tiles of ANY_TM pixels, ceil(C / ANY_N)); warp wn owns output
+// channels blockIdx.y * ANY_N + 32*wn .. +31 of the tile's pixels (a warp
+// past C only stages)
+template <typename T>
+__global__ void __launch_bounds__(ANY_THREADS)
+cgm_any_kernel(const T* __restrict__ q, const float* __restrict__ k1,
+               const float* __restrict__ k13, const float* __restrict__ k31,
+               const float* __restrict__ w3, const float* __restrict__ b3,
+               void* __restrict__ out, int out_bf16, int B, int H, int W, int C) {
+  extern __shared__ __align__(16) float smem[];
+  float* as = smem;                         // [ANY_TM][ANY_STRIDE]: [attn | q] columns of the slab
+  float* bs = smem + ANY_TM * ANY_STRIDE;   // [ANY_N][ANY_STRIDE]: W3 rows of the slice, the slab's columns
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wn = tid >> 5;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int npix = B * H * W;
+  const int p0 = blockIdx.x * ANY_TM;
+  const int n0 = blockIdx.y * ANY_N;
+  const int cp = (C + ANY_K - 1) / ANY_K * ANY_K;  // each half of the depth, padded to whole slabs
+  const bool mma_warp = n0 + 32 * wn < C;
+
+  float acc[ANY_MT][4][4];
+#pragma unroll
+  for (int mi = 0; mi < ANY_MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  for (int k0 = 0; k0 < 2 * cp; k0 += ANY_K) {
+    const bool attn_half = k0 < cp;
+    const int c0 = attn_half ? k0 : k0 - cp;  // the slab's first channel
+    // the W3 piece by 4-byte cp.async (any C, so any alignment; zero-filled
+    // past C), in flight while attn is computed
+    const int col0 = attn_half ? c0 : C + c0;  // W3's column of the slab's first channel
+    for (int e = tid; e < ANY_N * ANY_K; e += ANY_THREADS) {
+      const int o = e / ANY_K, kk = e % ANY_K;
+      const bool in = n0 + o < C && c0 + kk < C;
+      cp_async4_zfill(bs + o * ANY_STRIDE + kk, w3 + (in ? (size_t)(n0 + o) * 2 * C + col0 + kk : 0), in);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+#pragma unroll 4
+    for (int e = tid; e < ANY_TM * ANY_K; e += ANY_THREADS) {
+      const int p = e / ANY_K, kk = e % ANY_K;
+      const int pix = p0 + p, ch = c0 + kk;
+      float v = 0.f;
+      if (pix < npix && ch < C)
+        v = attn_half ? attn_at(q, k1, k13, k31, pix, ch, C, H, W) : load1(q + (size_t)pix * C + ch);
+      as[p * ANY_STRIDE + kk] = v;
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    const float* arow = as + g * ANY_STRIDE + 4 * t4;
+    const float* brow = bs + (wn * 32 + g) * ANY_STRIDE + 4 * t4;
+    // attn needs its lo part; q only when it came in as f32
+    if (mma_warp) {
+      if (attn_half || !std::is_same<T, __nv_bfloat16>::value)
+        project<ANY_MT, true, ANY_STRIDE>(acc, arow, brow, 0, ANY_K);
+      else
+        project<ANY_MT, false, ANY_STRIDE>(acc, arow, brow, 0, ANY_K);
+    }
+    __syncthreads();
+  }
+
+  // epilogue: + b3, relu, round once to the output type
+#pragma unroll
+  for (int mh = 0; mh < 2 * ANY_MT; ++mh) {
+    const int pix = p0 + mh * 8 + g;
+    if (pix >= npix) continue;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int o = n0 + wn * 32 + ni * 8 + 2 * t4 + e;
+        if (o >= C) continue;
+        const float v = fmaxf(acc[mh / 2][ni][2 * (mh % 2) + e] + __ldg(b3 + o), 0.f);
+        const size_t at = (size_t)pix * C + o;
+        if (out_bf16)
+          static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16_rn(v);
+        else
+          static_cast<float*>(out)[at] = v;
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_any(const T* q, const float* k1, const float* k13, const float* k31,
+                       const float* w3, const float* b3, void* out, int out_bf16,
+                       int B, int H, int W, int C, cudaStream_t s) {
+  // set once per process, before any capture (the first call is never captured)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      cgm_any_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(ANY_SMEM));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((B * H * W + ANY_TM - 1) / ANY_TM, (C + ANY_N - 1) / ANY_N);
+  cgm_any_kernel<T><<<grid, ANY_THREADS, ANY_SMEM, s>>>(q, k1, k13, k31, w3, b3, out, out_bf16, B, H, W, C);
+  return cudaGetLastError();
+}
+
 int sm_count() {
   int dev = 0, n = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -365,7 +533,8 @@ extern "C" const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q [B,H,W,C] (bf16 if q_is_bf16 else f32); k1 [C]; k13, k31 [3,C];
+// q [B,H,W,C] (bf16 if q_is_bf16 else f32), C = `channels` (the tuned
+// kernel at 128, cgm_any_kernel at any other); k1 [C]; k13, k31 [3,C];
 // w3 [C,2C] (nn.Linear's weight, columns [attn; q]); b3 [C]; out [B,H,W,C]
 // (bf16 if out_bf16 else f32). All contiguous and 16-byte aligned, on the
 // device. Launches on `stream` and returns cudaGetLastError().
@@ -374,7 +543,8 @@ extern "C" int cgm_forward(const void* q, int q_is_bf16, const void* k1,
                            const void* b3, void* out, int out_bf16, int B, int H,
                            int W, int channels, void* stream) {
   static const int sms = sm_count();
-  if (channels != C || B <= 0 || H <= 0 || W <= 0 || (long long)B * H * W > (1ll << 30))
+  if (channels <= 0 || channels > 65535 * ANY_N || B <= 0 || H <= 0 || W <= 0 ||
+      (long long)B * H * W > (1ll << 30) || (long long)B * H * W * channels > (1ll << 40))
     return static_cast<int>(cudaErrorInvalidValue);
   if (sms <= 0) return static_cast<int>(cudaErrorNoDevice);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -383,10 +553,14 @@ extern "C" int cgm_forward(const void* q, int q_is_bf16, const void* k1,
   const float* fk31 = static_cast<const float*>(k31);
   const float* fw3 = static_cast<const float*>(w3);
   const float* fb3 = static_cast<const float*>(b3);
-  cudaError_t err =
-      q_is_bf16 ? dispatch(static_cast<const __nv_bfloat16*>(q), fk1, fk13, fk31, fw3, fb3, out,
-                           out_bf16, B, H, W, sms, s)
-                : dispatch(static_cast<const float*>(q), fk1, fk13, fk31, fw3, fb3, out, out_bf16,
-                           B, H, W, sms, s);
+  const __nv_bfloat16* qh = static_cast<const __nv_bfloat16*>(q);
+  const float* qf = static_cast<const float*>(q);
+  cudaError_t err;
+  if (channels != C)
+    err = q_is_bf16 ? launch_any(qh, fk1, fk13, fk31, fw3, fb3, out, out_bf16, B, H, W, channels, s)
+                    : launch_any(qf, fk1, fk13, fk31, fw3, fb3, out, out_bf16, B, H, W, channels, s);
+  else
+    err = q_is_bf16 ? dispatch(qh, fk1, fk13, fk31, fw3, fb3, out, out_bf16, B, H, W, sms, s)
+                    : dispatch(qf, fk1, fk13, fk31, fw3, fb3, out, out_bf16, B, H, W, sms, s);
   return static_cast<int>(err);
 }

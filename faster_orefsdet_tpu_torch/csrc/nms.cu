@@ -10,16 +10,17 @@
 // (a) nms_rank_kernel, grid (ceil(K/16), B), 256 threads: the rank of each
 //     valid box among its image's valid boxes by direct comparison (no sort;
 //     the input need not be sorted), 16 threads of a warp per box, summed by
-//     shuffles. Each box is written to its rank in `sorted`, its rank to
-//     `rank_of` (-1 when invalid); block 0 writes the image's valid count.
+//     shuffles; the keys pass through shared memory in tiles of 2048. Each
+//     box is written to its rank in `sorted`, its rank to `rank_of` (-1 when
+//     invalid); block 0 writes the image's valid count.
 // (b) nms_mask_kernel, one block of 256 threads per 64x64 tile of the upper
 //     triangle (grid (words*(words+1)/2, B)): word (r, c) of the row of rank
 //     r has bit j set when rank 64c+j comes after r and iou > thr; 4 threads
 //     build a word, 16 columns each. Tiles past the valid count return. The
 //     diagonal 64x64 tile of a chunk of 64 ranks thus holds all of the
 //     chunk's inner dependencies.
-// (c) nms_sweep_kernel, one warp per image: the removed bitset lives in
-//     registers, word w in the lanes l with l % WS == w (K <= 2048, so at
+// (c) up to K = 2048, nms_sweep_kernel, one warp per image: the removed
+//     bitset lives in registers, word w in the lanes l with l % WS == w (at
 //     most 32 words; a mask row holds WS words, a power of two). For each
 //     chunk c of 64 ranks the warp resolves the chunk's 64 decisions from the
 //     diagonal words with register bit operations (keep rank r if it is not
@@ -28,13 +29,23 @@
 //     rows. The next chunk's rows are copied into shared memory with
 //     cp.async (two buffers) while this one resolves. The keep mask is
 //     written in the original order via rank_of.
+// (c') above K = 2048, nms_sweep_wide_kernel, one block of 256 threads per
+//     image: a mask row holds ceil(K/64) words, the removed and kept bitsets
+//     live in shared memory (16 bytes per word), each chunk's decisions are
+//     resolved as in (c) from its diagonal words (loaded one chunk ahead),
+//     then the kept rows' later words are ORed into the removed bitset, one
+//     (row, word) pair a thread, read straight from the mask in global
+//     memory (a shared-memory atomicOr each). Its only limit is the
+//     workspace, B*K*ceil(K/64)*8 bytes of mask: 32 MiB an image at K =
+//     16384.
 //
 // What bounds it on the card: it reads K*(16+4+1) bytes and writes K per
 // image, and the IoU work is K*K/2 pairs, so neither bytes nor operations
 // bound it at K <= 2048. The sweep's serial chain does: K/64 chunks, each 64
 // dependent register steps (a bit test into a predicate, a predicated AND),
 // one shuffle and a fold of the kept rows; at batch 8 the mask's IoU work
-// comes next.
+// comes next. Past K = 2048 each chunk of the wide sweep waits on two block
+// barriers and an L2 round trip for the kept rows' words.
 //
 // Changed from the first port of this kernel: that one built both triangles
 // in the original index order (half of them never read), and its sweep
@@ -52,20 +63,24 @@
 
 namespace {
 
-constexpr int BLOCK = 64;     // ranks per chunk = bits per word
-constexpr int MAX_K = 2048;   // cap: one removed word per lane of a warp
-constexpr int MAX_WORDS = MAX_K / BLOCK;
+constexpr int BLOCK = 64;       // ranks per chunk = bits per word
+constexpr int SWEEP_K = 2048;   // the register sweep's reach: one removed word per lane of a warp
+constexpr int SWEEP_WORDS = SWEEP_K / BLOCK;
 constexpr int RANK_BOXES = 16;  // boxes per block of the rank kernel,
 constexpr int RANK_SPLIT = 16;  // each compared by 16 threads of one warp
+constexpr int RANK_TILE = 2048; // keys the rank kernel holds in shared memory at a time
 constexpr int MASK_SPLIT = 4;   // threads per row of the mask kernel
+constexpr int WIDE_THREADS = 256;  // threads of the wide sweep's block
 
 typedef unsigned long long u64;
 
 size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
-// u64 words a row of the mask holds: ceil(K/64) rounded up to a power of two
-// >= 2, so that a row is whole 16-byte pieces and WS divides the warp
+// u64 words a row of the mask holds: up to SWEEP_K, ceil(K/64) rounded up to
+// a power of two >= 2, so that a row is whole 16-byte pieces and WS divides
+// the warp; above it, ceil(K/64)
 int row_words(int K) {
+  if (K > SWEEP_K) return (K + BLOCK - 1) / BLOCK;
   int ws = 2;
   while (ws * BLOCK < K) ws *= 2;
   return ws;
@@ -76,7 +91,7 @@ int row_words(int K) {
 struct Offsets {
   size_t sorted, rank_of, n_valid, bytes;
   Offsets(int B, int K) {
-    sorted = align16(sizeof(u64) * B * K * row_words(K));
+    sorted = align16(sizeof(u64) * B * K * (size_t)row_words(K));
     rank_of = align16(sorted + sizeof(float) * B * K * 4);
     n_valid = align16(rank_of + sizeof(int) * B * K);
     bytes = align16(n_valid + sizeof(int) * B);
@@ -119,33 +134,36 @@ nms_rank_kernel(const float* __restrict__ boxes, const float* __restrict__ score
                 const uint8_t* __restrict__ valid, int K,
                 float4* __restrict__ sorted, int* __restrict__ rank_of,
                 int* __restrict__ n_valid) {
-  __shared__ float key[MAX_K];  // the score of a valid box, NaN for an invalid one
+  __shared__ float key[RANK_TILE];  // the score of a valid box, NaN for an invalid one
   __shared__ int count;
 
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const size_t base = (size_t)b * K;
   if (tid == 0) count = 0;
-  __syncthreads();
-  int mine = 0;
-  for (int j = tid; j < K; j += RANK_BOXES * RANK_SPLIT) {
-    const bool v = valid[base + j] != 0;
-    key[j] = v ? scores[base + j] : __int_as_float(0x7fc00000);
-    mine += v;
-  }
-  atomicAdd(&count, mine);
-  __syncthreads();
 
   // a NaN key compares false both ways, so invalid boxes never rank before;
-  // the 16 threads of box i take every 16th j and sum by shuffles
+  // the 16 threads of box i take every 16th j of each tile and sum by
+  // shuffles
   const int seg = tid % RANK_SPLIT;
   const int i = blockIdx.x * RANK_BOXES + tid / RANK_SPLIT;
-  const float si = key[min(i, K - 1)];
-  int before = 0;
-  for (int j = seg; j < K; j += RANK_SPLIT) {
-    const float sj = key[j];
-    before += (sj > si) | ((sj == si) & (j < i));
+  const float si = i < K && valid[base + i] ? scores[base + i] : __int_as_float(0x7fc00000);
+  int mine = 0, before = 0;
+  for (int t0 = 0; t0 < K; t0 += RANK_TILE) {
+    const int tn = min(RANK_TILE, K - t0);
+    __syncthreads();  // the last tile's keys are read
+    for (int j = tid; j < tn; j += RANK_BOXES * RANK_SPLIT) {
+      const bool v = valid[base + t0 + j] != 0;
+      key[j] = v ? scores[base + t0 + j] : __int_as_float(0x7fc00000);
+      mine += v;
+    }
+    __syncthreads();
+    for (int j = seg; j < tn; j += RANK_SPLIT) {
+      const float sj = key[j];
+      before += (sj > si) | ((sj == si) & (t0 + j < i));
+    }
   }
+  atomicAdd(&count, mine);
 #pragma unroll
   for (int off = RANK_SPLIT / 2; off > 0; off /= 2) before += __shfl_xor_sync(0xffffffffu, before, off);
   if (seg == 0 && i < K) {
@@ -157,6 +175,7 @@ nms_rank_kernel(const float* __restrict__ boxes, const float* __restrict__ score
     }
     rank_of[base + i] = r;
   }
+  __syncthreads();
   if (blockIdx.x == 0 && tid == 0) n_valid[b] = count;
 }
 
@@ -235,6 +254,26 @@ __device__ __forceinline__ void clear_if(unsigned& x, unsigned t, unsigned bit, 
       : "+r"(x) : "r"(t), "r"(bit), "r"(mx));
 }
 
+// the decisions of a chunk of 64 ranks from its diagonal words D: `todo`
+// holds its ranks not yet removed; rank j, reached with its bit still set,
+// is kept and clears what its diagonal word removes (ranks after j only). A
+// step is a bit test into a predicate and a predicated AND.
+__device__ __forceinline__ u64 resolve_chunk(u64 todo, const u64* D, int stride) {
+  unsigned lo = static_cast<unsigned>(todo);
+  unsigned hi = static_cast<unsigned>(todo >> 32);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const u64 d = D[j * stride];
+    clear_if(lo, hi, lo, 1u << j, ~static_cast<unsigned>(d), ~static_cast<unsigned>(d >> 32));
+  }
+#pragma unroll
+  for (int j = 32; j < BLOCK; ++j) {
+    const unsigned dh = static_cast<unsigned>(D[j * stride] >> 32);
+    clear_if(hi, hi, 1u << (j - 32), ~dh);
+  }
+  return (static_cast<u64>(hi) << 32) | lo;
+}
+
 // rows 64c .. 64c+m-1 of the image's mask, words (c & ~1) .. WS-1, into dst
 template <int WS>
 __device__ __forceinline__ void prefetch_chunk(const u64* __restrict__ mask, u64* dst, int c, int m,
@@ -257,8 +296,8 @@ nms_sweep_kernel(const u64* __restrict__ mask, const int* __restrict__ n_valid,
                  const int* __restrict__ rank_of, int K, uint8_t* __restrict__ keep) {
   constexpr int GROUPS = 32 / WS;
   __shared__ __align__(16) u64 rows[2][BLOCK * WS];
-  __shared__ u64 kept[MAX_WORDS];
-  __shared__ int rank[MAX_K];  // rank_of of this image, copied in while the sweep runs
+  __shared__ u64 kept[SWEEP_WORDS];
+  __shared__ int rank[SWEEP_K];  // rank_of of this image, copied in while the sweep runs
 
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
@@ -284,24 +323,8 @@ nms_sweep_kernel(const u64* __restrict__ mask, const int* __restrict__ n_valid,
     const u64* R = rows[c & 1];
     const int m = min(BLOCK, n - BLOCK * c);
 
-    // the chunk's decisions, alike in every lane: `todo` starts as the
-    // chunk's ranks not yet removed; rank j, reached with its bit still set,
-    // is kept and clears what its diagonal word removes (ranks after j
-    // only). A step is a bit test into a predicate and a predicated AND.
-    const u64 todo = ~shfl64(removed, c) & (m == BLOCK ? ~0ull : (1ull << m) - 1);
-    unsigned lo = static_cast<unsigned>(todo);
-    unsigned hi = static_cast<unsigned>(todo >> 32);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const u64 d = R[j * WS + c];
-      clear_if(lo, hi, lo, 1u << j, ~static_cast<unsigned>(d), ~static_cast<unsigned>(d >> 32));
-    }
-#pragma unroll
-    for (int j = 32; j < BLOCK; ++j) {
-      const unsigned dh = static_cast<unsigned>(R[j * WS + c] >> 32);
-      clear_if(hi, hi, 1u << (j - 32), ~dh);
-    }
-    const u64 kc = (static_cast<u64>(hi) << 32) | lo;
+    // the chunk's decisions, alike in every lane
+    const u64 kc = resolve_chunk(~shfl64(removed, c) & (m == BLOCK ? ~0ull : (1ull << m) - 1), R + c, WS);
     if (lane == 0) kept[c] = kc;
 
     // the later words: word w of every kept row folds into removed word w
@@ -327,10 +350,75 @@ nms_sweep_kernel(const u64* __restrict__ mask, const int* __restrict__ n_valid,
   }
 }
 
+// Above SWEEP_K: one block per image. ws = ceil(K/64) words a row; dynamic
+// shared memory holds the removed and kept bitsets, 2 * ws words.
+__global__ void __launch_bounds__(WIDE_THREADS)
+nms_sweep_wide_kernel(const u64* __restrict__ mask, const int* __restrict__ n_valid,
+                      const int* __restrict__ rank_of, int K, int ws, uint8_t* __restrict__ keep) {
+  extern __shared__ u64 bitsets[];
+  u64* removed = bitsets;
+  u64* kept = bitsets + ws;
+  __shared__ u64 diag[2][BLOCK];  // the diagonal words of this chunk and the next
+  __shared__ int kept_rows[BLOCK];  // the chunk's kept rows, in order
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const size_t base = (size_t)b * K;
+  const u64* img = mask + base * ws;
+  const int n = n_valid[b];
+  const int chunks = (n + BLOCK - 1) / BLOCK;
+
+  for (int w = tid; w < ws; w += WIDE_THREADS) removed[w] = 0ull;
+  if (tid < min(BLOCK, n)) diag[0][tid] = img[(size_t)tid * ws];
+  __syncthreads();
+  for (int c = 0; c < chunks; ++c) {
+    const int m = min(BLOCK, n - BLOCK * c);
+    const int m_next = min(BLOCK, n - BLOCK * (c + 1));
+    u64 next = 0ull;
+    if (tid < m_next) next = img[(size_t)(BLOCK * (c + 1) + tid) * ws + c + 1];
+
+    // the chunk's decisions, alike in every thread
+    const u64 kc = resolve_chunk(~removed[c] & (m == BLOCK ? ~0ull : (1ull << m) - 1), diag[c & 1], 1);
+    if (tid < BLOCK && ((kc >> tid) & 1ull)) kept_rows[__popcll(kc & ((1ull << tid) - 1))] = tid;
+    if (tid == 0) kept[c] = kc;
+    __syncthreads();
+
+    // the later words: word w of every kept row folds into removed word w,
+    // one (kept row, word) pair a thread, consecutive threads on consecutive
+    // words of a row; words at or past `chunks` hold no valid rank
+    const u64* R = img + (size_t)BLOCK * c * ws;
+    const int nw = chunks - c - 1;
+    const int pairs = __popcll(kc) * nw;
+    for (int e = tid; e < pairs; e += WIDE_THREADS) {
+      const int w = c + 1 + e % nw;
+      const u64 v = R[(size_t)kept_rows[e / nw] * ws + w];
+      if (v) atomicOr(removed + w, v);
+    }
+    if (tid < m_next) diag[(c + 1) & 1][tid] = next;
+    __syncthreads();
+  }
+  for (int i = tid; i < K; i += WIDE_THREADS) {
+    const int r = rank_of[base + i];
+    keep[base + i] = r >= 0 && ((kept[r >> 6] >> (r & 63)) & 1ull);
+  }
+}
+
 template <int WS>
 cudaError_t sweep(const u64* mask, const int* n_valid, const int* rank_of, int B, int K,
                   uint8_t* keep, cudaStream_t s) {
   nms_sweep_kernel<WS><<<B, 32, 0, s>>>(mask, n_valid, rank_of, K, keep);
+  return cudaGetLastError();
+}
+
+cudaError_t sweep_wide(const u64* mask, const int* n_valid, const int* rank_of, int B, int K,
+                       int ws, uint8_t* keep, cudaStream_t s) {
+  const size_t smem = 2 * sizeof(u64) * ws;
+  if (smem > 48 * 1024) {  // past the default: opt in (up to 227 KiB, K of about 930000)
+    const cudaError_t err = cudaFuncSetAttribute(
+        nms_sweep_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  nms_sweep_wide_kernel<<<B, WIDE_THREADS, smem, s>>>(mask, n_valid, rank_of, K, ws, keep);
   return cudaGetLastError();
 }
 
@@ -352,9 +440,9 @@ extern "C" long long nms_workspace_bytes(int B, int K) {
 extern "C" int nms_forward(const void* boxes, const void* scores,
                            const void* valid, float thr, int B, int K,
                            void* workspace, void* keep, void* stream) {
-  if (B <= 0 || B > 65535 || K <= 0 || K > MAX_K)
+  const long long words = (K + (long long)BLOCK - 1) / BLOCK;
+  if (B <= 0 || B > 65535 || K <= 0 || words * (words + 1) / 2 > 0x7fffffffll)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int words = (K + BLOCK - 1) / BLOCK;
   const int ws = row_words(K);
   const Offsets off(B, K);
   char* base = static_cast<char*>(workspace);
@@ -368,8 +456,8 @@ extern "C" int nms_forward(const void* boxes, const void* scores,
       static_cast<const uint8_t*>(valid), K, sorted, rank_of, n_valid);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  nms_mask_kernel<<<dim3(words * (words + 1) / 2, B), BLOCK * MASK_SPLIT, 0, s>>>(
-      sorted, n_valid, thr, K, words, ws, mask);
+  nms_mask_kernel<<<dim3(static_cast<unsigned>(words * (words + 1) / 2), B), BLOCK * MASK_SPLIT, 0, s>>>(
+      sorted, n_valid, thr, K, static_cast<int>(words), ws, mask);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   uint8_t* k8 = static_cast<uint8_t*>(keep);
@@ -378,7 +466,8 @@ extern "C" int nms_forward(const void* boxes, const void* scores,
     case 4: err = sweep<4>(mask, n_valid, rank_of, B, K, k8, s); break;
     case 8: err = sweep<8>(mask, n_valid, rank_of, B, K, k8, s); break;
     case 16: err = sweep<16>(mask, n_valid, rank_of, B, K, k8, s); break;
-    default: err = sweep<32>(mask, n_valid, rank_of, B, K, k8, s); break;
+    case 32: err = sweep<32>(mask, n_valid, rank_of, B, K, k8, s); break;
+    default: err = sweep_wide(mask, n_valid, rank_of, B, K, ws, k8, s); break;
   }
   return static_cast<int>(err);
 }

@@ -125,28 +125,34 @@ def build_support_crops(
     out_dir: str,
     crop_size: int = 240,
     context_ratio: float = 0.15,
+    max_per_class: Optional[int] = None,
     *,
     imread: Optional[Callable[[str], Optional[np.ndarray]]] = None,
     imwrite: Optional[Imwrite] = None,
+    resize: Optional[Callable[[np.ndarray, int, int], np.ndarray]] = None,
 ) -> List[SupportEntry]:
-    """One support crop per non-crowd annotation: the box with
+    """One support crop per non-crowd annotation, at most `max_per_class`
+    of a class (the first ones in record order): the box with
     `context_ratio` of context on each side, resized to crop_size x
-    crop_size (bilinear, by PyTorch on the host) with the box mapped along,
-    written as ``out_dir/support_<ann id>.jpg`` by `imwrite`.
-    Images are read by `imread`; both default to cv2's (the default writer
-    makes out_dir). Returns the support index entries."""
+    crop_size with the box mapped along, written as
+    ``out_dir/support_<ann id>.jpg`` by `imwrite`. Images are read by
+    `imread`; both default to cv2's (the default writer makes out_dir).
+    `resize(img, h, w)` defaults to bilinear by PyTorch on the host (within
+    one level of cv2's INTER_LINEAR). Returns the support index entries."""
     from ..pipelines.preprocess import resize_image_host
     from .loader import cv2_imread
 
     imread = imread or cv2_imread
+    resize = resize or resize_image_host
     if imwrite is None:
         os.makedirs(out_dir, exist_ok=True)
         imwrite = cv2_imwrite
     entries: List[SupportEntry] = []
+    per_class: Dict[int, int] = {}
     for rec in records:
         img = None
         for ann in rec.annotations:
-            if ann.iscrowd:
+            if ann.iscrowd or (max_per_class is not None and per_class.get(ann.category_id, 0) >= max_per_class):
                 continue
             if img is None:
                 img = imread(rec.file_name)
@@ -161,11 +167,12 @@ def build_support_crops(
             if crop.size == 0:
                 continue
             sy, sx = crop_size / crop.shape[0], crop_size / crop.shape[1]
-            crop = resize_image_host(np.ascontiguousarray(crop), crop_size, crop_size)
+            crop = resize(np.ascontiguousarray(crop), crop_size, crop_size)
             path = os.path.join(out_dir, f"support_{ann.id}.jpg")
             imwrite(path, crop)
             entries.append(SupportEntry(id=ann.id, image_id=rec.image_id, category_id=ann.category_id,
                                         file_path=path,
                                         support_box=((x1 - cx1) * sx, (y1 - cy1) * sy, (x2 - cx1) * sx,
                                                      (y2 - cy1) * sy)))
+            per_class[ann.category_id] = per_class.get(ann.category_id, 0) + 1
     return entries

@@ -21,7 +21,6 @@ import torch.nn as nn
 
 from ..config import Config
 from ..ops.adaptive_pool import adaptive_avg_pool2d
-from ..ops.cgm_cuda import CHANNELS as CGM_CHANNELS
 from ..ops.cgm_cuda import cgm_correlate_fused
 from ..ops.correlation import cgm_correlate
 from .bifpn import BiFPN
@@ -77,8 +76,6 @@ class CenterNet2Detector(nn.Module):
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
         c = cfg.fpn.out_channels
-        if cfg.use_pallas_cgm and c != CGM_CHANNELS:
-            raise ValueError(f"use_pallas_cgm with {c} channels: the CGM kernel takes {CGM_CHANNELS}")
         if cfg.backbone_name == "dla_bifpn":
             levels = ("dla3", "dla4", "dla5")
             self.backbone = DLA(cfg.dla.num_layers, levels, norm=cfg.dla.norm, dtype=self.dtype)

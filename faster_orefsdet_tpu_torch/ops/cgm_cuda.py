@@ -17,8 +17,6 @@ import torch
 from . import _native
 from .correlation import cgm_correlate
 
-CHANNELS = 128  # the kernel's channel count (csrc/cgm.cu C)
-
 
 class _Counter:
     """Kernel launches made by `cgm_correlate_fused` (one per call on CUDA)."""
@@ -40,8 +38,8 @@ def cgm_fused_plain(q, k1, k13, k31, w3, b3, out_dtype: Optional[torch.dtype] = 
 
 
 def cgm_correlate_fused(q, k1, k13, k31, w3, b3, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Fused CGM for one level over the batch: q [B,H,W,C] (f32 or bf16,
-    channel-last contiguous) -> [B,H,W,C] in `out_dtype` (f32 or bf16,
+    """Fused CGM for one level over the batch: q [B,H,W,C] (any C >= 1; f32
+    or bf16, channel-last contiguous) -> [B,H,W,C] in `out_dtype` (f32 or bf16,
     default q's dtype). Taps and weights as in `cgm_fused_plain`, f32 and
     contiguous on the CUDA path. Raises when grad mode is on and an input
     requires grad: the kernel's result would carry no gradient."""
@@ -57,15 +55,15 @@ def cgm_correlate_fused(q, k1, k13, k31, w3, b3, out_dtype: Optional[torch.dtype
 
 
 def _launch(q, k1, k13, k31, w3, b3, out_dtype) -> torch.Tensor:
-    if q.dim() != 4 or q.shape[-1] != CHANNELS:
-        raise ValueError(f"cgm_correlate_fused: q must be [B,H,W,{CHANNELS}], got {tuple(q.shape)}")
+    if q.dim() != 4 or 0 in q.shape:
+        raise ValueError(f"cgm_correlate_fused: q must be a non-empty [B,H,W,C], got {tuple(q.shape)}")
     floats = (torch.float32, torch.bfloat16)
     if q.dtype not in floats or out_dtype not in floats:
         raise ValueError(f"cgm_correlate_fused: q and out must be f32 or bf16, got {q.dtype}, {out_dtype}")
     if not q.is_contiguous() or q.data_ptr() % 16:
         raise ValueError("cgm_correlate_fused: q must be contiguous [B,H,W,C] (channels-last map), "
                          "16-byte aligned")
-    c = CHANNELS
+    b, h, w, c = q.shape
     for name, t, shape in (
         ("k1", k1, (c,)), ("k13", k13, (3, c)), ("k31", k31, (3, c)), ("w3", w3, (c, 2 * c)),
         ("b3", b3, (c,)),
@@ -77,7 +75,6 @@ def _launch(q, k1, k13, k31, w3, b3, out_dtype) -> torch.Tensor:
             )
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"cgm_correlate_fused: {name} must be contiguous and 16-byte aligned")
-    b, h, w, _ = q.shape
     out = torch.empty((b, h, w, c), dtype=out_dtype, device=q.device)
     lib = _native.library("cgm")
     rc = lib.cgm_forward(

@@ -14,8 +14,6 @@ import torch
 from . import _native
 from .nms import class_offset_boxes, nms_mask as nms_mask_plain
 
-MAX_K = 2048  # the kernel's cap (csrc/nms.cu MAX_K)
-
 
 class _Counter:
     """Kernel launches made by `nms_mask`: one per call on CUDA tensors, which
@@ -46,8 +44,8 @@ def batched_nms_mask(
     """Class-aware NMS keep mask (counterpart of ``batched_nms_mask_pallas``):
     ``nms_mask`` on the class-offset boxes, so CUDA tensors go through the
     kernel and CPU tensors through the plain fixpoint. boxes [B,K,4], scores
-    [B,K], classes [B,K], valid [B,K] -> keep [B,K]. On CUDA, K is capped at
-    MAX_K (a ValueError above it); there is no fallback."""
+    [B,K], classes [B,K], valid [B,K] -> keep [B,K]. On CUDA there is no
+    fallback: a K whose workspace the card cannot hold raises."""
     if boxes.shape[-2] == 0:
         return valid.bool()
     shifted = class_offset_boxes(boxes, classes, valid).contiguous()
@@ -58,8 +56,6 @@ def _launch(boxes, scores, valid, thr: float) -> torch.Tensor:
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"nms_mask: boxes must be [B,K,4], got {tuple(boxes.shape)}")
     b, k = boxes.shape[:2]
-    if not 0 < k <= MAX_K:
-        raise ValueError(f"nms_mask: K={k} outside the kernel's range 1..{MAX_K}")
     for name, t, shape, dtype in (
         ("boxes", boxes, (b, k, 4), torch.float32),
         ("scores", scores, (b, k), torch.float32),
@@ -74,7 +70,13 @@ def _launch(boxes, scores, valid, thr: float) -> torch.Tensor:
             raise ValueError(f"nms_mask: {name} must be contiguous")
     lib = _native.library("nms")
     # one scratch buffer for the rank-order boxes, ranks and suppression rows
-    workspace = torch.empty(_workspace_bytes(b, k), dtype=torch.uint8, device=boxes.device)
+    # (B*K*ceil(K/64) u64 words above K = 2048: 32 MiB an image at K = 16384)
+    nbytes = _workspace_bytes(b, k)
+    try:
+        workspace = torch.empty(nbytes, dtype=torch.uint8, device=boxes.device)
+    except torch.cuda.OutOfMemoryError as e:
+        raise ValueError(f"nms_mask: [{b}, {k}] boxes need a {nbytes}-byte workspace (their suppression "
+                         f"mask), more than {boxes.device} can allocate") from e
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     rc = lib.nms_forward(
         boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), thr, b, k,

@@ -14,7 +14,11 @@ sizes given as tuples) are memoised on their device. So the pinned builder
 can capture it into a CUDA graph.
 
 The builders construct the detector from `cfg` themselves, so a model can
-never run under a config it was not built for.
+never run under a config it was not built for. They lay the images out
+contiguously on the device (a canvas from ``preprocess_host`` is a
+permuted view), so that a request computes the same whatever the strides of
+the caller's tensor: in bf16, cuDNN picks its convolution by the strides,
+and the pinned function's static buffers are contiguous.
 """
 
 from __future__ import annotations
@@ -58,11 +62,14 @@ def cache_kernels(model: CenterNet2Detector, cache: SupportCache) -> Dict[str, K
 
 @torch.inference_mode()
 def query_path(model: CenterNet2Detector, cache: SupportCache, images: torch.Tensor,
-               image_hw: torch.Tensor, kernels: Optional[Dict[str, Kernels]] = None) -> Detections:
+               image_hw: torch.Tensor, kernels: Optional[Dict[str, Kernels]] = None,
+               taps: Optional[dict] = None) -> Detections:
     """images [B, 3, Hc, Wc] normalized, padded canvases; image_hw [B, 2] the
     true (h, w) before padding -> Detections [B, K, ...] in resized-image
     coordinates. `kernels`, when given, are ``cache_kernels(model, cache)``
-    computed once by the caller (the pinned path)."""
+    computed once by the caller (the pinned path). `taps`, when given,
+    receives the proposal stage's per-level heatmap logits ("heatmaps") and
+    decoded proposals ("proposals"), as the demo's --debug draws them."""
     cfg = model.cfg
     canvas_hw = (images.shape[-2], images.shape[-1])
     with record_function("features"):
@@ -76,6 +83,8 @@ def query_path(model: CenterNet2Detector, cache: SupportCache, images: torch.Ten
             agn_hms, bbox_regs, cfg.centernet, canvas_hw, image_hw,
             nms_budget=cfg.static.nms_budget_test,
         )
+    if taps is not None:
+        taps.update(heatmaps=agn_hms, proposals=proposals)
     # stage k > 0 re-pools on the previous stage's boxes, clipped to the image
     feat_list = [feats[level] for level in ("p3", "p4", "p5")]
     boxes = proposals.boxes
@@ -94,9 +103,10 @@ def query_path(model: CenterNet2Detector, cache: SupportCache, images: torch.Ten
 
 
 def query_path_single(model: CenterNet2Detector, cache: SupportCache, image: torch.Tensor,
-                      image_hw: torch.Tensor) -> Detections:
-    """One canvas [3, Hc, Wc] and its image_hw [2] -> Detections [K, ...]."""
-    det = query_path(model, cache, image[None], image_hw[None])
+                      image_hw: torch.Tensor, taps: Optional[dict] = None) -> Detections:
+    """One canvas [3, Hc, Wc] and its image_hw [2] -> Detections [K, ...]
+    (`taps` as in ``query_path``, batch 1)."""
+    det = query_path(model, cache, image[None], image_hw[None], taps=taps)
     return Detections(*(t[0] for t in det))
 
 
@@ -198,13 +208,15 @@ def _check_cache(cache: SupportCache, dev: torch.device) -> SupportCache:
 
 def build_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], *,
                        device="cuda") -> Callable[..., Detections]:
-    """(cache, image [3, Hc, Wc] normalized, image_hw (h, w)) -> Detections
-    [K, ...] on `device`: the batch-1 path. The cache must be on `device`."""
+    """(cache, image [3, Hc, Wc] normalized, image_hw (h, w), taps=None) ->
+    Detections [K, ...] on `device`: the batch-1 path. The cache must be on
+    `device`; `taps` as in ``query_path``."""
     model = make_detector(cfg, params, device=device)
     dev = next(model.parameters()).device
 
-    def fn(cache: SupportCache, image: torch.Tensor, image_hw) -> Detections:
-        return query_path_single(model, _check_cache(cache, dev), image.to(dev), _hw(image_hw, (), dev))
+    def fn(cache: SupportCache, image: torch.Tensor, image_hw, taps: Optional[dict] = None) -> Detections:
+        return query_path_single(model, _check_cache(cache, dev), image.to(dev).contiguous(),
+                                 _hw(image_hw, (), dev), taps=taps)
 
     return fn
 
@@ -230,7 +242,7 @@ def build_batched_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], 
 
     def fn(cache: SupportCache, images: torch.Tensor, image_hw) -> Detections:
         cache = _check_cache(cache, dev)
-        images = images.to(dev)
+        images = images.to(dev).contiguous()
         hw = _hw(image_hw, (images.shape[0],), dev)
         if images.dtype == torch.uint8:
             images = normalize_uint8(images, hw, cfg)
@@ -283,7 +295,7 @@ def build_multiclass_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor
     dev = next(model.parameters()).device
 
     def fn(mcache: SupportCache, image: torch.Tensor, image_hw) -> Detections:
-        det = query_path_multiclass(model, _check_cache(mcache, dev), image.to(dev)[None],
+        det = query_path_multiclass(model, _check_cache(mcache, dev), image.to(dev).contiguous()[None],
                                     _hw(image_hw, (1,), dev))
         return Detections(*(t[0] for t in det))
 

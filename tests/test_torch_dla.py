@@ -305,9 +305,28 @@ def test_params_and_batch_stats_files_cross_both_ways(setup, tmp_path):
     assert not any(is_batch_stat(k) for k in checkpoint.load_params_npz(str(theirs)))
 
 
-def test_cgm_kernel_refuses_other_widths():
-    """K1 takes C = 128; a DLA model at 160 channels with use_pallas_cgm
-    is refused at construction instead of launching it on the wrong width."""
-    with pytest.raises(ValueError, match="CGM kernel takes 128"):
-        CenterNet2Detector(get_config("finetune_dla").replace(use_pallas_cgm=True))
-    assert not get_config("finetune_dla").use_pallas_cgm
+def test_cgm_kernel_refuses_other_widths(setup):
+    """finetune_dla with use_pallas_cgm (the fused CGM at C = 160) builds,
+    and its correlate on the CPU (the kernel's plain twin) equals the JAX
+    detector's (its Pallas kernel in interpret mode) within OUT_TOL of each
+    level's largest value, on small maps. (The name is kept from when the
+    kernel took 128 channels only and this test held that refusal; the
+    kernel now takes any width.)"""
+    cfg = setup["cfg"].replace(use_pallas_cgm=True)
+    c = cfg.fpn.out_channels
+    assert c == 160 and not get_config("finetune_dla").use_pallas_cgm
+    model = CenterNet2Detector(cfg)
+    model.load_state_dict(setup["sd"])
+    g = np.random.default_rng(7)
+    feats = {lv: g.standard_normal((2, hw[0], hw[1], c)).astype(np.float32)
+             for lv, hw in (("p3", (8, 12)), ("p4", (4, 6)), ("p5", (2, 3)))}
+    kernels = {lv: (g.standard_normal(c).astype(np.float32), g.standard_normal((3, c)).astype(np.float32),
+                    g.standard_normal((3, c)).astype(np.float32)) for lv in feats}
+    jmodel = jax_make_detector(dla_cfg(jax_get_config).replace(use_pallas_cgm=True))
+    ref = jmodel.apply({"params": setup["params"]}, {lv: jnp.asarray(f) for lv, f in feats.items()},
+                       {lv: tuple(map(jnp.asarray, k)) for lv, k in kernels.items()}, method=jmodel.correlate)
+    with torch.no_grad():
+        got = model.correlate({lv: torch.from_numpy(f).permute(0, 3, 1, 2) for lv, f in feats.items()},
+                              {lv: tuple(map(torch.from_numpy, k)) for lv, k in kernels.items()})
+    for lv in feats:
+        assert_close_of_largest(nhwc(got[lv]), np.asarray(ref[lv]), OUT_TOL, lv)

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from faster_orefsdet_tpu_torch.cli import demo, visualize_features
 from faster_orefsdet_tpu_torch.config import get_config
 from faster_orefsdet_tpu_torch.data.coco import SupportEntry
 from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
@@ -71,18 +72,20 @@ def _import_every_module(blocked):
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 27
+    assert int(out.stdout.split()[0]) >= 32
 
 
 def test_port_imports_without_jax():
     _import_every_module(("jax", "jaxlib", "flax", "optax", "orbax", "faster_orefsdet_tpu", "yaml"))
 
 
-@pytest.mark.parametrize("module", ["config_yaml", "models.dla", "models.bifpn"])
+@pytest.mark.parametrize("module", ["config_yaml", "models.dla", "models.bifpn", "utils.torch_convert",
+                                    "utils.debug_vis", "cli.build_support", "cli.demo", "cli.visualize_features"])
 def test_new_module_imports_alone(module):
-    """The yaml reader, DLA and BiFPN import with none of jax, flax, yaml,
-    cv2 or PIL present (the card's machine has no PyYAML); the reader
-    reads the reference's configs there."""
+    """The yaml reader, DLA and BiFPN, the checkpoint converter, the debug
+    overlays and the workflow's CLIs import with none of jax, flax, yaml,
+    cv2 or PIL present (the card's machine has no PyYAML, cv2 or PIL); the
+    reader reads the reference's configs there."""
     out = _run_blocked(("jax", "jaxlib", "flax", "optax", "faster_orefsdet_tpu", "yaml", "cv2", "PIL"), f"""
         import importlib
         importlib.import_module("faster_orefsdet_tpu_torch.{module}")
@@ -137,6 +140,15 @@ def test_builders_default_to_the_card(builder, monkeypatch):
         builder(get_config("serving_vovnet"), None)
 
 
+@pytest.mark.parametrize("cli", [demo, visualize_features], ids=["demo", "visualize_features"])
+def test_clis_default_to_the_card(cli, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--input", "frame.jpg", "--support-index", "support_index.json"]
+    assert cli.parse_args(argv).device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+
+
 @pytest.mark.parametrize("build", [inference.build_inference_fn, inference.build_batched_inference_fn],
                          ids=["build_inference_fn", "build_batched_inference_fn"])
 def test_served_cache_stays_on_its_device(build):
@@ -189,12 +201,13 @@ def test_wrappers_validate_cuda_inputs(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     q, *rest = _cgm_args()
     with pytest.raises(ValueError, match="q must be"):
-        cgm_cuda.cgm_correlate_fused(q[..., :64], *rest)
+        cgm_cuda.cgm_correlate_fused(q[0], *rest)
+    with pytest.raises(ValueError, match="k1 must be"):
+        cgm_cuda.cgm_correlate_fused(q[..., :64].contiguous(), *rest)
     with pytest.raises(ValueError, match="contiguous"):
         cgm_cuda.cgm_correlate_fused(q.transpose(1, 2), *rest)
     boxes, scores, valid = _nms_args()
-    with pytest.raises(ValueError, match="outside the kernel's range"):
-        nms_cuda.nms_mask(torch.zeros(1, nms_cuda.MAX_K + 1, 4), torch.zeros(1, nms_cuda.MAX_K + 1),
-                          torch.ones(1, nms_cuda.MAX_K + 1, dtype=torch.bool), 0.5)
+    with pytest.raises(ValueError, match="boxes must be"):
+        nms_cuda.nms_mask(boxes[..., :3].contiguous(), scores, valid, 0.5)
     with pytest.raises(ValueError, match="valid must be"):
         nms_cuda.nms_mask(boxes, scores, valid.float(), 0.5)

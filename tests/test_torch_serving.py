@@ -125,13 +125,53 @@ def test_batched_nms_mask_matches_jax(k):
 
 
 def test_batched_nms_mask_cap_on_cuda(monkeypatch):
-    """Above the kernel's K the CUDA path raises a ValueError naming the cap
-    (no fallback to the plain fixpoint)."""
+    """The CUDA path takes K past 2048 (a 9-class request's 2304, 64
+    classes' 16384): the kernel library (stubbed here, as there is no card)
+    gets the class-offset boxes and a workspace of the size it asks for."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def nms_workspace_bytes(b, k):
+            return b * k * -(-k // 64) * 8 + 64
+
+        @staticmethod
+        def nms_forward(boxes, scores, valid, thr, b, k, workspace, keep, stream):
+            calls.append((b, k, thr))
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    k = nms_cuda.MAX_K + 256
-    with pytest.raises(ValueError, match=f"1..{nms_cuda.MAX_K}"):
-        nms_cuda.batched_nms_mask(torch.zeros(1, k, 4), torch.zeros(1, k), torch.zeros(1, k, dtype=torch.int32),
-                                  torch.ones(1, k, dtype=torch.bool), 0.9)
+    monkeypatch.setattr(nms_cuda._native, "library", lambda name: Lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream)
+    nms_cuda._workspace_bytes.cache_clear()
+    try:
+        for k in (2304, 16384):
+            before = nms_cuda.counter.launches
+            keep = nms_cuda.batched_nms_mask(torch.zeros(1, k, 4), torch.zeros(1, k), torch.arange(k)[None] // 256,
+                                             torch.ones(1, k, dtype=torch.bool), 0.9)
+            assert keep.shape == (1, k) and keep.dtype == torch.bool
+            assert calls[-1] == (1, k, 0.9) and nms_cuda.counter.launches == before + 1
+    finally:
+        nms_cuda._workspace_bytes.cache_clear()
+
+
+def test_batched_nms_mask_matches_jax_at_nine_classes():
+    """The plain twin against the JAX fixpoint on a 9-class request's
+    cross-class set: K = 9 x 256 = 2304, class-major."""
+    g = np.random.default_rng(2304)
+    k = 9 * 256
+    xy = g.uniform(0, 300, (k, 2))
+    boxes = np.concatenate([xy, xy + g.uniform(5, 80, (k, 2))], -1).astype(np.float32)
+    scores = g.uniform(0, 1, k).astype(np.float32)
+    classes = (np.arange(k) // 256).astype(np.int32)
+    valid = g.uniform(size=k) < 0.9
+    for thr in (0.6, 0.9):
+        ref = np.asarray(jax_batched_nms_mask(*(jnp.asarray(x) for x in (boxes, scores, classes, valid)), thr))
+        got = nms_cuda.batched_nms_mask(*(torch.from_numpy(x)[None] for x in (boxes, scores, classes, valid)), thr)
+        np.testing.assert_array_equal(got[0].numpy(), ref)
 
 
 def test_stack_support_caches(pair):
