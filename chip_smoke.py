@@ -58,7 +58,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    warm) and as enqueued from the host (events around 50 calls), its plain
    twin (events), and K2 alone at the training decode's site ([1, 2048] at
    IoU 0.9, random scenes), K2 past 2048 ranks (the nine-class request's
-   [1, 2304] on the inputs phase 8 recorded, [1, 4096] on random scenes)
+   [1, 2304] on the inputs phase 8 recorded, [1, 4096] on random scenes),
+   K2 at the fast presets' ROI site ([8, 64] at IoU 0.9, random scenes)
    and K1 at 160 channels (f32 q, batch 1 and 8); then end to end in bf16
    with the library's default TF32 settings: the eager and the pinned path
    at batch 1 and 8, and the nine-class request;
@@ -121,7 +122,25 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    vs CPU by phase 5's criteria; visualize_features on one frame in f32,
    every map finite and within 1e-3 of its largest card vs CPU; and
    finetune_dla with use_pallas_cgm (the CGM kernel at 160 channels) on 2
-   frames: 3 CGM launches an image, card vs CPU by phase 5's criteria.
+   frames: 3 CGM launches an image, card vs CPU by phase 5's criteria;
+17. quantized serving: serving_vovnet_int8, _int8_static and
+   _int8_resident at full width (one float tree from init_params, each
+   preset's own 25-shot cache), the static two calibrated on 8 synthetic
+   VGA frames (the count of scales and the seconds printed). An eager
+   batch-1 and batch-8 request, counted: 3 CGM and 2 NMS launches and 25
+   int8 GEMMs a request, the NMS kernel bit for bit on each request's own
+   decode and ROI ([B, 64]) inputs, and every distinct int8 conv of the
+   batch-8 request with the card's int32 accumulator equal to the CPU's on
+   the same int8 operands; the pinned function against eager at |dscore|
+   <= 1e-5 (graphs of 3 CGM and 2 NMS launches); card vs CPU in f32 on
+   phase 5's image with the card's cache: phase 5's criteria on the card's
+   int8 grids, each weight's int8 grid equal, and the CPU on its own grids
+   reported (float ops in the last bits can flip an int8 rounding); then
+   request times (batch 1 and 8, eager and pinned), a profile of the pinned
+   batch-8 request (device busy, idle share) and its int8 work piece by
+   piece (GEMMs, im2col, the quantize and dequant passes, each a CUDA-graph
+   replay on the request's own operands); serving_vovnet_fast in bf16 timed
+   and profiled the same way as the yardstick.
 
 Each result is one JSON line. The line before the last holds the kernels'
 table; the last line is {"ok": true, "device": {...}}. Run without the
@@ -143,6 +162,7 @@ import time
 # published peaks of one H100 SXM at its full 700 W (NVIDIA data sheet); a
 # card set to a lower power limit (printed in phase 1) reaches less
 PEAK_BYTES_PER_S = 3.35e12  # HBM3
+PEAK_INT8_OPS = 1979e12     # int8 on the tensor cores, dense
 PEAK_F32_FLOPS = 67e12      # f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12    # TF32 on the tensor cores, dense
 CGM_RTOL = CGM_ATOL = 1e-4  # f32 (3xTF32 on the card), 256-term sums in another order
@@ -193,6 +213,12 @@ WORKFLOW_GLOB, WORKFLOW_VIDEO, WORKFLOW_FRAME_BATCH = 8, 16, 8
 WORKFLOW_MAP_TOL = 1e-3  # feature maps card vs CPU in f32, of each map's largest
 DLA_TOL = 1e-3  # card vs CPU: each loss, gradient and running statistic, of its tensor's largest |value|
 DLA_F32_FACTOR = 3.0  # f32 card vs CPU: at most this many times the CPU's own f32 vs f64, where above DLA_TOL
+# phase 17, the quantized serving presets at full width
+QUANT_PRESETS = ("serving_vovnet_int8", "serving_vovnet_int8_static", "serving_vovnet_int8_resident")
+QUANT_YARDSTICK = "serving_vovnet_fast"  # the int8 presets are this preset plus W8A8
+QUANT_CALIB_FRAMES = 8
+QUANT_GEMMS = 25  # the int8 convs of a request: 3 stem, 4 stages x (3 + concat), 6 FPN
+FAST_ROI_K = 64  # serving_vovnet_fast's post_nms_topk_test: K2's ROI site at [B, 64]
 # the train step's named ranges; the last two are torch.optim's own. Autograd
 # launches the backward's kernels from its own thread, outside "backward".
 TRAIN_STAGES = ("features", "refine_support", "correlate", "proposal_head", "targets", "decode_proposals",
@@ -1630,6 +1656,292 @@ def phase_workflow(torch, np, smi):
     return out
 
 
+# ------------------------------------------------------------------ phase 17
+def quant_inputs(torch, np, cfg, n: int, seed: int):
+    """n synthetic VGA frames on the 320x448 canvas: normalized f32
+    canvases [n, 3, H, W] (host preprocessing) and the uint8 canvases of the
+    same resized frames (zero padding), both on the card."""
+    from faster_orefsdet_tpu_torch.pipelines.preprocess import pad_to_canvas, preprocess_host, resize_image_host
+
+    inp = cfg.input
+    frames, _ = synthetic_frames(np, n, seed)
+    f32 = torch.stack([preprocess_host(f, inp.min_size_test, inp.max_size_test, CANVAS_HW, inp.pixel_mean,
+                                       inp.pixel_std)[0] for f in frames])
+    rh, rw = int(IMAGE_HW[0]), int(IMAGE_HW[1])
+    u8 = np.stack([pad_to_canvas(resize_image_host(f, rh, rw), CANVAS_HW) for f in frames]).transpose(0, 3, 1, 2)
+    return f32.cuda(), torch.from_numpy(np.ascontiguousarray(u8)).cuda()
+
+
+def record_int8_products(torch, request):
+    """Runs request() once with ops.quant.int8_conv2d recording its int8
+    operands and int32 result, and the int8 layers recording their inputs
+    (QuantConv calls that return floats, resident ConvNorm units): returns
+    (products, units). Each unit makes one of the products, in order."""
+    from faster_orefsdet_tpu_torch.models import layers
+    from faster_orefsdet_tpu_torch.ops import quant
+
+    conv2d, conv_fwd, resident = quant.int8_conv2d, layers.QuantConv.forward, layers.ConvNorm._resident
+    products, units = [], []
+
+    def rec_conv2d(xq, wq, stride, padding):
+        acc = conv2d(xq, wq, stride, padding)
+        products.append((xq, wq, tuple(stride), tuple(padding), acc))
+        return acc
+
+    def rec_conv(self, x, raw=False):
+        if not raw:
+            units.append((self, x))
+        return conv_fwd(self, x, raw=raw)
+
+    def rec_resident(self, x):
+        units.append((self, x))
+        return resident(self, x)
+
+    quant.int8_conv2d, layers.QuantConv.forward, layers.ConvNorm._resident = rec_conv2d, rec_conv, rec_resident
+    try:
+        request()
+        torch.cuda.synchronize()
+    finally:
+        quant.int8_conv2d, layers.QuantConv.forward, layers.ConvNorm._resident = conv2d, conv_fwd, resident
+    return products, units
+
+
+def int8_products_card_vs_cpu(torch, products) -> list:
+    """Every distinct int8 conv of a request (operand shapes, stride,
+    padding): the card's int32 accumulator against the CPU's on copies of
+    the same int8 operands, which must be equal."""
+    from faster_orefsdet_tpu_torch.ops import quant
+
+    checks, done = [], set()
+    for xq, wq, stride, padding, acc in products:
+        key = (tuple(xq.shape), tuple(wq.shape), stride, padding)
+        if key in done:
+            continue
+        done.add(key)
+        ref = quant.int8_conv2d(xq.cpu(), wq.cpu(), stride, padding)
+        diff = int((acc.cpu() != ref).sum())
+        checks.append({"x": list(xq.shape), "w": list(wq.shape), "stride": list(stride), "mismatches": diff})
+    return checks
+
+
+def quant_card_vs_cpu(torch, np, cfg32, params, scales, sup, img) -> dict:
+    """A quantized preset in f32, card against CPU, on one image with the
+    card's support cache on both. The float ops feeding a quantizer (the
+    eSE's mean and 1x1 conv, the FPN's sums) differ in the last bits between
+    the devices; where such a value sits at a rounding boundary, or where it
+    moves a dynamic scale, an int8 value flips by one step, which random
+    weights carry into other boxes. So the CPU request runs twice: on its
+    own int8 grids (reported: the int8 activations that differ, and the
+    match), and on the card's (each int8 product takes the card's int32
+    result, after the CPU's own int8 operands are compared with the card's),
+    which phase 5's criteria hold. Every weight's int8 grid must be the
+    card's."""
+    from faster_orefsdet_tpu_torch.ops import quant
+    from faster_orefsdet_tpu_torch.pipelines.inference import build_inference_fn, pack_detections, unpack_detections_np
+    from faster_orefsdet_tpu_torch.pipelines.support_cache import SupportCache, build_support_cache
+
+    cache = build_support_cache(cfg32, params, *sup)
+    cpu_cache = SupportCache(*(t.cpu() for t in cache))
+    out = {}
+    with torch.inference_mode():
+        products, _ = record_int8_products(torch, lambda: out.update(card=build_inference_fn(
+            cfg32, params, act_scales=scales)(cache, img.cuda(), IMAGE_HW)))
+    cpu_fn = build_inference_fn(cfg32, params, device="cpu", act_scales=scales)
+    own = cpu_fn(cpu_cache, img, IMAGE_HW)
+    conv2d, it = quant.int8_conv2d, iter(products)
+    diff = {"x": 0, "w": 0, "x_values": 0}
+
+    def on_card_grid(xq, wq, stride, padding):
+        cxq, cwq, _, _, acc = next(it)
+        diff["x"] += int((xq != cxq.cpu()).sum())
+        diff["w"] += int((wq != cwq.cpu()).sum())
+        diff["x_values"] += xq.numel()
+        return acc.cpu()
+
+    quant.int8_conv2d = on_card_grid
+    try:
+        forced = cpu_fn(cpu_cache, img, IMAGE_HW)
+    finally:
+        quant.int8_conv2d = conv2d
+    card = unpack_detections_np(pack_detections(out["card"]))
+    return {"own_int8_grids": {**match(np, card, unpack_detections_np(pack_detections(own)), MATCH_DSCORE),
+                               "int8_activations_differing": diff["x"], "int8_activations": diff["x_values"]},
+            "on_the_cards_int8_grids": match(np, card, unpack_detections_np(pack_detections(forced)), MATCH_DSCORE),
+            "weight_int8_mismatches": diff["w"], "products": len(products)}
+
+
+def int8_breakdown(torch, products, units, scales) -> dict:
+    """Device ms of a request's int8 work, each piece a CUDA-graph replay on
+    the request's own operands: the int8 GEMMs, the im2col gathers, and the
+    int8 layers whole (QuantConv calls and resident ConvNorm units); the
+    quantize, dequant and weight passes are the layers' time less their
+    GEMMs and gathers (FrozenBN and relu of a resident unit included). The
+    GEMMs' bound counts 2*M*K*N operations at the int8 peak and their int8
+    operands and int32 results once."""
+    from faster_orefsdet_tpu_torch.ops import quant
+
+    def in_scales(fn):
+        def run():
+            with torch.inference_mode(), quant.static_act_scales(scales):
+                fn()
+        return run
+
+    gemm_ms = im2col_ms = layers_ms = ops = nbytes = 0.0
+    for xq, wq, stride, padding, _ in products:
+        kh, kw = wq.shape[-2:]
+        with torch.inference_mode():
+            cols = quant.im2col(xq, (kh, kw), stride, padding)
+            wmat = quant.weight_matrix(wq)
+        if cols.data_ptr() != xq.data_ptr():  # a 1x1 stride-1 conv's im2col is a view: no work
+            im2col_ms += graph_ms(torch, in_scales(lambda: quant.im2col(xq, (kh, kw), stride, padding)), 20, 3)
+        gemm_ms += graph_ms(torch, in_scales(lambda: quant.int8_gemm(cols, wmat)), 20, 3)
+        m, k = cols.shape
+        ops += 2.0 * m * k * wmat.shape[0]
+        nbytes += m * k + k * wmat.shape[0] + 4 * m * wmat.shape[0]
+    for module, x in units:
+        layers_ms += graph_ms(torch, in_scales(lambda: module(x)), 20, 3)
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S
+    return {"int8_layers_ms": layers_ms, "int8_gemm_ms": gemm_ms, "im2col_ms": im2col_ms,
+            "quant_passes_ms": layers_ms - gemm_ms - im2col_ms, "int8_gemms": len(products),
+            "int8_gemm_bound_ms": max(t_ops, t_bytes) * 1e3,
+            "int8_gemm_bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def phase_quant(torch, np, smi):
+    """The quantized serving presets at full width, each with its own
+    25-shot cache; the static ones calibrated on 8 synthetic VGA frames.
+    Eager batch 1 and 8 (launches, the NMS kernel on the ROI site's own
+    inputs, every int8 product card vs CPU), pinned against eager, card vs
+    CPU in f32, then request times, a profile of the pinned batch-8 request
+    and its int8 work piece by piece; serving_vovnet_fast in bf16 timed the
+    same way beside them."""
+    from faster_orefsdet_tpu_torch.config import get_config
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda, quant
+    from faster_orefsdet_tpu_torch.pipelines.inference import (
+        build_batched_inference_fn, build_inference_fn, build_pinned_inference_fn, pack_detections,
+        unpack_detections_np,
+    )
+    from faster_orefsdet_tpu_torch.pipelines.quant_calib import calibrate_act_scales
+    from faster_orefsdet_tpu_torch.pipelines.support_cache import build_support_cache
+    from faster_orefsdet_tpu_torch.utils.params import init_params
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False  # the comparisons first, as phases 3-10
+    params = init_params(get_config(QUANT_YARDSTICK), seed=0)  # one float tree serves every preset
+    sup = support_inputs(torch, np, get_config(QUANT_YARDSTICK), 25, np.random.default_rng(17))
+    sup32 = support_inputs(torch, np, get_config(QUANT_YARDSTICK), 5, np.random.default_rng(2))
+    img32 = torch.from_numpy(np.random.default_rng(3).standard_normal((3, *CANVAS_HW)).astype(np.float32))
+    f32, u8 = quant_inputs(torch, np, get_config(QUANT_YARDSTICK), 8, seed=21)
+    calib, _ = quant_inputs(torch, np, get_config(QUANT_YARDSTICK), QUANT_CALIB_FRAMES, seed=22)
+    hw8 = torch.tensor([IMAGE_HW] * 8, device="cuda")
+    launches, replayed = {"cgm": 0, "nms": 0}, {"cgm": 0, "nms": 0}
+    roi_site = {"launches": 0, "mismatches": 0, "max_abs_err": 0.0}
+    timed = {}
+    for name in QUANT_PRESETS + (QUANT_YARDSTICK,):
+        t_preset = time.perf_counter()
+        cfg = get_config(name)
+        cache = build_support_cache(cfg, params, *sup)
+        scales, row = None, {"config": name, "quantize": cfg.quantize, "dtype": cfg.compute_dtype}
+        if cfg.quantize in ("int8_static", "int8_resident"):
+            t0 = time.perf_counter()
+            scales = calibrate_act_scales(cfg, params, calib)
+            row.update(calibration={"frames": len(calib), "scales": len(scales), "s": time.perf_counter() - t0})
+        serve1 = build_inference_fn(cfg, params, act_scales=scales)
+        serve8 = build_batched_inference_fn(cfg, params, act_scales=scales)
+        at = {1: lambda: serve1(cache, f32[0], IMAGE_HW), 8: lambda: serve8(cache, u8, hw8)}
+        if cfg.quantize != "none":
+            # ---- a counted batch-1 and batch-8 request: launches, int8 GEMMs, K2's own inputs
+            out, seen = {}, {}
+            quant.counter.gemms = 0
+            counted = count_launches(cgm_cuda, nms_cuda, lambda: seen.update(record_nms_calls(
+                torch, lambda: out.update(p1=pack_detections(at[1]()), p8=pack_detections(at[8]())))))
+            gemms = quant.counter.gemms
+            nms_checks, nms_err = check_nms_calls(torch, seen)
+            sites = [c["shape"] for c in nms_checks if c["site"] == "kernel"]
+            roi = [c for c in nms_checks if c["shape"][1] == FAST_ROI_K]
+            roi_site = {"launches": roi_site["launches"] + len(roi),
+                        "mismatches": roi_site["mismatches"] + sum(c["mismatches"] for c in roi),
+                        "max_abs_err": max(roi_site["max_abs_err"], nms_err)}
+            launches = {k: launches[k] + counted[k] for k in launches}
+            # ---- every distinct int8 conv of the batch-8 request, card vs CPU
+            with torch.inference_mode():
+                products, units = record_int8_products(torch, at[8])
+            product_checks = int8_products_card_vs_cpu(torch, products)
+            # ---- pinned against eager
+            pinned = build_pinned_inference_fn(cfg, params, cache, packed=True, act_scales=scales)
+            got1, got8 = pinned(f32[0], IMAGE_HW), pinned(u8, hw8)
+            pin = [match(np, unpack_detections_np(got1), unpack_detections_np(out["p1"]), PINNED_DSCORE)]
+            g8, e8 = unpack_detections_np(got8), unpack_detections_np(out["p8"])
+            pin += [match(np, {k: v[i] for k, v in g8.items()}, {k: v[i] for k, v in e8.items()}, PINNED_DSCORE)
+                    for i in range(8)]
+            identical = int((got1 == out["p1"]).sum() + (got8 == out["p8"]).sum())
+            graphs = [g.launches for g in pinned.graphs.values()]
+            # ---- card vs CPU in f32, the same scales on both
+            cfg32 = cfg.replace(compute_dtype="float32")
+            scales32 = None if scales is None else calibrate_act_scales(cfg32, params, calib)
+            card_vs_cpu = quant_card_vs_cpu(torch, np, cfg32, params, scales32, sup32, img32)
+            row.update(launches=counted, int8_gemms=gemms, nms_sites=sites, roi_nms_mismatches=roi_site["mismatches"],
+                       int8_products_card_vs_cpu={"shapes": len(product_checks),
+                                                  "mismatches": sum(c["mismatches"] for c in product_checks)},
+                       pinned_vs_eager={"images": len(pin), "all_matched": all(c["ok"] for c in pin),
+                                        "max_dscore": max(c["max_dscore"] for c in pin),
+                                        "bit_identical_values": identical,
+                                        "values": got1.numel() + got8.numel(), "graphs": graphs},
+                       card_vs_cpu_f32=card_vs_cpu)
+            emit(quant_check=row, card=smi)
+            if counted != {"cgm": 6, "nms": 4} or gemms != 2 * QUANT_GEMMS:
+                raise AssertionError(f"{name}: launches {counted}, int8 GEMMs {gemms} for 2 requests")
+            if sites != [[1, 1024], [1, FAST_ROI_K], [8, 1024], [8, FAST_ROI_K]] or any(
+                    c["mismatches"] for c in nms_checks):
+                raise AssertionError(f"{name}: the NMS kernel on the request's own inputs: {nms_checks}")
+            if len(products) != QUANT_GEMMS or any(c["mismatches"] for c in product_checks):
+                raise AssertionError(f"{name}: int8 products card vs CPU {product_checks}")
+            if not all(c["ok"] for c in pin) or any(g != {"cgm": 3, "nms": 2} for g in graphs):
+                raise AssertionError(f"{name}: pinned and eager differ: {pin} {graphs}")
+            if not card_vs_cpu["on_the_cards_int8_grids"]["ok"] or card_vs_cpu["weight_int8_mismatches"]:
+                raise AssertionError(f"{name}: card and CPU detections do not match: {card_vs_cpu}")
+        else:
+            pinned = build_pinned_inference_fn(cfg, params, cache, packed=True)
+        # ---- times, with the library's default TF32 settings as phase 11
+        torch.backends.cudnn.allow_tf32 = True
+        b1, b8 = request_times(torch, at[1], 10), request_times(torch, at[8], 5)
+        pin_at = {1: lambda: pinned(f32[0], IMAGE_HW), 8: lambda: pinned(u8, hw8)}
+        p1, p8 = request_times(torch, pin_at[1], 20), request_times(torch, pin_at[8], 10)
+        prof = profile_requests(torch, pin_at[8], p8[0])
+        timed[name] = {"batch1_ms_median": b1[0], "batch8_ms_median": b8[0], "batch8_images_per_s": 8e3 / b8[0],
+                       "pinned_batch1_ms_median": p1[0], "pinned_batch8_ms_median": p8[0],
+                       "pinned_batch8_images_per_s": 8e3 / p8[0],
+                       "pinned_batch8_device_busy_ms": prof["device_busy_ms"],
+                       "pinned_batch8_idle_share": prof["idle_share"],
+                       "pinned_batch8_kernel_events": prof["kernel_launches_per_request"]}
+        if cfg.quantize != "none":
+            parts = int8_breakdown(torch, products, units, scales)
+            parts["share_of_device_busy"] = {k: parts[k] / prof["device_busy_ms"]
+                                             for k in ("int8_gemm_ms", "im2col_ms", "quant_passes_ms")}
+            timed[name]["int8_work"] = parts
+        torch.backends.cudnn.allow_tf32 = False
+        replayed = {k: replayed[k] + v for k, v in pinned.kernel_launches().items()}
+        emit(quant_e2e={"config": name, "dtype": cfg.compute_dtype, "canvas": list(CANVAS_HW), **timed[name],
+                        "top_kernels_ms": prof["top_kernels_ms"][:8], "preset_s": time.perf_counter() - t_preset,
+                        "card": smi})
+    emit(quant_phase_s=time.perf_counter() - t_phase)
+    return {"launches": launches, "pinned_replays": replayed, "roi_site": roi_site, "timed": timed}
+
+
+def request_times(torch, fn, iters):
+    """(median, min, max) ms of fn() by the host's clock, each call ending
+    in a sync, after 3 warm-up calls."""
+    times = []
+    for i in range(iters + 3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times), min(times), max(times)
+
+
 def replay_ms(torch, graph, reps: int = 20) -> float:
     """Device time of one replay of a captured graph: CUDA events around
     each replay, the median of `reps`."""
@@ -1832,6 +2144,20 @@ def main() -> int:
     wide_random = {"batch": 1, "k": WIDE_NMS_K, "thr": thr, **nms_row(torch, args, thr, WIDE_NMS_K, WIDE_NMS_K)}
     emit(timing="nms", site="random", **wide_random, card=smi)
 
+    # K2 at the fast presets' ROI site (not in the request's row): [8, 64]
+    # at IoU 0.9, random all-valid scenes; its launches are phase 17's
+    boxes, scores, _ = nms_scenes(np, FAST_ROI_K, nms_rng)
+    args = (torch.from_numpy(boxes[:8]).cuda(), torch.from_numpy(scores[:8]).cuda(),
+            torch.ones(8, FAST_ROI_K, dtype=torch.bool, device="cuda"))
+    thr = cfg.roi.nms_thresh_test
+    ms = graph_ms(torch, lambda: nms_cuda.nms_mask(*args, thr))
+    bnd = bound(8 * FAST_ROI_K * 22, 8 * (FAST_ROI_K * (FAST_ROI_K - 1) // 2 * 13 + FAST_ROI_K ** 2 * 3))
+    fast_roi = {"batch": 8, "k": FAST_ROI_K, "thr": thr, "ms": ms,
+                "enqueue_ms": enqueue_ms(torch, lambda: nms_cuda.nms_mask(*args, thr), 50),
+                "plain_ms": enqueue_ms(torch, lambda: nms_plain(*args, thr), 10), **bnd,
+                "share_of_bound": bnd["bound_ms"] / ms}
+    emit(timing="nms", site="fast_roi", **fast_roi, card=smi)
+
     # K1 at 160 channels (finetune_dla's BiFPN; f32 q, as that config
     # serves) at the three levels, batch 1 and 8, and their sums
     cgm160 = {}
@@ -1857,30 +2183,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = True  # the library defaults for serving
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    def request_ms(fn, iters):
-        times = []
-        for i in range(iters + 3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            if i >= 3:
-                times.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(times), min(times), max(times)
-
     serve_at = {1: lambda: serve1(cache, singles[0], IMAGE_HW), 8: lambda: serve8(cache, u8[0], hw8)}
     torch.cuda.reset_peak_memory_stats()  # the requests' own peak, not the kernel timings' graphs
-    b1 = request_ms(serve_at[1], 20)
-    b8 = request_ms(serve_at[8], 10)
+    b1 = request_times(torch, serve_at[1], 20)
+    b8 = request_times(torch, serve_at[8], 10)
     eager_peak = torch.cuda.max_memory_allocated() / 1e9
     # the pinned path captured under the same settings (its first call captures)
     torch.cuda.reset_peak_memory_stats()
     pinned = build_pinned_inference_fn(cfg, params, cache, packed=True)
     pin_at = {1: lambda: pinned(singles[0], IMAGE_HW), 8: lambda: pinned(u8[0], hw8)}
-    p1 = request_ms(pin_at[1], 50)
-    p8 = request_ms(pin_at[8], 20)
+    p1 = request_times(torch, pin_at[1], 50)
+    p8 = request_times(torch, pin_at[8], 20)
     pinned_peak = torch.cuda.max_memory_allocated() / 1e9
-    m1 = request_ms(lambda: multi(mcache, singles[0], IMAGE_HW), 10)
+    m1 = request_times(torch, lambda: multi(mcache, singles[0], IMAGE_HW), 10)
     emit(e2e={"config": "serving_vovnet", "dtype": "bfloat16", "canvas": list(CANVAS_HW),
               "batch1_ms_median": b1[0], "batch1_ms_min": b1[1], "batch1_ms_max": b1[2],
               "batch8_ms_median": b8[0], "batch8_images_per_s": 8e3 / b8[0], "peak_mem_gb": eager_peak,
@@ -1928,17 +2243,21 @@ def main() -> int:
     # ---- 16. the workflow: reference .pth -> npz -> support crops -> demo -> feature maps
     workflow = phase_workflow(torch, np, smi)
 
+    # ---- 17. the quantized serving presets at full width
+    quant = phase_quant(torch, np, smi)
+
     # launches counted by the wrappers on each eager path; the pinned path's
     # and the graphed train steps' from their graphs' captured launches times
-    # their replays (phases 7, 14 and 15), plus the K-step function's eager
+    # their replays (phases 7, 14, 15 and 17), plus the K-step function's eager
     # warm-up steps
     by_path = {"main": launches, "raw_frames": raw_launches, "multiclass": multi_launches,
                "pinned_replays": pinned_launches, "train": train["launches"], "train_graphed": graphed["launches"],
                "dla_train": dla["train_launches"], "dla_train_graphed": dla["graphed_launches"],
                "dla_eval": dla["eval_launches"], "workflow_glob": workflow["glob_launches"],
-               "workflow_dla_c160": workflow["dla_launches"]}
+               "workflow_dla_c160": workflow["dla_launches"], "quant": quant["launches"],
+               "quant_pinned_replays": quant["pinned_replays"]}
     eager_paths = ("main", "raw_frames", "multiclass", "train", "dla_train", "dla_eval", "workflow_glob",
-                   "workflow_dla_c160")
+                   "workflow_dla_c160", "quant")
     counted = {k: sum(by_path[p][k] for p in eager_paths) for k in ("cgm", "nms")}
     common = {"route": "cuda", "library_ms": None}
     emit(kernels=[
@@ -1954,12 +2273,14 @@ def main() -> int:
          "source": "faster_orefsdet_tpu_torch/csrc/nms.cu",
          "replaces": "faster_orefsdet_tpu/ops/pallas_nms.py:46",
          "launches": counted["nms"], "launches_by_path": {p: v["nms"] for p, v in by_path.items()},
-         "max_abs_err": max(nms_err, multi_nms_err, train["nms_err"], dla["nms_err"]),
-         "mismatches": nms_mismatches + train["nms_mismatches"] + dla["nms_mismatches"],
+         "max_abs_err": max(nms_err, multi_nms_err, train["nms_err"], dla["nms_err"], quant["roi_site"]["max_abs_err"]),
+         "mismatches": nms_mismatches + train["nms_mismatches"] + dla["nms_mismatches"]
+         + quant["roi_site"]["mismatches"],
          "ms": nms_ms, "enqueue_ms": nms_enq_ms, "plain_ms": nms_plain_ms, **bound(nms_bytes, nms_flops),
          "train_site": train["nms_site"], "dla_train_site": dla["train_site"],
          "dla_serving_decode_site": dla["serve_site"],
-         "multiclass9_site": wide_site, f"k{WIDE_NMS_K}_random": wide_random},
+         "multiclass9_site": wide_site, f"k{WIDE_NMS_K}_random": wide_random,
+         "fast_roi_site": {**fast_roi, "launches": quant["roi_site"]["launches"]}},
     ])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

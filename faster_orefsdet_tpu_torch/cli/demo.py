@@ -6,6 +6,7 @@ Usage:
       --input 'directory/*.png' --output results/ \\
       --params model_final.npz --support-index support_index.json \\
       [--confidence 0.3] [--parallel] [--debug] [--device cuda|cpu]
+      [--config serving_vovnet_int8_static --calib-glob 'calib/*.png']
   python -m faster_orefsdet_tpu_torch.cli.demo --video-input clip.mp4 \\
       --output results/clip_out.mp4 --support-index support_index.json \\
       [--frame-batch 8]
@@ -22,7 +23,9 @@ resized on the device; the tail batch padded with its first frame), or one
 at a time at --frame-batch 1 (--parallel: through ``AsyncPredictor``).
 --debug also writes each image's per-level heatmap overlays
 (``utils.debug_vis.debug_test``). --params reads a params .npz of either
-package (random weights from seed 0 without it). Runs on the card unless
+package (random weights from seed 0 without it). The int8_static and
+int8_resident presets first calibrate their activation scales on up to 8
+images of --calib-glob (default: the --input glob). Runs on the card unless
 --device cpu.
 
 ``run`` takes its readers, writers and drawer as callables (``Media``), so
@@ -58,7 +61,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--parallel", action="store_true",
                    help="AsyncPredictor for globs and per-frame video (--frame-batch 1): pinned CUDA-graph "
                         "replays with host preprocessing and readbacks overlapped (predictor.py:150-238)")
-    p.add_argument("--calib-glob", help="calibration images of the quantized presets: not ported")
+    p.add_argument("--calib-glob",
+                   help="calibration images for the int8_static/int8_resident presets (<=8 used; defaults to the "
+                        "first --input glob images; REQUIRED for quantized video/webcam runs — streams cannot "
+                        "self-calibrate)")
     p.add_argument("--output", default="results")
     p.add_argument("--params", help="params .npz of either package (random init from seed 0 if omitted)")
     p.add_argument("--support-index", required=True)
@@ -143,8 +149,6 @@ def check_args(args: argparse.Namespace) -> None:
     """Flag combinations that cannot run fail before any model work."""
     if args.num_devices != 1:
         raise SystemExit("--num-devices: data-parallel serving is not ported yet; the port serves on one card")
-    if args.calib_glob:
-        raise SystemExit("--calib-glob: the quantized presets are not ported yet")
     if args.parallel and (args.video_input or args.webcam) and args.frame_batch > 1:
         raise SystemExit("--parallel drives per-frame video only: pass --frame-batch 1 (or drop --parallel to "
                          "use the batched raw-frame serving function)")
@@ -168,8 +172,13 @@ def run(args: argparse.Namespace, media: Media) -> int:
     from ..utils.params import init_params
 
     cfg = apply_overrides(get_config(args.config), args.opts)
-    if cfg.quantize != "none":
-        raise SystemExit(f"--config {args.config}: quantize={cfg.quantize!r} is not ported yet")
+    calib_paths: List[str] = []
+    if cfg.quantize in ("int8_static", "int8_resident"):
+        pattern = args.calib_glob or args.input
+        calib_paths = media.glob(pattern) if pattern else []
+        if not calib_paths:
+            raise SystemExit(f"--config {args.config} (quantize={cfg.quantize}) needs calibration images: pass "
+                             "--calib-glob 'imgs/*.png' (video/webcam streams cannot self-calibrate)")
     dev = resolve_device(args.device)
     params = load_params_npz(args.params, batch_stats=True) if args.params else init_params(cfg, seed=0)
 
@@ -182,13 +191,31 @@ def run(args: argparse.Namespace, media: Media) -> int:
         rh, rw = resize_shortest_edge_size(h, w, inp.min_size_test, inp.max_size_test)
         return ceil_to(rh, inp.size_divisibility), ceil_to(rw, inp.size_divisibility)
 
+    act_scales = None
+    if calib_paths:
+        # the static presets: activation scales measured once on a few
+        # in-domain images, then read by every request below
+        from ..pipelines.quant_calib import calibrate_act_scales
+
+        imgs = [img for img in (media.imread(path) for path in calib_paths[:8]) if img is not None]
+        if not imgs:
+            raise SystemExit("no readable calibration images")
+        sizes = [canvas_of(*img.shape[:2]) for img in imgs]
+        chw = (max(h for h, _ in sizes), max(w for _, w in sizes))
+        canvases = torch.stack([preprocess_host(img, inp.min_size_test, inp.max_size_test, chw, inp.pixel_mean,
+                                                inp.pixel_std)[0] for img in imgs])
+        t0 = time.perf_counter()
+        act_scales = calibrate_act_scales(cfg, params, canvases, device=dev)
+        print(f"calibrated {len(act_scales)} activation scales ({len(imgs)} images) in "
+              f"{time.perf_counter() - t0:.2f}s")
+
     infer = None
 
     def detect_frame(img: np.ndarray, taps: Optional[dict] = None):
         """BGR frame -> (boxes in frame coordinates, scores, canvas); `taps`
         as in ``query_path``."""
         nonlocal infer
-        infer = infer or build_inference_fn(cfg, params, device=dev)
+        infer = infer or build_inference_fn(cfg, params, device=dev, act_scales=act_scales)
         canvas, (newh, neww), (sy, sx) = preprocess_host(img, inp.min_size_test, inp.max_size_test,
                                                          canvas_of(*img.shape[:2]), inp.pixel_mean, inp.pixel_std)
         det = infer(cache, canvas, (float(newh), float(neww)), taps=taps)
@@ -199,7 +226,7 @@ def run(args: argparse.Namespace, media: Media) -> int:
     def async_predictor():
         from ..pipelines.async_predictor import AsyncPredictor
 
-        return AsyncPredictor(cfg, params, cache, depth=8, readback_workers=8, device=dev)
+        return AsyncPredictor(cfg, params, cache, depth=8, readback_workers=8, device=dev, act_scales=act_scales)
 
     if args.video_input or args.webcam:
         frames, fps, (h, w) = media.open_video(0 if args.webcam else args.video_input)
@@ -220,7 +247,7 @@ def run(args: argparse.Namespace, media: Media) -> int:
             # normalization and the query path on the device, fb frames a call
             from ..pipelines.inference import build_serving_fn
 
-            serve, _ = build_serving_fn(cfg, params, (h, w), device=dev)
+            serve, _ = build_serving_fn(cfg, params, (h, w), device=dev, act_scales=act_scales)
             buf: List[np.ndarray] = []
 
             def flush():

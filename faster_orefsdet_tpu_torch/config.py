@@ -248,6 +248,31 @@ def serving_vovnet_fast() -> Config:
     return cfg.replace(centernet=dataclasses.replace(cfg.centernet, post_nms_topk_test=64))
 
 
+def serving_vovnet_int8() -> Config:
+    """serving_vovnet_fast with W8A8 int8 convolutions in the VoVNet backbone
+    and the FPN (``ops/quant.py``): int8 weights per output channel, int8
+    activations with a dynamic per-example scale, int32 accumulation. The
+    weights stay f32, so one checkpoint serves every preset."""
+    return serving_vovnet_fast().replace(quantize="int8")
+
+
+def serving_vovnet_int8_static() -> Config:
+    """serving_vovnet_fast with W8A8 int8 convolutions whose activation
+    scales were calibrated once (``pipelines/quant_calib.py``) and are fixed
+    constants of the request. The builders require act_scales=."""
+    return serving_vovnet_fast().replace(quantize="int8_static")
+
+
+def serving_vovnet_int8_resident() -> Config:
+    """serving_vovnet_fast with an int8-resident VoVNet: the stem and OSA
+    conv chains pass int8 tensors from conv to conv (each conv's epilogue
+    dequantizes, applies FrozenBN and relu, and requantizes with a calibrated
+    output scale), and the OSA concat is int8 with the branches' scales folded
+    into the concat conv's weights. The FPN keeps the int8_static scheme. The
+    builders require act_scales= calibrated with this config."""
+    return serving_vovnet_fast().replace(quantize="int8_resident")
+
+
 def serving_vovnet_turbo() -> Config:
     """serving_vovnet_fast with halved decode budgets: per-level top-k 256
     and a 512-candidate NMS working set."""
@@ -265,6 +290,9 @@ _NAMED_CONFIGS = {
     "finetune_dla": finetune_dla,
     "serving_vovnet": serving_vovnet,
     "serving_vovnet_fast": serving_vovnet_fast,
+    "serving_vovnet_int8": serving_vovnet_int8,
+    "serving_vovnet_int8_static": serving_vovnet_int8_static,
+    "serving_vovnet_int8_resident": serving_vovnet_int8_resident,
     "serving_vovnet_turbo": serving_vovnet_turbo,
 }
 

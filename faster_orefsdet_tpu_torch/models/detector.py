@@ -8,6 +8,10 @@ phases are methods (counterpart of ``faster_orefsdet_tpu/models/detector.py``):
   proposal_head     CenterNet head
   roi_stage         DSA cascade stage
 
+cfg.quantize selects the int8 backbone and FPN of the quantized serving
+presets (``ops/quant.py``): each module that reads an activation scale
+gets its key, the JAX package's module path, once here.
+
 Feature maps are logical NCHW. On the card they are kept channels-last in
 memory, so the CGM kernel reads each level as [B, H, W, C] without a copy.
 """
@@ -28,7 +32,7 @@ from .cascade_roi import DSACascadeHead, StageOutput
 from .centernet_head import CenterNetHead
 from .dla import DLA
 from .fpn import FPN
-from .layers import at_least_f32, linear
+from .layers import assign_scale_keys, at_least_f32, linear
 from .sm_block import SMBlock
 from .vovnet import VoVNet
 
@@ -37,6 +41,7 @@ SM_POOL_SIZES = {"p3": 32, "p4": 16, "p5": 8}
 
 # the backbone families the port builds
 BACKBONES = ("vovnet_fpn", "dla_bifpn")
+QUANTIZE_MODES = ("none", "int8", "int8_static", "int8_resident")
 
 # parameters that fine-tuning never updates: VoVNet's stem, stage2 and stage3
 # (FREEZE_AT=3; the DLA builders ignore it). Every FrozenBN affine is frozen
@@ -67,10 +72,16 @@ def compute_dtype(cfg: Config) -> Optional[torch.dtype]:
 class CenterNet2Detector(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
+        if cfg.quantize not in QUANTIZE_MODES:
+            # a typo must not silently build an unquantized model
+            raise ValueError(f"cfg.quantize={cfg.quantize!r}; expected 'none', 'int8', 'int8_static' or "
+                             "'int8_resident'")
+        quant = cfg.quantize != "none"
+        if quant and cfg.backbone_name != "vovnet_fpn":
+            raise ValueError("quantize='int8' is plumbed for the vovnet_fpn family (the published live model); "
+                             f"got backbone_name={cfg.backbone_name!r}")
         if cfg.backbone_name not in BACKBONES:
             raise ValueError(f"backbone_name {cfg.backbone_name!r}: the port has {BACKBONES}")
-        if cfg.quantize != "none":
-            raise ValueError(f"quantize {cfg.quantize!r}: the port has the float path only")
         if cfg.fpn.top_levels != 0:
             raise ValueError("fpn.top_levels must be 0 (P3-P5)")
         self.cfg = cfg
@@ -83,10 +94,13 @@ class CenterNet2Detector(nn.Module):
             self.fpn = BiFPN(levels, tuple(chans[f] for f in levels), c, cfg.fpn.bifpn_repeats, cfg.fpn.bifpn_norm,
                              dtype=self.dtype)
         else:
-            self.backbone = VoVNet(cfg.vovnet.conv_body, cfg.vovnet.out_features, dtype=self.dtype)
+            # the backbone int8-resident under int8_resident; the FPN keeps the
+            # int8_static scheme (its inputs are the float stage outputs)
+            self.backbone = VoVNet(cfg.vovnet.conv_body, cfg.vovnet.out_features, dtype=self.dtype, quant=quant,
+                                   resident=cfg.quantize == "int8_resident")
             chans = VoVNet.out_channels(cfg.vovnet.conv_body)
             self.fpn = FPN([chans[f] for f in cfg.fpn.in_features], cfg.fpn.in_features, c,
-                           cfg.fpn.fuse_type, dtype=self.dtype)
+                           cfg.fpn.fuse_type, dtype=self.dtype, quant=quant)
         self.vip_p3 = SMBlock(c, SM_POOL_SIZES["p3"])
         self.vip_p4 = SMBlock(c, SM_POOL_SIZES["p4"])
         self.vip_p5 = SMBlock(c, SM_POOL_SIZES["p5"])
@@ -99,6 +113,7 @@ class CenterNet2Detector(nn.Module):
             dtype=self.dtype,
         )
         self.roi = DSACascadeHead(cfg.roi, c)
+        assign_scale_keys(self)
 
     @property
     def levels(self) -> Tuple[str, ...]:
@@ -116,10 +131,13 @@ class CenterNet2Detector(nn.Module):
         """Store the weights of the layers that run in the compute dtype in
         that dtype, once, instead of casting them at every use (the same
         numbers: the cast is the one those layers apply). Serving only:
-        training keeps f32 master weights."""
+        training keeps f32 master weights. A quantized backbone and FPN keep
+        theirs: the int8 layers quantize the f32 weights, and the resident
+        epilogue applies FrozenBN in f32."""
         if self.dtype is not None:
-            self.backbone.to(self.dtype)
-            self.fpn.to(self.dtype)
+            if self.cfg.quantize == "none":
+                self.backbone.to(self.dtype)
+                self.fpn.to(self.dtype)
             for conv in self.head.tower_convs():
                 conv.to(self.dtype)
         return self

@@ -1,6 +1,6 @@
-"""Shared building blocks on NCHW maps, float path (counterpart of
-``faster_orefsdet_tpu/models/layers.py``; the int8 ``QuantConv`` is not
-ported yet).
+"""Shared building blocks on NCHW maps (counterpart of
+``faster_orefsdet_tpu/models/layers.py``), the int8 ``QuantConv`` and the
+int8-resident ``ConvNorm`` included.
 
 Parameters are stored f32 under the names of the JAX package's parameter
 tree (``kernel`` becomes ``weight``), so ``utils.params.from_jax_params`` is
@@ -11,11 +11,13 @@ promoted dtype of its input and its (f32) weights.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops import quant
 
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -98,20 +100,101 @@ class BatchNorm(nn.Module):
         return F.batch_norm(x, None, None, self.scale, self.bias, training=True, eps=self.eps)
 
 
+class QuantConv(nn.Conv2d):
+    """A convolution on the int8 path (``ops.quant.int8_conv``), with the
+    parameters of ``nn.Conv2d`` (``weight`` [+ ``bias``]), so converted
+    checkpoints load unchanged. The f32 weights are quantized per output
+    channel at each call; the activations per example dynamically, or with
+    the calibrated scale of this module's key (``scale_key``, its JAX module
+    path, set when the detector is built) while ``ops.quant.static_act_scales``
+    is active. The bias stays float, added after the dequant.
+
+    forward(x, raw=True) returns the int32 accumulator and the dequant factor
+    (``int8_conv_resident``): x is then an ``ops.quant.QTensor``, or a float
+    map quantized here with a per-tensor scale (static, or dynamic over the
+    whole batch). A calibration (``ops.quant.record_act_amax``) records the
+    abs-max of each float input."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size: int = 3, stride: int = 1, padding: int = 0,
+                 bias: bool = False, dtype: Optional[torch.dtype] = None):
+        super().__init__(in_ch, features, kernel_size, stride, padding, bias=bias)
+        self.out_dtype = dtype
+        self.scale_key = ""
+
+    def forward(self, x: Union[torch.Tensor, quant.QTensor], raw: bool = False):
+        if not isinstance(x, quant.QTensor):
+            quant.record_amax(self.scale_key, x)
+            act_scale = quant.lookup_scale(self.scale_key, "int8_static: no calibrated activation scale for conv")
+            if not raw:
+                y = quant.int8_conv(x, self.weight, self.stride, self.padding, out_dtype=self.out_dtype or x.dtype,
+                                    act_scale=act_scale)
+                return y if self.bias is None else y + self.bias.to(y.dtype).view(1, -1, 1, 1)
+            if act_scale is not None:
+                x = quant.QTensor(quant.quantize_static(x, act_scale), act_scale)
+            else:
+                x = quant.QTensor(*quant.quantize_symmetric(x))
+        acc, factor = quant.int8_conv_resident(x, self.weight, self.stride, self.padding)
+        if raw:
+            return acc, factor
+        y = (acc.float() * factor.view(1, -1, 1, 1)).to(self.out_dtype or torch.float32)
+        return y if self.bias is None else y + self.bias.to(y.dtype).view(1, -1, 1, 1)
+
+
 class ConvNorm(nn.Module):
-    """conv (no bias) + FrozenBN [+ relu]: the VoVNet conv3x3 / conv1x1 unit."""
+    """conv (no bias) + FrozenBN [+ relu]: the VoVNet conv3x3 / conv1x1 unit.
+    quant=True runs the conv on the int8 path (the same parameters).
+
+    resident=True (implies quant) is the int8-resident unit: it takes a float
+    map or an ``ops.quant.QTensor``, and its epilogue dequantizes the int32
+    accumulator, applies FrozenBN and relu in f32 and requantizes with the
+    calibrated output scale of its key (a dynamic per-tensor one while no
+    scale dict is active), so it returns a QTensor; emit_float=True returns
+    the float map in the compute dtype instead."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3, stride: int = 1,
-                 relu: bool = True, dtype: Optional[torch.dtype] = None):
+                 relu: bool = True, dtype: Optional[torch.dtype] = None, quant: bool = False,
+                 resident: bool = False, emit_float: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, features, kernel_size, stride, kernel_size // 2, bias=False)
+        if quant or resident:
+            self.conv = QuantConv(in_ch, features, kernel_size, stride, kernel_size // 2,
+                                  dtype=None if resident else dtype)
+        else:
+            self.conv = nn.Conv2d(in_ch, features, kernel_size, stride, kernel_size // 2, bias=False)
         self.norm = FrozenBatchNorm(features)
         self.relu = relu
         self.dtype = dtype
+        self.quant = quant or resident
+        self.resident = resident
+        self.emit_float = emit_float
+        self.scale_key = ""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm(conv2d(x, self.conv, self.dtype))
+    def forward(self, x):
+        if self.resident:
+            return self._resident(x)
+        x = self.norm(self.conv(x) if self.quant else conv2d(x, self.conv, self.dtype))
         return torch.relu(x) if self.relu else x
+
+    def _resident(self, x):
+        acc, factor = self.conv(x, raw=True)
+        y = self.norm(acc.float() * factor.view(1, -1, 1, 1))
+        if self.relu:
+            y = torch.relu(y)
+        if self.emit_float:
+            return y.to(self.dtype or torch.float32)
+        quant.record_amax(self.scale_key, y)
+        s_out = quant.lookup_scale(self.scale_key, "int8_resident: no calibrated OUTPUT scale for")
+        if s_out is None:
+            s_out = quant.amax_scale(y.abs().amax())
+        return quant.requantize(y, s_out)
+
+
+def assign_scale_keys(root: nn.Module, prefix: str = "") -> None:
+    """Give each module of `root` that reads activation scales (a
+    ``scale_key`` attribute) its key: its path under `root` joined by "/"
+    and prefixed, as the JAX package's ``"/".join(module.path)``."""
+    for name, m in root.named_modules():
+        if hasattr(m, "scale_key"):
+            m.scale_key = "/".join(p for p in (prefix, *name.split(".")) if p)
 
 
 class Scale(nn.Module):

@@ -1,7 +1,11 @@
-"""VoVNet backbone, float path (counterpart of
-``faster_orefsdet_tpu/models/vovnet.py``). V-19-slim-eSE is the live spec:
-stem [64, 64, 128], stage conv channels [64, 80, 96, 112], concat channels
-[112, 256, 384, 512], 3 convs per OSA module, one block per stage, eSE on."""
+"""VoVNet backbone (counterpart of ``faster_orefsdet_tpu/models/vovnet.py``).
+V-19-slim-eSE is the live spec: stem [64, 64, 128], stage conv channels
+[64, 80, 96, 112], concat channels [112, 256, 384, 512], 3 convs per OSA
+module, one block per stage, eSE on.
+
+quant=True runs the stem and OSA convs on the int8 path; resident=True
+keeps the stem chain and each OSA module's conv chain and concat in int8
+(``ops.quant.QTensor``), the stage outputs float at the eSE gates."""
 
 from __future__ import annotations
 
@@ -10,6 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ..ops import quant as quant_ops
 from .layers import ConvNorm, conv2d, hsigmoid, max_pool_ceil
 
 # name -> (stem_chs, stage_conv_chs, stage_out_chs, layer_per_block,
@@ -35,50 +40,75 @@ class ESEModule(nn.Module):
 
 class OSAModule(nn.Module):
     """One-shot aggregation: a chain of 3x3 convs whose outputs and input
-    concatenate into a 1x1 projection + eSE."""
+    concatenate into a 1x1 projection + eSE.
+
+    resident=True: the input is quantized once (the calibrated scale of this
+    module's key, or a dynamic per-tensor one) unless it arrives as a
+    QTensor, the chain passes QTensors, the concat is ``qconcat`` and the
+    concat conv emits the float map for eSE."""
 
     def __init__(self, in_ch: int, stage_ch: int, concat_ch: int, layer_per_block: int,
-                 identity: bool = False, dtype: Optional[torch.dtype] = None):
+                 identity: bool = False, dtype: Optional[torch.dtype] = None, quant: bool = False,
+                 resident: bool = False):
         super().__init__()
         self.layer_per_block = layer_per_block
         self.identity = identity
+        self.resident = resident
         for i in range(layer_per_block):
-            self.add_module(f"layer{i}", ConvNorm(in_ch if i == 0 else stage_ch, stage_ch, 3, dtype=dtype))
-        self.concat = ConvNorm(in_ch + layer_per_block * stage_ch, concat_ch, 1, dtype=dtype)
+            self.add_module(f"layer{i}", ConvNorm(in_ch if i == 0 else stage_ch, stage_ch, 3, dtype=dtype,
+                                                  quant=quant, resident=resident))
+        self.concat = ConvNorm(in_ch + layer_per_block * stage_ch, concat_ch, 1, dtype=dtype, quant=quant,
+                               resident=resident, emit_float=resident)
         self.ese = ESEModule(concat_ch, dtype=dtype)
+        if resident:
+            self.scale_key = ""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         identity_feat = x
+        if self.resident and not isinstance(x, quant_ops.QTensor):
+            s_in = quant_ops.lookup_scale(self.scale_key, "int8_resident: no calibrated input scale for OSA")
+            if s_in is None:
+                s_in = quant_ops.amax_scale(x.float().abs().amax())
+            quant_ops.record_amax(self.scale_key, x)
+            x = quant_ops.requantize(x.float(), s_in)
         outputs = [x]
         for i in range(self.layer_per_block):
             x = getattr(self, f"layer{i}")(x)
             outputs.append(x)
-        x = self.ese(self.concat(torch.cat(outputs, dim=1)))
+        cat = quant_ops.qconcat(outputs) if self.resident else torch.cat(outputs, dim=1)
+        x = self.ese(self.concat(cat))
         return x + identity_feat if self.identity else x
 
 
 class VoVNet(nn.Module):
-    """VoVNet producing {'stage2'..'stage5'} NCHW maps (those in out_features)."""
+    """VoVNet producing {'stem', 'stage2'..'stage5'} NCHW maps (those in
+    out_features). quant / resident as in the module docstring; the stem
+    stays int8-resident into stage 2 unless "stem" is an output."""
 
     def __init__(self, conv_body: str = "V-19-slim-eSE",
                  out_features: Tuple[str, ...] = ("stage3", "stage4", "stage5"),
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, quant: bool = False, resident: bool = False):
         super().__init__()
         if conv_body not in VOVNET_STAGE_SPECS:
             raise ValueError(f"conv_body {conv_body!r}: the port has {sorted(VOVNET_STAGE_SPECS)}")
-        stem_chs, conv_chs, out_chs, layer_per_block, blocks, _ = VOVNET_STAGE_SPECS[conv_body]
+        stem_chs, conv_chs, out_chs, layer_per_block, blocks, depthwise = VOVNET_STAGE_SPECS[conv_body]
+        if resident and depthwise:
+            raise ValueError(f"quantize='int8_resident' supports the dense VoVNet specs only (got {conv_body!r})")
         self.out_features = tuple(out_features)
         self.dtype = dtype
         self.blocks = blocks
-        self.stem1 = ConvNorm(3, stem_chs[0], stride=2, dtype=dtype)
-        self.stem2 = ConvNorm(stem_chs[0], stem_chs[1], stride=1, dtype=dtype)
-        self.stem3 = ConvNorm(stem_chs[1], stem_chs[2], stride=2, dtype=dtype)
+        stem_float = "stem" in self.out_features
+        self.stem1 = ConvNorm(3, stem_chs[0], stride=2, dtype=dtype, quant=quant, resident=resident)
+        self.stem2 = ConvNorm(stem_chs[0], stem_chs[1], stride=1, dtype=dtype, quant=quant, resident=resident)
+        self.stem3 = ConvNorm(stem_chs[1], stem_chs[2], stride=2, dtype=dtype, quant=quant, resident=resident,
+                              emit_float=resident and stem_float)
         in_ch = stem_chs[2]
         for i in range(4):
             for b in range(blocks[i]):
                 self.add_module(
                     f"stage{i + 2}_block{b}",
-                    OSAModule(in_ch, conv_chs[i], out_chs[i], layer_per_block, identity=b > 0, dtype=dtype),
+                    OSAModule(in_ch, conv_chs[i], out_chs[i], layer_per_block, identity=b > 0, dtype=dtype,
+                              quant=quant, resident=resident),
                 )
                 in_ch = out_chs[i]
 
@@ -87,6 +117,8 @@ class VoVNet(nn.Module):
             x = x.to(self.dtype)
         x = self.stem3(self.stem2(self.stem1(x)))
         outputs = {}
+        if "stem" in self.out_features:
+            outputs["stem"] = x
         for i in range(4):
             name = f"stage{i + 2}"
             if i > 0:  # stages 3-5 downsample first

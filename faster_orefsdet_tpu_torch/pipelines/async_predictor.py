@@ -32,15 +32,17 @@ _POLL_S = 0.1
 class AsyncPredictor:
     def __init__(self, cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCache,
                  depth: int = 3, canvas_hw: Optional[Tuple[int, int]] = None, readback_workers: int = 0,
-                 *, device="cuda"):
-        """The weights and the cache are fixed into the pinned function here:
+                 *, device="cuda", act_scales: Optional[Mapping[str, float]] = None):
+        """The weights, the cache and the calibrated scales (act_scales=, as
+        the builders take them) are fixed into the pinned function here:
         build a new predictor to serve others. canvas_hw=None gives each
         frame its own ceil-to-divisibility canvas (one captured graph per
         canvas shape)."""
         if depth < 1:
             raise ValueError(f"depth={depth}: at least one request must be in flight")
         self.cfg = cfg
-        self._pinned = build_pinned_inference_fn(cfg, params, cache, device=device, packed=True)
+        self._pinned = build_pinned_inference_fn(cfg, params, cache, device=device, packed=True,
+                                                 act_scales=act_scales)
         self.depth = depth
         self.canvas_hw = canvas_hw
         self.readback_workers = readback_workers

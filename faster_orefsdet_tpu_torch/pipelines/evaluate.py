@@ -50,15 +50,28 @@ def encode_support_set(cfg: Config, params: Mapping[str, torch.Tensor], entries:
 
 def evaluate(cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCache,
              records: Sequence[ImageRecord], canvas_hw: Optional[Tuple[int, int]] = None,
-             batch_size: int = 1, *, imread: Optional[Imread] = None, device="cuda") -> Dict[str, float]:
+             batch_size: int = 1, *, imread: Optional[Imread] = None, device="cuda",
+             act_scales: Optional[Mapping[str, float]] = None) -> Dict[str, float]:
     """Run the eval loop on `device` (the cache must be there) -> the AP
     table plus latency_p50_s, latency_mean_s and fps per image. The first
     request is left out of the timing (it builds the kernels); a batch's
     time is divided by batch_size, padding included. Times are the host's
-    clock around a request and the read-back of its detections."""
-    if cfg.quantize != "none":
-        raise NotImplementedError(f"quantize={cfg.quantize!r}: the port evaluates the float path only")
+    clock around a request and the read-back of its detections.
+
+    act_scales: calibrated static int8 activation scales
+    (``pipelines.quant_calib``). Without them under int8_static or
+    int8_resident, they are calibrated on the first <= 8 eval canvases."""
     canvas_hw = canvas_hw or eval_canvas(records, cfg)
+    if act_scales is None and cfg.quantize in ("int8_static", "int8_resident"):
+        from .quant_calib import calibrate_act_scales
+
+        calib = [canvas for _, canvas, _, _ in eval_loader(records[:min(8, len(records))], cfg, canvas_hw,
+                                                          imread=imread)]
+        t0 = time.perf_counter()
+        act_scales = calibrate_act_scales(cfg, params, torch.stack(calib) if calib else torch.zeros(0),
+                                          device=device)
+        print(f"auto-calibrated {len(act_scales)} activation scales ({len(calib)} eval images) in "
+              f"{time.perf_counter() - t0:.2f}s")
     evaluator = COCOEvaluator()
     times: List[float] = []
 
@@ -76,7 +89,7 @@ def evaluate(cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCach
         return out, time.perf_counter() - t0
 
     if batch_size > 1:
-        infer = build_batched_inference_fn(cfg, params, device=device)
+        infer = build_batched_inference_fn(cfg, params, device=device, act_scales=act_scales)
 
         def flush(buf):
             pad = batch_size - len(buf)  # the tail batch repeats its first image
@@ -96,7 +109,7 @@ def evaluate(cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCach
         if buf:
             flush(buf)
     else:
-        infer = build_inference_fn(cfg, params, device=device)
+        infer = build_inference_fn(cfg, params, device=device, act_scales=act_scales)
         for rec, canvas, hw, scale in eval_loader(records, cfg, canvas_hw, imread=imread):
             (boxes, scores, valid), dt = timed(lambda: infer(cache, canvas, hw))
             times.append(dt)

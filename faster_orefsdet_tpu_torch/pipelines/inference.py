@@ -14,7 +14,10 @@ sizes given as tuples) are memoised on their device. So the pinned builder
 can capture it into a CUDA graph.
 
 The builders construct the detector from `cfg` themselves, so a model can
-never run under a config it was not built for. They lay the images out
+never run under a config it was not built for. Under a quantized config
+they take ``act_scales=`` (``pipelines.quant_calib``), which every request
+reads inside ``ops.quant.static_act_scales``; int8_static and int8_resident
+require them. They lay the images out
 contiguously on the device (a canvas from ``preprocess_host`` is a
 permuted view), so that a request computes the same whatever the strides of
 the caller's tensor: in bf16, cuDNN picks its convolution by the strides,
@@ -35,6 +38,7 @@ from ..models.cascade_roi import roi_inference
 from ..models.centernet import decode_proposals, stable_topk
 from ..models.detector import CenterNet2Detector, Kernels, support_kernels
 from ..ops import cgm_cuda, nms_cuda
+from ..ops.quant import static_act_scales
 from ..structures.boxes import apply_deltas, clip_boxes
 from ..structures.instances import Detections
 from ..utils.device import device_constant, resolve_device
@@ -53,6 +57,17 @@ def make_detector(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = No
     if params is not None:
         model.load_state_dict(params, strict=True)
     return model.to(dev).cast_compute_weights().eval()
+
+
+def _freeze_scales(cfg: Config, act_scales: Optional[Mapping[str, float]]) -> Optional[Dict[str, float]]:
+    """A copy of the calibrated scales, checked against cfg.quantize: the
+    static presets refuse to run without them."""
+    if cfg.quantize in ("int8_static", "int8_resident") and not act_scales:
+        raise ValueError(f"quantize={cfg.quantize!r} needs calibrated activation scales: pass "
+                         "act_scales=pipelines.quant_calib.calibrate_act_scales(...)")
+    if act_scales is None:
+        return None
+    return {str(k): float(v) for k, v in act_scales.items()}
 
 
 def cache_kernels(model: CenterNet2Detector, cache: SupportCache) -> Dict[str, Kernels]:
@@ -206,17 +221,19 @@ def _check_cache(cache: SupportCache, dev: torch.device) -> SupportCache:
     return cache
 
 
-def build_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], *,
-                       device="cuda") -> Callable[..., Detections]:
+def build_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], *, device="cuda",
+                       act_scales: Optional[Mapping[str, float]] = None) -> Callable[..., Detections]:
     """(cache, image [3, Hc, Wc] normalized, image_hw (h, w), taps=None) ->
     Detections [K, ...] on `device`: the batch-1 path. The cache must be on
     `device`; `taps` as in ``query_path``."""
+    scales = _freeze_scales(cfg, act_scales)
     model = make_detector(cfg, params, device=device)
     dev = next(model.parameters()).device
 
     def fn(cache: SupportCache, image: torch.Tensor, image_hw, taps: Optional[dict] = None) -> Detections:
-        return query_path_single(model, _check_cache(cache, dev), image.to(dev).contiguous(),
-                                 _hw(image_hw, (), dev), taps=taps)
+        with static_act_scales(scales):
+            return query_path_single(model, _check_cache(cache, dev), image.to(dev).contiguous(),
+                                     _hw(image_hw, (), dev), taps=taps)
 
     return fn
 
@@ -232,11 +249,12 @@ def normalize_uint8(images: torch.Tensor, image_hw: torch.Tensor, cfg: Config) -
     return x * (row_ok[:, :, None] & col_ok[:, None, :])[:, None]
 
 
-def build_batched_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], *,
-                               device="cuda") -> Callable[..., Detections]:
+def build_batched_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], *, device="cuda",
+                               act_scales: Optional[Mapping[str, float]] = None) -> Callable[..., Detections]:
     """(cache, images [B, 3, Hc, Wc], image_hw [B, 2]) -> Detections
     [B, K, ...] on `device`: the serving path. Raw uint8 canvases are
     normalized on the device. The cache must be on `device`."""
+    scales = _freeze_scales(cfg, act_scales)
     model = make_detector(cfg, params, device=device)
     dev = next(model.parameters()).device
 
@@ -246,13 +264,15 @@ def build_batched_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], 
         hw = _hw(image_hw, (images.shape[0],), dev)
         if images.dtype == torch.uint8:
             images = normalize_uint8(images, hw, cfg)
-        return query_path(model, cache, images, hw)
+        with static_act_scales(scales):
+            return query_path(model, cache, images, hw)
 
     return fn
 
 
 def build_serving_fn(cfg: Config, params: Mapping[str, torch.Tensor], input_hw: Tuple[int, int], *,
-                     device="cuda") -> Tuple[Callable[..., Detections], Tuple[int, int]]:
+                     device="cuda", act_scales: Optional[Mapping[str, float]] = None
+                     ) -> Tuple[Callable[..., Detections], Tuple[int, int]]:
     """Raw frames to detections in frame coordinates, for a camera of fixed
     size input_hw = (H0, W0): the frames [B, 3, H0, W0] (uint8 or float) are
     resized to the test scale, normalized and padded on the device
@@ -260,6 +280,7 @@ def build_serving_fn(cfg: Config, params: Mapping[str, torch.Tensor], input_hw: 
     resized size and the scale back to the frame are fixed at build time.
 
     Returns (fn, canvas_hw) with fn(cache, frames) -> Detections [B, K, ...]."""
+    scales = _freeze_scales(cfg, act_scales)
     model = make_detector(cfg, params, device=device)
     dev = next(model.parameters()).device
     h0, w0 = input_hw
@@ -274,7 +295,8 @@ def build_serving_fn(cfg: Config, params: Mapping[str, torch.Tensor], input_hw: 
             raise ValueError(f"frames of {tuple(frames.shape[-2:])}: this function serves {h0}x{w0}")
         frames = frames.to(dev)
         canvases = preprocess_device(frames, (rh, rw), canvas_hw, cfg.input.pixel_mean, cfg.input.pixel_std)
-        det = query_path(model, cache, canvases, _hw((rh, rw), (frames.shape[0],), dev))
+        with static_act_scales(scales):
+            det = query_path(model, cache, canvases, _hw((rh, rw), (frames.shape[0],), dev))
         return rescale_detections(det, scale_hw)
 
     return fn, canvas_hw
@@ -287,16 +309,18 @@ def rescale_detections(det: Detections, scale_hw) -> Detections:
     return det._replace(boxes=det.boxes * _float_constant((sx, sy, sx, sy), device=det.boxes.device))
 
 
-def build_multiclass_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], *,
-                                  device="cuda") -> Callable[..., Detections]:
+def build_multiclass_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], *, device="cuda",
+                                  act_scales: Optional[Mapping[str, float]] = None) -> Callable[..., Detections]:
     """(mcache, image [3, Hc, Wc] normalized, image_hw (h, w)) -> Detections
     [K, ...] over every class of the stacked cache `mcache` (on `device`)."""
+    scales = _freeze_scales(cfg, act_scales)
     model = make_detector(cfg, params, device=device)
     dev = next(model.parameters()).device
 
     def fn(mcache: SupportCache, image: torch.Tensor, image_hw) -> Detections:
-        det = query_path_multiclass(model, _check_cache(mcache, dev), image.to(dev).contiguous()[None],
-                                    _hw(image_hw, (1,), dev))
+        with static_act_scales(scales):
+            det = query_path_multiclass(model, _check_cache(mcache, dev), image.to(dev).contiguous()[None],
+                                        _hw(image_hw, (1,), dev))
         return Detections(*(t[0] for t in det))
 
     return fn
@@ -325,7 +349,8 @@ class PinnedInferenceFn:
     ``build_pinned_inference_fn``)."""
 
     def __init__(self, cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCache, *,
-                 device="cuda", packed: bool = False):
+                 device="cuda", packed: bool = False, act_scales: Optional[Mapping[str, float]] = None):
+        self.scales = _freeze_scales(cfg, act_scales)
         self.model = make_detector(cfg, params, device=device)
         self.device = next(self.model.parameters()).device
         self.cache = _check_cache(cache, self.device)
@@ -337,7 +362,8 @@ class PinnedInferenceFn:
     def _run(self, images: torch.Tensor, image_hw: torch.Tensor) -> Output:
         if images.dtype == torch.uint8:
             images = normalize_uint8(images, image_hw, self.model.cfg)
-        det = query_path(self.model, self.cache, images, image_hw, kernels=self.kernels)
+        with static_act_scales(self.scales):
+            det = query_path(self.model, self.cache, images, image_hw, kernels=self.kernels)
         return pack_detections(det) if self.packed else det
 
     def __call__(self, image: torch.Tensor, image_hw) -> Output:
@@ -399,7 +425,8 @@ class PinnedInferenceFn:
 
 
 def build_pinned_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCache, *,
-                              device="cuda", packed: bool = False) -> PinnedInferenceFn:
+                              device="cuda", packed: bool = False,
+                              act_scales: Optional[Mapping[str, float]] = None) -> PinnedInferenceFn:
     """fn(image, image_hw) -> Detections with the weights and the support
     cache fixed at build time: the sustained-serving path. image is one
     canvas [3, Hc, Wc] with image_hw (h, w), or a batch [B, 3, Hc, Wc] with
@@ -412,8 +439,10 @@ def build_pinned_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], c
     host operations instead of some 760 launches. Each call returns a fresh
     copy of the outputs, so results held from earlier calls stay intact. A
     capture that fails raises. Rebuild the function after changing the
-    weights or the cache. On the CPU it runs the eager path."""
-    return PinnedInferenceFn(cfg, params, cache, device=device, packed=packed)
+    weights or the cache. On the CPU it runs the eager path. Static scales
+    (act_scales=) are constants of the captured graph, and qconcat's scale
+    vectors are kept on the device before the capture."""
+    return PinnedInferenceFn(cfg, params, cache, device=device, packed=packed, act_scales=act_scales)
 
 
 def pack_detections(det: Detections) -> torch.Tensor:

@@ -3,7 +3,9 @@
 
 Scalars accumulate per step and flush as one JSON row per window, with the
 mean of each scalar over the window's steps, the iteration, and the wall
-time per iteration (``time_per_iter``)."""
+time per iteration (``time_per_iter``). With tensorboard=True each row's
+scalars also go to a tensorboard event file under ``tb/`` beside
+``metrics.jsonl``."""
 
 from __future__ import annotations
 
@@ -30,13 +32,21 @@ def drain_device_metrics(window: Sequence[Tuple[int, Mapping[str, torch.Tensor]]
 
 
 class EventLogger:
-    def __init__(self, output_dir: str, period: int = 20):
+    def __init__(self, output_dir: str, period: int = 20, tensorboard: bool = False):
         os.makedirs(output_dir, exist_ok=True)
         self.path = os.path.join(output_dir, "metrics.jsonl")
         self.period = period
         self._buffer: Dict[str, list] = defaultdict(list)
         self._nsteps = 0
         self._last_time = time.perf_counter()
+        self._tb = None
+        if tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(os.path.join(output_dir, "tb"))
+            except Exception as e:  # tensorboard is optional
+                print(f"tensorboard unavailable ({e}); jsonl only")
 
     def log(self, step: int, scalars: Mapping[str, float], count: int = 1) -> None:
         """Add the scalars of `count` optimizer steps (count=0: scalars that
@@ -62,6 +72,11 @@ class EventLogger:
         means["time_per_iter"] = (now - self._last_time) / max(n, 1)
         with open(self.path, "a") as f:
             f.write(json.dumps(means) + "\n")
+        if self._tb is not None:
+            for k, v in means.items():
+                if k != "iteration":
+                    self._tb.add_scalar(k, v, step)
+            self._tb.flush()
         loss_str = "  ".join(f"{k}: {v:.4g}" for k, v in sorted(means.items())
                              if k.startswith("loss") or k == "total_loss")
         print(f"iter {step}  {loss_str}  ({means['time_per_iter']:.3f} s/it)")

@@ -220,7 +220,9 @@ def test_demo_parallel_matches_jax(workflow, supports, glob_runs):
 
 
 def test_demo_refuses_what_is_not_ported():
-    for flags, match in ((["--num-devices", "2"], "not ported"), (["--calib-glob", "x/*.png"], "quantized"),
+    for flags, match in ((["--num-devices", "2"], "not ported"),
+                         (["--config", "serving_vovnet_int8_static", "--calib-glob", "x/*.png"],
+                          "needs calibration images"),
                          (["--parallel", "--debug"], "sequential")):
         with pytest.raises(SystemExit, match=match):
             demo.main(["--input", "x/*.png", "--support-index", "i.json", *flags])

@@ -229,5 +229,7 @@ def test_evaluate_matches_jax(synthetic, monkeypatch):
 
 
 def test_evaluate_refuses_quantized_config():
-    with pytest.raises(NotImplementedError, match="int8_static"):
+    """A static-quantized config without scales calibrates on the eval set:
+    with no images to calibrate on it is refused."""
+    with pytest.raises(ValueError, match="no calibration images"):
         evaluate.evaluate(get_config().replace(quantize="int8_static"), None, None, [], device="cpu")

@@ -80,12 +80,14 @@ def test_port_imports_without_jax():
 
 
 @pytest.mark.parametrize("module", ["config_yaml", "models.dla", "models.bifpn", "utils.torch_convert",
-                                    "utils.debug_vis", "cli.build_support", "cli.demo", "cli.visualize_features"])
+                                    "utils.debug_vis", "cli.build_support", "cli.demo", "cli.visualize_features",
+                                    "ops.quant", "pipelines.quant_calib", "utils.events"])
 def test_new_module_imports_alone(module):
     """The yaml reader, DLA and BiFPN, the checkpoint converter, the debug
-    overlays and the workflow's CLIs import with none of jax, flax, yaml,
-    cv2 or PIL present (the card's machine has no PyYAML, cv2 or PIL); the
-    reader reads the reference's configs there."""
+    overlays, the workflow's CLIs, the int8 ops, the calibration and the
+    event logger import with none of jax, flax, yaml, cv2 or PIL present
+    (the card's machine has no PyYAML, cv2 or PIL); the reader reads the
+    reference's configs there."""
     out = _run_blocked(("jax", "jaxlib", "flax", "optax", "faster_orefsdet_tpu", "yaml", "cv2", "PIL"), f"""
         import importlib
         importlib.import_module("faster_orefsdet_tpu_torch.{module}")
@@ -211,3 +213,29 @@ def test_wrappers_validate_cuda_inputs(monkeypatch):
         nms_cuda.nms_mask(boxes[..., :3].contiguous(), scores, valid, 0.5)
     with pytest.raises(ValueError, match="valid must be"):
         nms_cuda.nms_mask(boxes, scores, valid.float(), 0.5)
+
+
+@pytest.mark.parametrize("name", ["serving_vovnet_int8", "serving_vovnet_int8_static", "serving_vovnet_int8_resident"])
+def test_quantized_detector_runs_without_jax(name):
+    """Each quantized preset's detector is built, calibrated and served on
+    the CPU in an interpreter where jax, flax and the JAX package cannot be
+    imported."""
+    out = _run_blocked(("jax", "jaxlib", "flax", "optax", "orbax", "faster_orefsdet_tpu", "yaml"), f"""
+        import torch
+        from faster_orefsdet_tpu_torch.config import get_config
+        from faster_orefsdet_tpu_torch.pipelines.inference import build_inference_fn
+        from faster_orefsdet_tpu_torch.pipelines.quant_calib import calibrate_act_scales
+        from faster_orefsdet_tpu_torch.pipelines.support_cache import SupportCache
+        from faster_orefsdet_tpu_torch.utils.params import init_params
+
+        cfg = get_config("{name}").replace(compute_dtype="float32")
+        sd = init_params(cfg, seed=0)
+        images = torch.randn(2, 3, 64, 96)
+        scales = None if cfg.quantize == "int8" else calibrate_act_scales(cfg, sd, images, device="cpu")
+        cache = SupportCache(*(torch.zeros(s, s, 128) for s in (32, 16, 8, 8, 4)))
+        det = build_inference_fn(cfg, sd, device="cpu", act_scales=scales)(cache, images[0], (64.0, 96.0))
+        assert det.boxes.shape == (64, 4) and torch.isfinite(det.boxes).all() and det.valid.any()
+        loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not loaded, loaded
+        """)
+    assert out.returncode == 0, out.stderr
