@@ -140,7 +140,26 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    batch-8 request (device busy, idle share) and its int8 work piece by
    piece (GEMMs, im2col, the quantize and dequant passes, each a CUDA-graph
    replay on the request's own operands); serving_vovnet_fast in bf16 timed
-   and profiled the same way as the yardstick.
+   and profiled the same way as the yardstick;
+18. data parallel over n = min(cards, 4) cards: make_mesh(cards + 1)
+   refused; make_sharded_serving on phase 6's 8 VGA frames (serving_vovnet)
+   against one card's build_serving_fn: each card's share bit for bit
+   against card 0 serving the same frames (at n = 1 the whole batch; at
+   n > 1 the batch in f32 against one card's batch of 8 by phase 5's
+   criteria is printed, not held: it measures the batch's effect on
+   cuDNN); 3n CGM and 2n NMS launches; images/s at n and at 1 (host clock, each
+   call ending in a sync); evaluate_sharded
+   on phase 10's 16 frames, 8 / n a card, against evaluate at batch 8 / n
+   (the same batches: the AP table equal); finetune_vovnet data-parallel
+   training at full width (TF32 off, no dropout, ROI sampling on): two
+   ranks on cuda:0 over gloo with a global batch of 2 for 4 steps, and, with
+   two cards or more, one NCCL rank a card with a global batch of n (else a
+   line says why not), each rank a spawned process, cuDNN deterministic on
+   both sides (its default backward differs run to run): every metric within
+   1e-3 of one process over the same global batches at every step, the
+   ranks' weights bit for bit equal after every step, 1 NMS launch a step a
+   rank (reported back by the ranks), each rank's step ms and the ms of
+   the all-reduce of a flat buffer the size of the step's.
 
 Each result is one JSON line. The line before the last holds the kernels'
 table; the last line is {"ok": true, "device": {...}}. Run without the
@@ -219,6 +238,12 @@ QUANT_YARDSTICK = "serving_vovnet_fast"  # the int8 presets are this preset plus
 QUANT_CALIB_FRAMES = 8
 QUANT_GEMMS = 25  # the int8 convs of a request: 3 stem, 4 stages x (3 + concat), 6 FPN
 FAST_ROI_K = 64  # serving_vovnet_fast's post_nms_topk_test: K2's ROI site at [B, 64]
+# phase 18, data parallel
+DP_MAX_CARDS = 4  # the widest mesh phase 18 drives
+DP_SERVE_BATCH, DP_SERVE_ITERS = 8, 20  # phase 6's VGA frames, one sharded call each
+DP_TRAIN_STEPS = 4
+DP_ALLREDUCE_ITERS = 20
+DP_RANKS_TIMEOUT_S = 300
 # the train step's named ranges; the last two are torch.optim's own. Autograd
 # launches the backward's kernels from its own thread, outside "backward".
 TRAIN_STAGES = ("features", "refine_support", "correlate", "proposal_head", "targets", "decode_proposals",
@@ -1928,6 +1953,251 @@ def phase_quant(torch, np, smi):
     return {"launches": launches, "pinned_replays": replayed, "roi_site": roi_site, "timed": timed}
 
 
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_train_rank(rank, world, device, cfg, params, batches):
+    """One rank of phase 18's training (spawned): TF32 off and cuDNN
+    deterministic (its default backward sums with atomics, so that two runs
+    of one step differ: phase 14), replicate rank 0's state, DP_TRAIN_STEPS data-parallel steps on this rank's rows of the
+    global batches with the kernels' launches counted (0 just before, read
+    just after), each step timed on the host's clock ending in a sync, the
+    weights' digest after each step; then the all-reduce of a flat f32
+    buffer the size of the step's (gradients, running statistics, metrics)
+    timed alone."""
+    import torch
+    import torch.distributed as dist
+
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
+    from faster_orefsdet_tpu_torch.parallel import build_dp_train_step, replicate_state, shard_batch
+    from faster_orefsdet_tpu_torch.pipelines.train_step import build_train_state
+    from faster_orefsdet_tpu_torch.utils.params import is_batch_stat
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    state = build_train_state(cfg, params, device=device)
+    replicate_state(state)
+    step = build_dp_train_step(cfg, deterministic=True)
+    shards = [shard_batch(b, rank, world).to(device) for b in batches]
+    rows, digests, times = [], [], []
+
+    def run():
+        for b in shards:
+            torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            m = step(state, b)
+            torch.cuda.synchronize(device)
+            times.append((time.perf_counter() - t) * 1e3)
+            rows.append({k: float(v) for k, v in m.items()})
+            digests.append(_digest(state.model.state_dict().values()))
+
+    torch.cuda.synchronize(device)
+    cgm_cuda.counter.launches = nms_cuda.counter.launches = 0
+    run()
+    torch.cuda.synchronize(device)
+    launches = {"cgm": cgm_cuda.counter.launches, "nms": nms_cuda.counter.launches}
+    numel = sum(p.numel() for p in state.model.parameters() if p.grad is not None)
+    numel += sum(v.numel() for k, v in state.model.state_dict().items() if is_batch_stat(k))
+    numel += len(rows[0])
+    flat = torch.zeros(numel, device=device)
+    ar = []
+    for i in range(DP_ALLREDUCE_ITERS + 3):
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize(device)
+        if i >= 3:
+            ar.append((time.perf_counter() - t) * 1e3)
+    return {"rows": rows, "digests": digests, "step_ms": times, "launches": launches,
+            "allreduce_numel": numel, "allreduce_ms": ar, "backend": dist.get_backend(), "device": str(device)}
+
+
+def dp_train_run(torch, np, cfg, params, batches, world, device, backend, reference, smi, what):
+    """phase 18's training over `world` ranks against the one-process run
+    `reference` (its metrics rows on the same global batches): every metric
+    within TRAIN_LOSS_RTOL at every step, the ranks' weights bit for bit
+    equal after every step. Returns the ranks' K2 launches."""
+    import tempfile
+
+    from faster_orefsdet_tpu_torch.parallel.mesh import spawn_ranks
+
+    host = [b.to("cpu") for b in batches]
+    torch.cuda.synchronize()  # the copies to the host are asynchronous
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(dp_train_rank, world, (cfg, params, host), init_method=f"file://{tmp}/store",
+                            device=device, backend=backend, timeout=DP_RANKS_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    worst, where = 0.0, None
+    for i, ref in enumerate(reference):
+        for r in ranks:
+            for k, v in ref.items():
+                err = abs(r["rows"][i][k] - v) / max(abs(v), 1e-12)
+                if err > worst:
+                    worst, where = err, (i, k)
+    same = all(r["digests"] == ranks[0]["digests"] for r in ranks)
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ("cgm", "nms")}
+    emit(dp_train={"run": what, "ranks": world, "backend": ranks[0]["backend"],
+                   "devices": [r["device"] for r in ranks], "steps": len(reference),
+                   "global_batch": cfg.solver.ims_per_batch, "canvas": list(TRAIN_CANVAS),
+                   "worst_metric_rel_err_vs_one_rank": worst, "at": where, "rtol": TRAIN_LOSS_RTOL,
+                   "replicas_bit_identical_every_step": same,
+                   "step_ms_median_per_rank": [statistics.median(r["step_ms"][1:]) for r in ranks],
+                   "step_ms_first": [r["step_ms"][0] for r in ranks],
+                   "allreduce_ms_median_per_rank": [statistics.median(r["allreduce_ms"]) for r in ranks],
+                   "allreduce_bytes": 4 * ranks[0]["allreduce_numel"], "launches": launches,
+                   "total_loss": [r["rows"][-1]["total_loss"] for r in ranks], "spawn_to_end_s": wall_s,
+                   "card": smi})
+    if worst > TRAIN_LOSS_RTOL or not same:
+        raise AssertionError(f"{what}: ranks vs one rank {worst:.3e} at {where}, replicas equal: {same}")
+    if launches != {"cgm": 0, "nms": world * len(reference)}:
+        raise AssertionError(f"{what}: kernel launches {launches} (expected 0 CGM, 1 NMS a step a rank)")
+    return launches
+
+
+def dp_reference(torch, cfg, params, batches):
+    """The one-process run over the global batches (TF32 off, cuDNN
+    deterministic as in the ranks, no dropout): its metrics rows."""
+    from faster_orefsdet_tpu_torch.pipelines.train_step import build_train_state, build_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    prev, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, True
+    try:
+        state, step = build_train_state(cfg, params), build_train_step(cfg, deterministic=True)
+        rows = [{k: float(v) for k, v in step(state, b).items()} for b in batches]
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    del state
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_dp(torch, np, cfg, params, cache, frames_u8, smi):
+    """Data parallelism: sharded serving and sharded eval over
+    min(cards, DP_MAX_CARDS) cards against one card, make_mesh's refusal,
+    finetune_vovnet data-parallel training by two gloo ranks on cuda:0 and,
+    where there are two cards or more, by one NCCL rank a card, each against
+    one process over the same global batches."""
+    from faster_orefsdet_tpu_torch.config import get_config
+    from faster_orefsdet_tpu_torch.data.loader import train_loader
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
+    from faster_orefsdet_tpu_torch.parallel import make_mesh, make_sharded_serving
+    from faster_orefsdet_tpu_torch.parallel.eval_dp import evaluate_sharded
+    from faster_orefsdet_tpu_torch.pipelines.evaluate import encode_support_set, evaluate
+    from faster_orefsdet_tpu_torch.pipelines.inference import build_serving_fn, pack_detections, unpack_detections_np
+    from faster_orefsdet_tpu_torch.pipelines.support_cache import build_support_cache
+    from faster_orefsdet_tpu_torch.utils.params import init_params
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    n = min(count, DP_MAX_CARDS)
+    try:
+        make_mesh(count + 1)
+    except ValueError as e:
+        emit(dp_mesh={"visible": count, "refused": f"make_mesh({count + 1})", "error": str(e)[:90]})
+    else:
+        raise AssertionError(f"make_mesh({count + 1}) did not refuse {count} visible card(s)")
+    mesh = make_mesh(n)
+    torch.backends.cudnn.allow_tf32 = False  # the comparisons, as phases 3-10
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # ---- (a) sharded serving against one card: each card's share bit for
+    # bit against card 0 serving the same frames (at n = 1 the whole batch)
+    frames = frames_u8[:DP_SERVE_BATCH].cuda()
+    sharded, canvas = make_sharded_serving(cfg, params, FRAME_HW, mesh, cache)
+    single, _ = build_serving_fn(cfg, params, FRAME_HW)
+    out = {}
+    serve_launches = count_launches(cgm_cuda, nms_cuda, lambda: out.update(det=sharded(frames)))
+    share = DP_SERVE_BATCH // n
+    shares_equal = [all(torch.equal(a[i * share:(i + 1) * share], b)
+                        for a, b in zip(out["det"], single(cache, frames[i * share:(i + 1) * share])))
+                    for i in range(n)]
+    check = {"shares_bit_identical_to_card0": shares_equal}
+    ok = all(shares_equal)
+    if n > 1:
+        # reported, not held: the batch in f32 against one card's batch of 8
+        # by phase 5's criteria. That compares batch 8 with batch 8 / n on
+        # one card (the shares are bit for bit card 0's): cuDNN picks its
+        # convolutions by the batch, and on noise frames a random model's
+        # near-tied proposals swap at the top-k boundary
+        cfg32 = cfg.replace(compute_dtype="float32")
+        sup32, box32 = support_inputs(torch, np, cfg32, 5, np.random.default_rng(2))
+        cache32 = build_support_cache(cfg32, params, sup32, box32)
+        got = make_sharded_serving(cfg32, params, FRAME_HW, mesh, cache32)[0](frames)
+        ref = build_serving_fn(cfg32, params, FRAME_HW)[0](cache32, frames)
+        g, r = (unpack_detections_np(pack_detections(d)) for d in (got, ref))
+        check["f32_batch_effect_reported"] = [match(np, {k: v[i] for k, v in g.items()},
+                                                    {k: v[i] for k, v in r.items()}, MATCH_DSCORE)
+                                              for i in range(DP_SERVE_BATCH)]
+    torch.backends.cudnn.allow_tf32 = True  # the library defaults for the times, as phase 11
+    at_n = request_times(torch, lambda: sharded(frames), DP_SERVE_ITERS)
+    at_1 = request_times(torch, lambda: single(cache, frames), DP_SERVE_ITERS)
+    emit(dp_serve={"config": "serving_vovnet", "frames": [DP_SERVE_BATCH, *FRAME_HW], "canvas": list(canvas),
+                   "cards": n, "visible": count, "launches": serve_launches, **check,
+                   "ms_median_at_n": at_n[0], "images_per_s_at_n": DP_SERVE_BATCH * 1e3 / at_n[0],
+                   "ms_median_at_1": at_1[0], "images_per_s_at_1": DP_SERVE_BATCH * 1e3 / at_1[0],
+                   "card": smi})
+    if not ok:
+        raise AssertionError(f"sharded serving over {n} card(s) differs from one card: {check}")
+    if serve_launches != {"cgm": 3 * n, "nms": 2 * n}:
+        raise AssertionError(f"sharded serving: kernel launches {serve_launches} over {n} card(s)")
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---- (b) sharded eval against one card at the cards' batch (the same
+    # batches of images: the same table)
+    records, entries, store = eval_data(np, cfg, EVAL_FRAMES, EVAL_SHOTS)
+    ecache = encode_support_set(cfg, params, entries, shot=EVAL_SHOTS, imread=store.get)
+    per_device = DP_SERVE_BATCH // n
+    ref_ap = evaluate(cfg, params, ecache, records, batch_size=per_device, imread=store.get)
+    res = {}
+    eval_launches = count_launches(cgm_cuda, nms_cuda, lambda: res.update(
+        evaluate_sharded(cfg, params, ecache, records, mesh, per_device_batch=per_device, imread=store.get)))
+    diff = max(abs(res[k] - ref_ap[k]) for k in AP_KEYS if not np.isnan(ref_ap[k])) if any(
+        not np.isnan(ref_ap[k]) for k in AP_KEYS) else 0.0
+    same_nan = all(np.isnan(res[k]) == np.isnan(ref_ap[k]) for k in AP_KEYS)
+    requests = -(-len(records) // DP_SERVE_BATCH)
+    emit(dp_eval={"frames": len(records), "cards": n, "per_device_batch": per_device,
+                  "sharded": {k: res[k] for k in AP_KEYS}, "one_card": {k: ref_ap[k] for k in AP_KEYS},
+                  "max_abs_diff": diff, "launches": eval_launches, "card": smi,
+                  "note": "random weights: the values check the loop, not the detector"})
+    if not same_nan or diff > 0.0:
+        raise AssertionError(f"evaluate_sharded over {n} card(s) vs evaluate: {res} vs {ref_ap}")
+    if eval_launches != {"cgm": 3 * n * requests, "nms": 2 * n * requests}:
+        raise AssertionError(f"evaluate_sharded: kernel launches {eval_launches}")
+
+    # ---- (c) training, two gloo ranks on one card; (d) one NCCL rank a card
+    tcfg = get_config(TRAIN_CONFIG)
+    tparams = init_params(tcfg, seed=0)
+    records, mapper = train_data(tcfg)
+    launches = {k: serve_launches[k] + eval_launches[k] for k in serve_launches}
+    runs = [("one_card_gloo", 2, "cuda:0", "gloo")]
+    if count >= 2:
+        runs.append(("cards_nccl", n, "cuda", None))
+    else:
+        emit(dp_train={"run": "cards_nccl", "ran": False,
+                       "why": f"{count} card visible: NCCL across cards needs two or more", "card": smi})
+    for what, world, device, backend in runs:
+        wcfg = tcfg.replace(solver=dataclasses.replace(tcfg.solver, ims_per_batch=world))
+        loader = train_loader(records, mapper, world, seed=3)
+        try:
+            batches = [next(loader) for _ in range(DP_TRAIN_STEPS)]
+        finally:
+            loader.close()
+        reference = dp_reference(torch, wcfg, tparams, batches)
+        got = dp_train_run(torch, np, wcfg, tparams, batches, world, device, backend, reference, smi, what)
+        launches = {k: launches[k] + got[k] for k in launches}
+    torch.backends.cudnn.allow_tf32 = True
+    emit(dp_phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def request_times(torch, fn, iters):
     """(median, min, max) ms of fn() by the host's clock, each call ending
     in a sync, after 3 warm-up calls."""
@@ -2246,18 +2516,21 @@ def main() -> int:
     # ---- 17. the quantized serving presets at full width
     quant = phase_quant(torch, np, smi)
 
+    # ---- 18. data parallel: sharded serving and eval, training by ranks
+    dp_launches = phase_dp(torch, np, cfg, params, cache, torch.from_numpy(frames), smi)
+
     # launches counted by the wrappers on each eager path; the pinned path's
     # and the graphed train steps' from their graphs' captured launches times
     # their replays (phases 7, 14, 15 and 17), plus the K-step function's eager
-    # warm-up steps
+    # warm-up steps; phase 18's training ranks count theirs and report them
     by_path = {"main": launches, "raw_frames": raw_launches, "multiclass": multi_launches,
                "pinned_replays": pinned_launches, "train": train["launches"], "train_graphed": graphed["launches"],
                "dla_train": dla["train_launches"], "dla_train_graphed": dla["graphed_launches"],
                "dla_eval": dla["eval_launches"], "workflow_glob": workflow["glob_launches"],
                "workflow_dla_c160": workflow["dla_launches"], "quant": quant["launches"],
-               "quant_pinned_replays": quant["pinned_replays"]}
+               "quant_pinned_replays": quant["pinned_replays"], "dp": dp_launches}
     eager_paths = ("main", "raw_frames", "multiclass", "train", "dla_train", "dla_eval", "workflow_glob",
-                   "workflow_dla_c160", "quant")
+                   "workflow_dla_c160", "quant", "dp")
     counted = {k: sum(by_path[p][k] for p in eager_paths) for k in ("cgm", "nms")}
     common = {"route": "cuda", "library_ms": None}
     emit(kernels=[

@@ -9,7 +9,7 @@ Usage:
       [--config serving_vovnet_int8_static --calib-glob 'calib/*.png']
   python -m faster_orefsdet_tpu_torch.cli.demo --video-input clip.mp4 \\
       --output results/clip_out.mp4 --support-index support_index.json \\
-      [--frame-batch 8]
+      [--frame-batch 8] [--num-devices N]
   python -m faster_orefsdet_tpu_torch.cli.demo --webcam \\
       --output results/webcam.mp4 --max-frames 100 --support-index ...
 
@@ -19,8 +19,10 @@ draw the boxes and print the timings. Images go one at a time through
 ``build_inference_fn`` (batch 1), or with --parallel through
 ``AsyncPredictor`` (pinned CUDA-graph replays, host work overlapped). Video
 frames go --frame-batch at a time through ``build_serving_fn`` (raw frames
-resized on the device; the tail batch padded with its first frame), or one
-at a time at --frame-batch 1 (--parallel: through ``AsyncPredictor``).
+resized on the device; the tail batch padded with its first frame), split
+over --num-devices cards by ``parallel.make_sharded_serving`` when it is
+above 1, or one at a time at --frame-batch 1 (--parallel: through
+``AsyncPredictor``).
 --debug also writes each image's per-level heatmap overlays
 (``utils.debug_vis.debug_test``). --params reads a params .npz of either
 package (random weights from seed 0 without it). The int8_static and
@@ -57,7 +59,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="video/webcam frames per request through the raw-frame serving function (resize and "
                         "normalization on the device); 1 = per frame")
     p.add_argument("--max-frames", type=int, default=0, help="stop video/webcam after N frames (0 = whole stream)")
-    p.add_argument("--num-devices", type=int, default=1, help="data-parallel serving: not ported (must be 1)")
+    p.add_argument("--num-devices", type=int, default=1,
+                   help=">1 shards --frame-batch over a device mesh (parallel.serve_dp data-parallel serving; "
+                        "frame-batch must be divisible by it)")
     p.add_argument("--parallel", action="store_true",
                    help="AsyncPredictor for globs and per-frame video (--frame-batch 1): pinned CUDA-graph "
                         "replays with host preprocessing and readbacks overlapped (predictor.py:150-238)")
@@ -147,8 +151,14 @@ def cv2_media() -> Media:
 
 def check_args(args: argparse.Namespace) -> None:
     """Flag combinations that cannot run fail before any model work."""
-    if args.num_devices != 1:
-        raise SystemExit("--num-devices: data-parallel serving is not ported yet; the port serves on one card")
+    if args.parallel and args.num_devices > 1:
+        raise SystemExit("--parallel (AsyncPredictor, single-device pinned graphs) and --num-devices > 1 (DP "
+                         "serving) are mutually exclusive")
+    if args.num_devices > 1 and not ((args.video_input or args.webcam) and args.frame_batch > 1):
+        raise SystemExit("--num-devices > 1 is DP video serving and requires --video-input/--webcam with "
+                         "--frame-batch > 1 (the image-glob and per-frame paths are single-device)")
+    if args.num_devices > 1 and args.frame_batch % args.num_devices:
+        raise SystemExit(f"--frame-batch {args.frame_batch} not divisible by --num-devices {args.num_devices}")
     if args.parallel and (args.video_input or args.webcam) and args.frame_batch > 1:
         raise SystemExit("--parallel drives per-frame video only: pass --frame-batch 1 (or drop --parallel to "
                          "use the batched raw-frame serving function)")
@@ -245,9 +255,20 @@ def run(args: argparse.Namespace, media: Media) -> int:
         if fb > 1:
             # raw frames in, boxes in frame coordinates out: resize,
             # normalization and the query path on the device, fb frames a call
-            from ..pipelines.inference import build_serving_fn
+            if args.num_devices > 1:
+                # data-parallel: the frames split over the mesh, a replica of
+                # the weights and the cache on each device
+                from ..parallel import make_mesh, make_sharded_serving
 
-            serve, _ = build_serving_fn(cfg, params, (h, w), device=dev, act_scales=act_scales)
+                sharded, _ = make_sharded_serving(cfg, params, (h, w), make_mesh(args.num_devices, dev), cache,
+                                                  act_scales=act_scales)
+
+                def serve(cache, frames):
+                    return sharded(frames)
+            else:
+                from ..pipelines.inference import build_serving_fn
+
+                serve, _ = build_serving_fn(cfg, params, (h, w), device=dev, act_scales=act_scales)
             buf: List[np.ndarray] = []
 
             def flush():

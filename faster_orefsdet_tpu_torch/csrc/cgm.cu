@@ -62,9 +62,30 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include <type_traits>
 
 namespace {
+
+constexpr int MAX_DEVICES = 64;
+
+// Opt `kernel` into `smem` bytes of dynamic shared memory on the current
+// device. The attribute holds for one device, so it is set on each device's
+// first call (which is never captured into a graph: the callers warm up).
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, size_t smem, std::atomic<bool> (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!done[dev].load()) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    done[dev].store(true);
+  }
+  return cudaSuccess;
+}
 
 constexpr int C = 128;
 constexpr int DEPTH = 2 * C;        // projection depth
@@ -340,9 +361,8 @@ cudaError_t launch(const T* q, const float* k1, const float* k13, const float* k
                    int B, int H, int W, int sms, cudaStream_t s) {
   constexpr int TM = 16 * MT;
   constexpr size_t smem = sizeof(float) * (C + 2 * TM) * STRIDE;
-  // set once per process, before any capture (the first call is never captured)
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(cgm_kernel<T, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<bool> opted[MAX_DEVICES];
+  const cudaError_t attr = opt_in_smem(cgm_kernel<T, MT>, smem, opted);
   if (attr != cudaSuccess) return attr;
   const int tiles = (B * H * W + TM - 1) / TM;
   cgm_kernel<T, MT><<<tiles < sms ? tiles : sms, THREADS, smem, s>>>(
@@ -510,9 +530,8 @@ template <typename T>
 cudaError_t launch_any(const T* q, const float* k1, const float* k13, const float* k31,
                        const float* w3, const float* b3, void* out, int out_bf16,
                        int B, int H, int W, int C, cudaStream_t s) {
-  // set once per process, before any capture (the first call is never captured)
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      cgm_any_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(ANY_SMEM));
+  static std::atomic<bool> opted[MAX_DEVICES];
+  const cudaError_t attr = opt_in_smem(cgm_any_kernel<T>, ANY_SMEM, opted);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((B * H * W + ANY_TM - 1) / ANY_TM, (C + ANY_N - 1) / ANY_N);
   cgm_any_kernel<T><<<grid, ANY_THREADS, ANY_SMEM, s>>>(q, k1, k13, k31, w3, b3, out, out_bf16, B, H, W, C);
@@ -542,7 +561,7 @@ extern "C" int cgm_forward(const void* q, int q_is_bf16, const void* k1,
                            const void* k13, const void* k31, const void* w3,
                            const void* b3, void* out, int out_bf16, int B, int H,
                            int W, int channels, void* stream) {
-  static const int sms = sm_count();
+  const int sms = sm_count();  // of the current device
   if (channels <= 0 || channels > 65535 * ANY_N || B <= 0 || H <= 0 || W <= 0 ||
       (long long)B * H * W > (1ll << 30) || (long long)B * H * W * channels > (1ll << 40))
     return static_cast<int>(cudaErrorInvalidValue);

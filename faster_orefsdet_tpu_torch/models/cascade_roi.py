@@ -101,7 +101,8 @@ def label_proposals(boxes: torch.Tensor, slot_valid: torch.Tensor, gt: GroundTru
 
 
 def subsample_proposals(generator: Optional[torch.Generator], prop_boxes: torch.Tensor,
-                        prop_valid: torch.Tensor, gt: GroundTruth, cfg: ROIConfig):
+                        prop_valid: torch.Tensor, gt: GroundTruth, cfg: ROIConfig,
+                        rows: Optional[Tuple[int, int]] = None):
     """label_and_sample_proposals with PROPOSAL_APPEND_GT, batched: append
     the gt boxes to the proposals, match at cascade_ious[0], then take
     `batch_size_per_image` of them, at most `positive_fraction` positive.
@@ -109,6 +110,11 @@ def subsample_proposals(generator: Optional[torch.Generator], prop_boxes: torch.
     device); positives and negatives are ranked by it separately and the
     first num_pos / num_neg of each kept, then the selection is compacted
     into exactly `batch_size_per_image` slots.
+
+    rows = (first, total): the keys are drawn for the `total` images of a
+    global batch, and these B images keep rows first .. first + B of them
+    (a data-parallel rank's share: N ranks then draw what one rank draws
+    over the global batch).
 
     Returns (boxes [B, R, 4], class targets [B, R] int64 (num_classes =
     background), box targets [B, R, 4], slot_valid [B, R])."""
@@ -118,7 +124,9 @@ def subsample_proposals(generator: Optional[torch.Generator], prop_boxes: torch.
 
     batch = cfg.batch_size_per_image
     max_pos = int(batch * cfg.positive_fraction)
-    r = torch.rand(boxes.shape[:2], generator=generator, device=boxes.device)
+    b, k = boxes.shape[:2]
+    first, total = rows or (0, b)
+    r = torch.rand((total, k), generator=generator, device=boxes.device)[first:first + b]
     two = torch.full_like(r, 2.0)
     neg = valid & ~fg
     # the rank of each positive among the positives, each negative among the negatives

@@ -123,13 +123,15 @@ def centernet_losses(
     canvas_valid: torch.Tensor,
     *,
     num_pos_avg: torch.Tensor,
+    reg_norm: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """The proposal stage's training losses per image: agn_hms / bbox_regs
     as the head gives them, targets for the batch, canvas_valid [B, M] (the
     cells that exist in the reference), num_pos_avg the mean positive count
     (computed once by the caller). The localization loss is normalized by
-    each image's count of pixels with a regression target. Returns
-    {name: [B]}; the caller takes the mean over images."""
+    reg_norm (a scalar or [B], e.g. a mean count over data-parallel ranks),
+    by default each image's own count of pixels with a regression target.
+    Returns {name: [B]}; the caller takes the mean over images."""
     b = agn_hms[0].shape[0]
     agn_flat = at_least_f32(torch.cat([h.reshape(b, -1) for h in agn_hms], dim=1))
     reg_flat = at_least_f32(torch.cat([r.permute(0, 2, 3, 1).reshape(b, -1, 4) for r in bbox_regs], dim=1))
@@ -139,7 +141,9 @@ def centernet_losses(
     weights = reg_valid.float()
     reg_losses = iou_loss_ltrb(reg_flat.clamp(min=0.0), targets.reg_targets.clamp(min=0.0), weights,
                                loss_type=cfg.loc_loss_type)
-    loss_loc = cfg.reg_weight * reg_losses.sum(-1) / weights.sum(-1).clamp(min=1.0)
+    if reg_norm is None:
+        reg_norm = weights.sum(-1).clamp(min=1.0)
+    loss_loc = cfg.reg_weight * reg_losses.sum(-1) / reg_norm
 
     pos_sum, neg_sum = binary_heatmap_focal_loss(
         agn_flat, targets.heatmap, targets.pos_inds, targets.pos_mask, canvas_valid,

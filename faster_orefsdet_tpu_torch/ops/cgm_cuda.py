@@ -77,12 +77,13 @@ def _launch(q, k1, k13, k31, w3, b3, out_dtype) -> torch.Tensor:
             raise ValueError(f"cgm_correlate_fused: {name} must be contiguous and 16-byte aligned")
     out = torch.empty((b, h, w, c), dtype=out_dtype, device=q.device)
     lib = _native.library("cgm")
-    rc = lib.cgm_forward(
-        q.data_ptr(), int(q.dtype == torch.bfloat16), k1.data_ptr(), k13.data_ptr(),
-        k31.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), b, h, w, c,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with torch.cuda.device(q.get_device()):  # the runtime launches on its current device
+        rc = lib.cgm_forward(
+            q.data_ptr(), int(q.dtype == torch.bfloat16), k1.data_ptr(), k13.data_ptr(),
+            k31.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), b, h, w, c,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _native.check(lib, rc, "cgm_correlate_fused")
     counter.launches += 1
     return out

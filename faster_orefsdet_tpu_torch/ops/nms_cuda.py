@@ -78,10 +78,11 @@ def _launch(boxes, scores, valid, thr: float) -> torch.Tensor:
         raise ValueError(f"nms_mask: [{b}, {k}] boxes need a {nbytes}-byte workspace (their suppression "
                          f"mask), more than {boxes.device} can allocate") from e
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
-    rc = lib.nms_forward(
-        boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), thr, b, k,
-        workspace.data_ptr(), keep.data_ptr(), torch.cuda.current_stream(boxes.device).cuda_stream,
-    )
+    with torch.cuda.device(boxes.get_device()):  # the runtime launches on its current device
+        rc = lib.nms_forward(
+            boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), thr, b, k,
+            workspace.data_ptr(), keep.data_ptr(), torch.cuda.current_stream(boxes.device).cuda_stream,
+        )
     _native.check(lib, rc, "nms_mask")
     counter.launches += 1
     return keep

@@ -48,6 +48,17 @@ def encode_support_set(cfg: Config, params: Mapping[str, torch.Tensor], entries:
     return build_support_cache(cfg, params, images, torch.tensor(boxes, dtype=torch.float32), device=device)
 
 
+def add_image(evaluator: COCOEvaluator, rec: ImageRecord, boxes: np.ndarray, scores: np.ndarray, valid: np.ndarray,
+              scale: Tuple[float, float]) -> None:
+    """Feed one image's detections (canvas coordinates, scaled back to the
+    record's by scale = (sy, sx)) and its ground truth to the evaluator."""
+    sy, sx = scale
+    evaluator.process(rec.image_id, boxes[valid] * np.asarray([sx, sy, sx, sy]), scores[valid])
+    gt_boxes = np.asarray([a.bbox for a in rec.annotations], float).reshape(-1, 4)
+    iscrowd = np.asarray([a.iscrowd for a in rec.annotations], bool)
+    evaluator.add_ground_truth(rec.image_id, gt_boxes, iscrowd)
+
+
 def evaluate(cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCache,
              records: Sequence[ImageRecord], canvas_hw: Optional[Tuple[int, int]] = None,
              batch_size: int = 1, *, imread: Optional[Imread] = None, device="cuda",
@@ -75,13 +86,6 @@ def evaluate(cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCach
     evaluator = COCOEvaluator()
     times: List[float] = []
 
-    def process(rec, boxes, scores, valid, scale):
-        sy, sx = scale
-        evaluator.process(rec.image_id, boxes[valid] * np.asarray([sx, sy, sx, sy]), scores[valid])
-        gt_boxes = np.asarray([a.bbox for a in rec.annotations], float).reshape(-1, 4)
-        iscrowd = np.asarray([a.iscrowd for a in rec.annotations], bool)
-        evaluator.add_ground_truth(rec.image_id, gt_boxes, iscrowd)
-
     def timed(request):
         t0 = time.perf_counter()
         det = request()
@@ -98,7 +102,7 @@ def evaluate(cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCach
             (boxes, scores, valid), dt = timed(lambda: infer(cache, canvases, hws))
             times.append(dt / batch_size)
             for j, (rec, _, _, scale) in enumerate(buf):
-                process(rec, boxes[j], scores[j], valid[j], scale)
+                add_image(evaluator, rec, boxes[j], scores[j], valid[j], scale)
 
         buf: List = []
         for item in eval_loader(records, cfg, canvas_hw, raw_uint8=True, imread=imread):
@@ -113,7 +117,7 @@ def evaluate(cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCach
         for rec, canvas, hw, scale in eval_loader(records, cfg, canvas_hw, imread=imread):
             (boxes, scores, valid), dt = timed(lambda: infer(cache, canvas, hw))
             times.append(dt)
-            process(rec, boxes, scores, valid, scale)
+            add_image(evaluator, rec, boxes, scores, valid, scale)
 
     results = evaluator.evaluate()
     times = times[1:]

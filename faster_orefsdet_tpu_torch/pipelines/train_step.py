@@ -33,6 +33,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..config import Config
@@ -79,6 +80,16 @@ def prepare_batch(batch: TrainBatch, cfg: Config) -> TrainBatch:
     return batch._replace(images=images, support_images=sup)
 
 
+class Replica(NamedTuple):
+    """This process's share of a data-parallel step (``parallel.train_dp``),
+    the counterpart of the JAX package's axis_name: rank `rank` of `world`,
+    and the generator of this rank's own dropout draws."""
+
+    rank: int
+    world: int
+    dropout: torch.Generator
+
+
 def loss_fn(
     model: CenterNet2Detector,
     batch: TrainBatch,
@@ -86,6 +97,7 @@ def loss_fn(
     *,
     deterministic: bool = False,
     injected_rois: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    dp: Optional[Replica] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, {loss name: scalar}) of one batch under model.cfg.
 
@@ -93,7 +105,14 @@ def loss_fn(
     deterministic=True turns the dropout off; injected_rois=(boxes [B, R, 4],
     valid [B, R]) replaces the proposal decode and the random ROI sampling
     by a fixed set, labelled by the stage-0 matcher like a sampled one (the
-    hooks of the JAX package's loss_fn, for parity)."""
+    hooks of the JAX package's loss_fn, for parity).
+
+    dp: `batch` is rank dp.rank's rows of a global batch of dp.world times
+    as many. The positive count that normalizes the heatmap losses is then
+    summed over the ranks (an all-reduce in the process group); the ROI
+    sampling keys are drawn from `generator` (replicated) at the global
+    batch's shape and the rank keeps its rows, so that N ranks draw what one
+    rank draws over the global batch; the dropout draws from dp.dropout."""
     cfg = model.cfg
     cn, roi = cfg.centernet, cfg.roi
     batch = prepare_batch(batch, cfg)
@@ -120,7 +139,7 @@ def loss_fn(
     sup8_mean, sup4_mean = pool(roi.pooler_resolution), pool(roi.pooler_resolution2)
 
     with record_function("refine_support"):
-        refined = model.refine_support(sfeats, None if deterministic else generator)
+        refined = model.refine_support(sfeats, None if deterministic else (dp.dropout if dp else generator))
         kernels = {level: support_kernels(v.reshape(b, s, *v.shape[1:])[:, :shot].mean(dim=1))
                    for level, v in refined.items()}
     with record_function("correlate"):
@@ -138,7 +157,10 @@ def loss_fn(
                                        more_pos_thresh=cn.more_pos_thresh, loc_loss_type=cn.loc_loss_type)
             targets = targets._replace(pos_inds=inds, pos_mask=mask)
         canvas_valid = _level_valid_mask(canvas_hw, strides, batch.image_hw)
-        num_pos_avg = (targets.pos_mask.sum() / b).clamp(min=1.0)
+        total_pos, world = targets.pos_mask.sum(), dp.world if dp else 1
+        if world > 1:  # the reference's reduce_sum of num_pos over the data-parallel group
+            dist.all_reduce(total_pos)
+        num_pos_avg = (total_pos / world / b).clamp(min=1.0)
     losses = {k: v.mean() for k, v in centernet_losses(agn_hms, bbox_regs, targets, cn, canvas_valid,
                                                        num_pos_avg=num_pos_avg).items()}
 
@@ -149,8 +171,9 @@ def loss_fn(
             proposals = decode_proposals([h.detach() for h in agn_hms], [r.detach() for r in bbox_regs], cn,
                                          canvas_hw, batch.image_hw, training=True)
         with record_function("roi_sampling"):
-            boxes, cls_t, box_t, slot_valid = subsample_proposals(generator, proposals.boxes, proposals.valid,
-                                                                  gt, roi)
+            boxes, cls_t, box_t, slot_valid = subsample_proposals(
+                generator, proposals.boxes, proposals.valid, gt, roi,
+                rows=(dp.rank * b, dp.world * b) if dp else None)
     else:
         boxes, slot_valid = injected_rois
         cls_t, box_t = label_proposals(boxes, slot_valid, gt, roi.cascade_ious[0], roi.num_classes)

@@ -220,7 +220,7 @@ def test_demo_parallel_matches_jax(workflow, supports, glob_runs):
 
 
 def test_demo_refuses_what_is_not_ported():
-    for flags, match in ((["--num-devices", "2"], "not ported"),
+    for flags, match in ((["--num-devices", "2"], "requires --video-input/--webcam"),
                          (["--config", "serving_vovnet_int8_static", "--calib-glob", "x/*.png"],
                           "needs calibration images"),
                          (["--parallel", "--debug"], "sequential")):

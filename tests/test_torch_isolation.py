@@ -19,6 +19,9 @@ from faster_orefsdet_tpu_torch.pipelines import evaluate, inference, support_cac
 from faster_orefsdet_tpu_torch.data import loader
 from faster_orefsdet_tpu_torch.pipelines import train_step
 from faster_orefsdet_tpu_torch.pipelines.async_predictor import AsyncPredictor
+from faster_orefsdet_tpu_torch.parallel import make_mesh, make_sharded_serving
+from faster_orefsdet_tpu_torch.parallel.eval_dp import evaluate_sharded
+from faster_orefsdet_tpu_torch.parallel.mesh import Mesh
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -81,11 +84,14 @@ def test_port_imports_without_jax():
 
 @pytest.mark.parametrize("module", ["config_yaml", "models.dla", "models.bifpn", "utils.torch_convert",
                                     "utils.debug_vis", "cli.build_support", "cli.demo", "cli.visualize_features",
-                                    "ops.quant", "pipelines.quant_calib", "utils.events"])
+                                    "ops.quant", "pipelines.quant_calib", "utils.events", "parallel",
+                                    "parallel.mesh", "parallel.train_dp", "parallel.serve_dp",
+                                    "parallel.eval_dp", "cli.train"])
 def test_new_module_imports_alone(module):
     """The yaml reader, DLA and BiFPN, the checkpoint converter, the debug
-    overlays, the workflow's CLIs, the int8 ops, the calibration and the
-    event logger import with none of jax, flax, yaml, cv2 or PIL present
+    overlays, the workflow's CLIs, the int8 ops, the calibration, the
+    event logger, the data-parallel package and the train command line
+    import with none of jax, flax, yaml, cv2 or PIL present
     (the card's machine has no PyYAML, cv2 or PIL); the reader reads the
     reference's configs there."""
     out = _run_blocked(("jax", "jaxlib", "flax", "optax", "faster_orefsdet_tpu", "yaml", "cv2", "PIL"), f"""
@@ -132,10 +138,14 @@ def _encode_support_set(cfg, sd):
     lambda cfg, sd: train_step.build_train_state(cfg, sd),
     lambda cfg, sd: loader.train_loader([], None, 1),
     lambda cfg, sd: loader.collate([]),
+    lambda cfg, sd: make_mesh(),
+    lambda cfg, sd: make_sharded_serving(cfg, sd, (480, 640), Mesh((torch.device("cuda", 0),)), None),
+    lambda cfg, sd: evaluate_sharded(cfg, sd, None, [], Mesh((torch.device("cuda", 0),))),
 ], ids=["make_detector", "build_inference_fn", "build_batched_inference_fn", "build_support_cache",
         "load_support_cache", "build_serving_fn", "build_pinned_inference_fn",
         "build_multiclass_inference_fn", "AsyncPredictor", "evaluate", "encode_support_set",
-        "make_train_model", "build_train_state", "train_loader", "collate"])
+        "make_train_model", "build_train_state", "train_loader", "collate", "make_mesh",
+        "make_sharded_serving", "evaluate_sharded"])
 def test_builders_default_to_the_card(builder, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
