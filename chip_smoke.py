@@ -159,7 +159,33 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    1e-3 of one process over the same global batches at every step, the
    ranks' weights bit for bit equal after every step, 1 NMS launch a step a
    rank (reported back by the ranks), each rank's step ms and the ms of
-   the all-reduce of a flat buffer the size of the step's.
+   the all-reduce of a flat buffer the size of the step's;
+19. the ResNet-50 family at full width, f32 weights (TF32 off for the
+   comparisons, TF32 convs for the timings): finetune_R_50_C4_1x (ResNet-50
+   + FPN, 9 shots, 4x4 pooler) served with use_pallas_cgm at 320x448, an
+   eager batch-1 and batch-8 request counted (3 CGM and 2 NMS launches a
+   request), each K1 call held against its plain twin and each K2 call bit
+   for bit on the request's own inputs, the pinned function against eager
+   at |dscore| <= 1e-5, card vs CPU by phase 5's criteria, request times
+   eager and pinned; trained at 448x608 on phase 13's frames: 2 + 4 eager
+   steps (0 CGM, 1 NMS launch a step, K2 bit for bit on a step's own
+   [1, 2048] decode set), one step card vs CPU by phase 13's criteria,
+   graphed (2 warm-up steps and a chunk of 2) against 4 eager steps bit for
+   bit under cudnn.deterministic, eager and graphed step ms, queries/s,
+   peak memory; mnv3_fpn (serving_vovnet with MobileNetV3-small) at batch 1,
+   3 CGM and 2 NMS launches, card vs CPU by phase 5's criteria; the
+   AttentionRPN baseline from Base-FSOD-C4.yaml: a 10-shot cache from 240
+   crops on 256x256 canvases card vs CPU (rtol 1e-3, atol 2e-4), a request
+   on a VGA frame resized to the yaml's test size (600x800 on a 608x800
+   canvas) with 2 NMS launches (the RPN's [1, 1000] at IoU 0.7, the final
+   class-aware [1, 100] at 0.5), each bit for bit on the request's own
+   inputs, card vs CPU by phase 5's criteria, the request's ms; one training
+   step (baseline_loss_fn + backward) card vs CPU with the same anchor draws
+   (a CPU generator) and injected ROIs, each loss within 1e-3 relative and
+   each gradient within 1e-3 of its tensor's largest, then 2 + 3 steps with
+   sgd_update (1 NMS launch a step, K2 bit for bit on a step's own [1, 2000]
+   set), step ms and peak memory. Each new K2 site is timed as phase 11
+   times its rows ("timing": "nms" lines named by site).
 
 Each result is one JSON line. The line before the last holds the kernels'
 table; the last line is {"ok": true, "device": {...}}. Run without the
@@ -186,6 +212,7 @@ PEAK_F32_FLOPS = 67e12      # f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12    # TF32 on the tensor cores, dense
 CGM_RTOL = CGM_ATOL = 1e-4  # f32 (3xTF32 on the card), 256-term sums in another order
 MATCH_IOU, MATCH_FRACTION, MATCH_DSCORE = 0.95, 0.85, 1e-3
+MATCH_PAD = 1e-2  # pixels: the width given to a box clipped to a line when it is matched
 PINNED_DSCORE = 1e-5  # the same kernels on the same inputs, eager or replayed
 PREPROCESS_ATOL = 2e-3  # 0-255 scale: the resize's f32 matrix products summed in another order
 ASYNC_ATOL = 1e-4  # frame coordinates and scores: the same graph on the same canvas
@@ -244,6 +271,17 @@ DP_SERVE_BATCH, DP_SERVE_ITERS = 8, 20  # phase 6's VGA frames, one sharded call
 DP_TRAIN_STEPS = 4
 DP_ALLREDUCE_ITERS = 20
 DP_RANKS_TIMEOUT_S = 300
+# phase 19, the ResNet-50 family
+R50_CONFIG = "finetune_R_50_C4_1x"
+R50_WARMUP, R50_STEPS, R50_EQ_CHUNKS = 2, 4, (2, 2)  # eager steps; graphed vs eager: warm-up 2, then a chunk of 2
+BASELINE_YAML = "configs/fsod/Base-FSOD-C4.yaml"
+BASELINE_SHORT, BASELINE_MAX = 600, 1000  # the yaml's MIN_SIZE_TEST, MAX_SIZE_TEST: VGA -> 600x800, canvas 608x800
+BASELINE_STEPS = (2, 3)  # warm-up and timed steps
+BASELINE_LR = 1e-4  # the yaml's BASE_LR
+# the baseline's biases that a softmax or a mean over tokens cancels: their
+# gradients are 0 up to rounding, measured against their layer's weight
+BASELINE_ZERO_GRAD = ("rpn_enhance.channel_k.bias", "rcnn_enhance.channel_k.bias", "channel_attention.ch_wq.bias",
+                      "relation_head.adapt_k.bias", "relation_head.adapt_q.bias")
 # the train step's named ranges; the last two are torch.optim's own. Autograd
 # launches the backward's kernels from its own thread, outside "backward".
 TRAIN_STAGES = ("features", "refine_support", "correlate", "proposal_head", "targets", "decode_proposals",
@@ -346,21 +384,6 @@ def bound(nbytes: float, flops: float, tc_flops: float = 0.0) -> dict:
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
-def nms_row(torch, args, thr, k, nv):
-    """A timing row of nms_mask on args (boxes, scores, valid on the card):
-    device-only ms, event ms, the plain fixpoint's ms, and the bound for
-    [1, k] boxes of which nv are valid (IoU per valid pair, rank compares)."""
-    from faster_orefsdet_tpu_torch.ops import nms_cuda
-    from faster_orefsdet_tpu_torch.ops.nms import nms_mask as nms_plain
-
-    ms = graph_ms(torch, lambda: nms_cuda.nms_mask(*args, thr))
-    row = {"ms": ms, "enqueue_ms": enqueue_ms(torch, lambda: nms_cuda.nms_mask(*args, thr), 50),
-           "plain_ms": enqueue_ms(torch, lambda: nms_plain(*args, thr), 10),
-           **bound(k * 22, nv * (nv - 1) // 2 * 13 + nv * nv * 3)}
-    row["share_of_bound"] = row["bound_ms"] / ms
-    return row
-
-
 # ------------------------------------------------------------------ inputs
 def cgm_inputs(torch, g, b, h, w, dtype, c=C):
     dev = "cuda"
@@ -429,19 +452,29 @@ def match(np, got, ref, max_dscore, by_class=False) -> dict:
             "top10_matched": top10, "ok": bool(ok)}
 
 
-def greedy_match(np, got_b, got_s, ref_b, ref_s, iou_min):
-    """Greedy one-to-one matching by descending IoU >= iou_min."""
+def box_iou(np, got_b, ref_b):
     a1 = (got_b[:, 2] - got_b[:, 0]) * (got_b[:, 3] - got_b[:, 1])
     a2 = (ref_b[:, 2] - ref_b[:, 0]) * (ref_b[:, 3] - ref_b[:, 1])
     lt = np.maximum(got_b[:, None, :2], ref_b[None, :, :2])
     rb = np.minimum(got_b[:, None, 2:], ref_b[None, :, 2:])
     wh = np.clip(rb - lt, 0, None)
     inter = wh[..., 0] * wh[..., 1]
-    iou = np.where(inter > 0, inter / np.maximum(a1[:, None] + a2[None] - inter, 1e-12), 0.0)
-    # equal boxes match, the degenerate ones (clipped to a line) included
-    iou = np.where((got_b[:, None, :] == ref_b[None, :, :]).all(-1), 1.0, iou)
+    return np.where(inter > 0, inter / np.maximum(a1[:, None] + a2[None] - inter, 1e-12), 0.0)
+
+
+def greedy_match(np, got_b, got_s, ref_b, ref_s, iou_min):
+    """Greedy one-to-one matching by descending IoU >= iou_min; among pairs
+    of equal IoU (a random model's detections can repeat a box, clipped to
+    the image) the closer scores first. A box clipped to a line has no area:
+    a pair with one is compared with both boxes widened by MATCH_PAD pixels
+    on each side, so that two lines match when their coordinates agree."""
+    iou = box_iou(np, got_b, ref_b)
+    flat = lambda b: (b[:, 2] <= b[:, 0]) | (b[:, 3] <= b[:, 1])  # noqa: E731
+    pad = np.asarray([-MATCH_PAD, -MATCH_PAD, MATCH_PAD, MATCH_PAD])
+    iou = np.where(flat(got_b)[:, None] | flat(ref_b)[None, :], box_iou(np, got_b + pad, ref_b + pad), iou)
     pairs, used_g, used_r = [], set(), set()
-    for j, r in zip(*np.unravel_index(np.argsort(-iou, axis=None), iou.shape)):
+    dscores = np.abs(np.asarray(got_s, np.float64)[:, None] - np.asarray(ref_s, np.float64)[None, :])
+    for j, r in zip(*np.unravel_index(np.lexsort((dscores.ravel(), -iou.ravel())), iou.shape)):
         if iou[j, r] < iou_min:
             break
         if j in used_g or r in used_r:
@@ -981,28 +1014,15 @@ def phase_train(torch, np, smi):
     out.update(nms_err=nms_err, nms_mismatches=sum(c["mismatches"] for c in checks), nms_site=site)
 
     # ---- one step card vs CPU: same weights, batch and ROIs, no dropout, f32 without TF32
-    torch.backends.cudnn.allow_tf32 = False
-    rois, roi_valid = train_rois(torch, np, batch, cfg.roi.batch_size_per_image, seed=13)
-    got = {}
-    for dev in ("cuda", "cpu"):
-        model = make_train_model(cfg, params, device=dev)
-        total, losses = loss_fn(model, batch.to(dev), deterministic=True,
-                                injected_rois=(rois.to(dev), roi_valid.to(dev)))
+    rois = train_rois(torch, np, batch, cfg.roi.batch_size_per_image, seed=13)
+
+    def step_on(dev, dtype):
+        model = make_train_model(cfg, params, device=dev).to(dtype)
+        total, losses = loss_fn(model, batch.to(dev), deterministic=True, injected_rois=tuple(r.to(dev) for r in rois))
         total.backward()
-        got[dev] = ({k: float(v.detach()) for k, v in losses.items()},
-                    {n: p.grad.cpu() for n, p in model.named_parameters() if p.requires_grad})
-    torch.backends.cudnn.allow_tf32 = True
-    loss_err = max(abs(got["cuda"][0][k] - v) / max(abs(v), 1e-12) for k, v in got["cpu"][0].items())
-    grad_err, worst_name = 0.0, None
-    for name, ref in got["cpu"][1].items():
-        err = float((got["cuda"][1][name] - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
-        if err > grad_err:
-            grad_err, worst_name = err, name
-    emit(train_card_vs_cpu={"losses_cuda": got["cuda"][0], "losses_cpu": got["cpu"][0], "worst_loss_rel_err": loss_err,
-                            "worst_grad_err_of_largest": grad_err, "worst_grad_tensor": worst_name,
-                            "tensors": len(got["cpu"][1]), "rtol": TRAIN_LOSS_RTOL, "grad_tol": TRAIN_GRAD_TOL})
-    if loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_TOL:
-        raise AssertionError(f"card vs CPU: loss rel err {loss_err:.3e}, grad err {grad_err:.3e} ({worst_name})")
+        return model, losses
+
+    train_card_vs_cpu(torch, step_on, "train_card_vs_cpu")
 
     # ---- learning: a fixed batch, no warmup, a constant LR
     lcfg = cfg.replace(solver=dataclasses.replace(cfg.solver, warmup_iters=0, steps=(), base_lr=LEARN_LR))
@@ -1028,6 +1048,57 @@ def phase_train(torch, np, smi):
     emit(profile={"path": "train", "batch": cfg.solver.ims_per_batch, **prof, "card": smi})
     emit(train_phase_s=time.perf_counter() - t_phase)
     return out
+
+
+def train_card_vs_cpu(torch, step_on, key: str, zero_grad=(), witness: bool = False) -> dict:
+    """One step card vs CPU, TF32 off: step_on(device, dtype) -> (model
+    after backward, {loss: scalar}). Each loss within TRAIN_LOSS_RTOL
+    relative, each gradient within TRAIN_GRAD_TOL of its tensor's largest
+    |grad|. A gradient that is 0 by construction (a bias that a softmax or a
+    mean cancels, named in `zero_grad`) is measured against the largest
+    |grad| of its layer's weight instead. witness=True: a quantity beyond its
+    tolerance is held instead at DLA_F32_FACTOR x the CPU's own f32 against
+    its f64 (phase 15's witness), where that is larger: a deep random
+    ResNet's gradients are sums that cancel, and f32 rounding alone moves
+    them on any device."""
+
+    def run(dev, dtype):
+        model, losses = step_on(dev, dtype)
+        return {**{f"loss/{k}": v.detach().double().cpu() for k, v in losses.items()},
+                **{f"grad/{n}": p.grad.double().cpu() for n, p in model.named_parameters() if p.requires_grad}}
+
+    def errs(a, b):
+        out = {}
+        for k, ref in b.items():
+            scale = b[k[:-len("bias")] + "weight"] if k[len("grad/"):] in zero_grad else ref
+            out[k] = float((a[k] - ref).abs().max()) / max(float(scale.abs().max()), 1e-30)
+        return out
+
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card, cpu = run("cuda", torch.float32), run("cpu", torch.float32)
+        e32 = errs(card, cpu)
+        limit = {k: TRAIN_LOSS_RTOL if k.startswith("loss/") else TRAIN_GRAD_TOL for k in e32}
+        beyond = [k for k in e32 if e32[k] > limit[k]]
+        res = {}
+        if witness and beyond:
+            w = errs(cpu, run("cpu", torch.float64))
+            limit.update({k: max(limit[k], DLA_F32_FACTOR * w[k]) for k in beyond})
+            res["beyond_tol"] = [[k, e32[k], w[k], limit[k]] for k in sorted(beyond, key=lambda k: -e32[k])[:12]]
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    worst_loss = max((k for k in e32 if k.startswith("loss/")), key=e32.get)
+    worst_grad = max((k for k in e32 if k.startswith("grad/")), key=e32.get)
+    res.update({"losses_cuda": {k[5:]: float(v) for k, v in card.items() if k.startswith("loss/")},
+                "losses_cpu": {k[5:]: float(v) for k, v in cpu.items() if k.startswith("loss/")},
+                "worst_loss_rel_err": e32[worst_loss], "worst_grad_err_of_largest": e32[worst_grad],
+                "worst_grad_tensor": worst_grad[5:], "tensors": sum(k.startswith("grad/") for k in e32),
+                "rtol": TRAIN_LOSS_RTOL, "grad_tol": TRAIN_GRAD_TOL, "beyond_tol_count": len(beyond),
+                "worst_share_of_limit": max(e32[k] / limit[k] for k in e32)})
+    emit(**{key: res})
+    if res["worst_share_of_limit"] > 1.0:
+        raise AssertionError(f"{key}: {res}")
+    return res
 
 
 def train_data(cfg, seed: int = 7):
@@ -2198,6 +2269,407 @@ def phase_dp(torch, np, cfg, params, cache, frames_u8, smi):
     return launches
 
 
+# ------------------------------------------------------------------ phase 19
+def record_cgm_calls(torch, request):
+    """Runs request() once with the CGM wrapper's kernel entry recording
+    copies of its arguments; returns the recorded calls. The recording
+    launches nothing, so request() may be a counted run."""
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda
+
+    launch, seen = cgm_cuda._launch, []
+
+    def wrapped(*args):
+        seen.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return launch(*args)
+
+    cgm_cuda._launch = wrapped
+    try:
+        request()
+        torch.cuda.synchronize()
+    finally:
+        cgm_cuda._launch = launch
+    return seen
+
+
+def check_cgm_calls(torch, seen):
+    """Each recorded K1 call again through the kernel (f32 out), its plain
+    twin (f32) and the same function in f64 on the card. A request's own
+    inputs can make each output a small difference of large terms (a random
+    ResNet-50's support taps reach 1e2, so attn's terms reach 1e6-1e7), where
+    no f32 result holds |err| <= CGM_ATOL + CGM_RTOL |ref| (the plain twin
+    does not either); the kernel is held to the bound of a dot product
+    instead: |err| <= CGM_ATOL + CGM_RTOL x the sum of its terms' |values|
+    (|[attn | q]| . |W3|^T + |b3|, attn's chain in f64), the plain twin's
+    error reported beside it. Returns (checks, worst |err|, values out of
+    the bound)."""
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda
+    from faster_orefsdet_tpu_torch.ops.correlation import cgm_correlate
+
+    checks, worst, bad_total = [], 0.0, 0
+    for q, k1, k13, k31, w3, b3, _ in seen:
+        out = cgm_cuda.cgm_correlate_fused(q, k1, k13, k31, w3, b3, out_dtype=torch.float32)
+        plain = cgm_cuda.cgm_fused_plain(q, k1, k13, k31, w3, b3, out_dtype=torch.float32)
+        a = [t.double() for t in (q, k1, k13, k31, w3, b3)]
+        cat = torch.cat([cgm_correlate(*a[:4]), a[0]], dim=-1)
+        ref = torch.relu(cat @ a[4].t() + a[5])
+        terms = cat.abs() @ a[4].abs().t() + a[5].abs()
+        err, plain_err = (out.double() - ref).abs(), (plain.double() - ref).abs()
+        bad = int((err > CGM_ATOL + CGM_RTOL * terms).sum())
+        worst, bad_total = max(worst, float(err.max())), bad_total + bad
+        checks.append({"shape": list(q.shape), "q_dtype": str(q.dtype)[6:], "max_abs_err": float(err.max()),
+                       "max_err_of_terms": float((err / terms).max()),
+                       "plain_f32_max_abs_err": float(plain_err.max()),
+                       "plain_f32_max_err_of_terms": float((plain_err / terms).max()),
+                       "largest_terms_sum": float(terms.max()), "out_of_bound": bad})
+    return checks, worst, bad_total
+
+
+def nms_row(torch, args, thr) -> dict:
+    """A timing row of K2 on one site's own inputs (boxes, scores, valid on
+    the card, [B, K]): device-only ms, event ms, the plain fixpoint's ms and
+    the bound of the work this data needs (IoU per pair of valid boxes, rank
+    compares among them, per image)."""
+    from faster_orefsdet_tpu_torch.ops import nms_cuda
+    from faster_orefsdet_tpu_torch.ops.nms import nms_mask as nms_plain
+
+    boxes, scores, valid = args
+    b, k = scores.shape
+    nv = [int(v) for v in valid.sum(-1)]
+    ms = graph_ms(torch, lambda: nms_cuda.nms_mask(boxes, scores, valid, thr))
+    row = {"batch": b, "k": k, "thr": thr, "valid": nv, "ms": ms,
+           "enqueue_ms": enqueue_ms(torch, lambda: nms_cuda.nms_mask(boxes, scores, valid, thr), 50),
+           "plain_ms": enqueue_ms(torch, lambda: nms_plain(boxes, scores, valid, thr), 10),  # syncs: no graph
+           **bound(b * k * (16 + 4 + 1 + 1), sum(n * (n - 1) // 2 * 13 + n * n * 3 for n in nv))}
+    row["share_of_bound"] = row["bound_ms"] / ms
+    return row
+
+
+def held_nms_sites(torch, seen, expected, what):
+    """check_nms_calls on a request's recorded K2 calls: each bit for bit,
+    and the kernel's sites exactly `expected` ([(shape, thr), ...])."""
+    checks, worst = check_nms_calls(torch, seen)
+    sites = [(c["shape"], c["thr"]) for c in checks if c["site"] == "kernel"]
+    if sites != expected or any(c["mismatches"] for c in checks):
+        raise AssertionError(f"{what}: the NMS kernel's sites {sites} (expected {expected}) or mismatches: {checks}")
+    return checks, worst
+
+
+def caches_close(torch, caches, what) -> dict:
+    """A support cache card vs CPU, field by field: phase 5's rtol 1e-3 and
+    atol 2e-4, the atol taken of the field's largest |value| where that is
+    above 1 (a random ResNet-50's SM-refined maps reach 1e2, and f32 sums
+    of such terms differ by more than 2e-4 near 0)."""
+    res = {}
+    for name in caches["cpu"]._fields:
+        a, b = getattr(caches["cuda"], name).float().cpu(), getattr(caches["cpu"], name).float()
+        largest = max(1.0, float(b.abs().max()))
+        res[name] = {"max_abs_diff": float((a - b).abs().max()), "largest": largest,
+                     "ok": bool(torch.allclose(a, b, rtol=1e-3, atol=2e-4 * largest))}
+    if not all(r["ok"] for r in res.values()):
+        raise AssertionError(f"{what} support cache card vs CPU: {res}")
+    return res
+
+
+def phase_resnet(torch, np, smi):
+    """The ResNet-50 family at full width: finetune_R_50_C4_1x served with
+    the CGM kernel (eager and pinned, batch 1 and 8) and trained (eager and
+    graphed), mnv3_fpn served, the AttentionRPN baseline's cache, inference
+    and training step; each card vs CPU, both kernels held on each path's
+    own inputs, K2 timed at each new site."""
+    from faster_orefsdet_tpu_torch.config import Config, SolverConfig, get_config, serving_vovnet
+    from faster_orefsdet_tpu_torch.config_yaml import load_yaml
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
+    from faster_orefsdet_tpu_torch.pipelines import attention_rpn as arpn
+    from faster_orefsdet_tpu_torch.pipelines.inference import (
+        build_batched_inference_fn, build_inference_fn, build_pinned_inference_fn, normalize_uint8,
+        pack_detections, unpack_detections_np,
+    )
+    from faster_orefsdet_tpu_torch.pipelines.preprocess import ceil_to, preprocess_device, resize_shortest_edge_size
+    from faster_orefsdet_tpu_torch.pipelines.support_cache import build_support_cache
+    from faster_orefsdet_tpu_torch.pipelines.train_step import (
+        TrainBatch, build_train_state, build_train_step_scan, loss_fn, make_train_model,
+    )
+    from faster_orefsdet_tpu_torch.solver import build_optimizer, set_lr, sgd_update
+    from faster_orefsdet_tpu_torch.utils.params import init_baseline_params, init_params
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "graph_launches": {}, "k2": {}, "cgm_err": 0.0, "cgm_mismatches": 0, "nms_err": 0.0,
+           "nms_mismatches": 0}
+
+    def held(worst, checks):  # K2's checks at a site, into the kernel line's totals
+        out["nms_err"] = max(out["nms_err"], worst)
+        out["nms_mismatches"] += sum(c["mismatches"] for c in checks)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(19)
+    h, w = CANVAS_HW
+
+    # ---- finetune_R_50_C4_1x served with the CGM kernel (f32, TF32 off for the comparisons)
+    t0 = time.perf_counter()
+    cfg = get_config(R50_CONFIG).replace(use_pallas_cgm=True)
+    params = init_params(cfg, seed=0)
+    sup, sup_boxes = support_inputs(torch, np, cfg, cfg.fs.support_shot, rng)
+    cache = build_support_cache(cfg, params, sup, sup_boxes)
+    serve1, serve8 = build_inference_fn(cfg, params), build_batched_inference_fn(cfg, params)
+    u8 = torch.from_numpy(rng.integers(0, 256, (8, 3, h, w), dtype=np.uint8)).cuda()
+    hw8 = torch.tensor([IMAGE_HW] * 8, device="cuda")
+    single = normalize_uint8(u8[:1], hw8[:1], cfg)[0].contiguous()
+    eager, cgm_seen, nms_seen = [], [], {}
+
+    def r50_requests():
+        eager.append(pack_detections(serve1(cache, single, IMAGE_HW)))
+        eager.append(pack_detections(serve8(cache, u8, hw8)))
+
+    launches = count_launches(cgm_cuda, nms_cuda, lambda: cgm_seen.extend(record_cgm_calls(
+        torch, lambda: nms_seen.update(record_nms_calls(torch, r50_requests)))))
+    out["launches"]["r50_serve"] = launches
+    cgm_checks, cgm_worst, cgm_bad = check_cgm_calls(torch, cgm_seen)
+    out["cgm_err"], out["cgm_mismatches"] = max(out["cgm_err"], cgm_worst), out["cgm_mismatches"] + cgm_bad
+    names = {"decode": (cfg.static.nms_budget_test, cfg.centernet.nms_thresh_test),
+             "roi": (cfg.centernet.post_nms_topk_test, cfg.roi.nms_thresh_test)}
+    r50_sites = [(f"r50_{name}_b{b}", [b, k], thr) for b in (1, 8) for name, (k, thr) in names.items()]
+    nms_checks, worst = held_nms_sites(torch, nms_seen, [site[1:] for site in r50_sites], R50_CONFIG)
+    held(worst, nms_checks)
+    finite = all(bool(torch.isfinite(p).all()) for p in eager)
+    n_valid = [int(v) for p in eager for v in p.reshape(-1, 100, 7)[..., 6].sum(-1)]
+    emit(resnet_r50_serve={"config": R50_CONFIG, "canvas": list(CANVAS_HW), "shots": cfg.fs.support_shot,
+                           "launches": launches, "cgm_checks": cgm_checks, "nms_checks": nms_checks,
+                           "valid_per_image": n_valid, "all_finite": finite})
+    if launches != {"cgm": 3 + 3, "nms": 2 + 2} or cgm_bad or not finite or min(n_valid) < 1:
+        raise AssertionError(f"{R50_CONFIG} serving: launches {launches}, CGM out of its bound {cgm_bad}, "
+                             f"finite {finite}, valid {n_valid}")
+    for (site, _, thr), args in zip(r50_sites, nms_seen["kernel"]):
+        out["k2"][site] = {"launches": 1, **nms_row(torch, args[:3], thr)}  # one a request of its batch
+
+    # pinned against eager, the same inputs
+    pinned = build_pinned_inference_fn(cfg, params, cache, packed=True)
+    got = [pinned(single, IMAGE_HW), pinned(u8, hw8)]
+    torch.cuda.synchronize()
+    checks = []
+    for a, b in zip(got, eager):
+        ga, gb = unpack_detections_np(a.reshape(-1, 100, 7)), unpack_detections_np(b.reshape(-1, 100, 7))
+        checks += [match(np, {k: v[i] for k, v in ga.items()}, {k: v[i] for k, v in gb.items()}, PINNED_DSCORE)
+                   for i in range(len(ga["valid"]))]
+    identical = sum(int((a == b).sum()) for a, b in zip(got, eager))
+    graph_launches = [g.launches for g in pinned.graphs.values()]
+    emit(resnet_r50_pinned={"images_checked": len(checks), "all_matched": all(c["ok"] for c in checks),
+                            "max_dscore": max(c["max_dscore"] for c in checks), "bit_identical_values": identical,
+                            "values": sum(a.numel() for a in got), "graphs_captured_launches": graph_launches})
+    if not all(c["ok"] for c in checks) or any(g != {"cgm": 3, "nms": 2} for g in graph_launches):
+        raise AssertionError(f"{R50_CONFIG} pinned vs eager: {checks}, graphs {graph_launches}")
+    out["graph_launches"]["r50_pinned_replays"] = pinned.kernel_launches()
+
+    # card vs CPU in f32 by phase 5's criteria
+    caches = {"cuda": cache, "cpu": build_support_cache(cfg, params, sup, sup_boxes, device="cpu")}
+    emit(resnet_r50_cache_card_vs_cpu=caches_close(torch, caches, R50_CONFIG))
+    dets = {"cuda": serve1(cache, single, IMAGE_HW),
+            "cpu": build_inference_fn(cfg, params, device="cpu")(caches["cpu"], single.cpu(), IMAGE_HW)}
+    r50_vs_cpu = match(np, *(unpack_detections_np(pack_detections(dets[d])) for d in ("cuda", "cpu")), MATCH_DSCORE)
+    emit(resnet_r50_card_vs_cpu=r50_vs_cpu)
+    if not r50_vs_cpu["ok"]:
+        raise AssertionError(f"{R50_CONFIG} card and CPU detections do not match: {r50_vs_cpu}")
+
+    # request times under the library's defaults (TF32 convs), a pinned function captured under them
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.reset_peak_memory_stats()
+    e1, e8 = request_times(torch, lambda: serve1(cache, single, IMAGE_HW), 10), \
+        request_times(torch, lambda: serve8(cache, u8, hw8), 5)
+    timed_pinned = build_pinned_inference_fn(cfg, params, cache, packed=True)
+    p1, p8 = request_times(torch, lambda: timed_pinned(single, IMAGE_HW), 20), \
+        request_times(torch, lambda: timed_pinned(u8, hw8), 10)
+    out["graph_launches"]["r50_pinned_replays"] = {
+        k: v + timed_pinned.kernel_launches()[k] for k, v in out["graph_launches"]["r50_pinned_replays"].items()}
+    out["r50_serve"] = {"batch1_ms_median": e1[0], "batch8_ms_median": e8[0], "batch8_images_per_s": 8e3 / e8[0],
+                        "pinned_batch1_ms_median": p1[0], "pinned_batch8_ms_median": p8[0],
+                        "pinned_batch8_images_per_s": 8e3 / p8[0],
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(resnet_r50_e2e={"config": R50_CONFIG, "dtype": "float32", "canvas": list(CANVAS_HW), **out["r50_serve"],
+                         "serve_s": time.perf_counter() - t0, "card": smi})
+
+    # ---- finetune_R_50_C4_1x trained at 448x608 (f32; TF32 convs as phase 13 trains)
+    t0 = time.perf_counter()
+    tcfg = get_config(R50_CONFIG)
+    records, mapper = train_data(tcfg)
+    state, _, times, rows, batches, launches, peak = eager_steps(torch, np, tcfg, params, records, mapper,
+                                                                 R50_WARMUP, R50_STEPS)
+    finite = all(np.isfinite(v) for m in rows for v in m.values())
+    if not finite or launches != {"cgm": 0, "nms": len(rows)}:
+        raise AssertionError(f"{R50_CONFIG} train steps: finite {finite}, launches {launches}")
+    out["launches"]["r50_train"] = launches
+    batch = batches[0]
+    with torch.no_grad():
+        nms_checks, worst, seen = nms_checks_on_request(torch, lambda: loss_fn(state.model, batch, state.generator))
+    train_site = ([1, TRAIN_NMS_K], tcfg.centernet.nms_thresh_train)
+    if [(c["shape"], c["thr"]) for c in nms_checks] != [train_site] or nms_checks[0]["mismatches"]:
+        raise AssertionError(f"{R50_CONFIG} training decode: {nms_checks}")
+    held(worst, nms_checks)
+    out["k2"]["r50_train_decode"] = {"launches_per_step": 1, **nms_row(torch, seen["kernel"][0][:3], train_site[1])}
+    eager_ms = statistics.median(times)
+
+    rois = train_rois(torch, np, batch, tcfg.roi.batch_size_per_image, seed=13)
+
+    def r50_step_on(dev, dtype):
+        model = make_train_model(tcfg, params, device=dev).to(dtype)
+        total, losses = loss_fn(model, batch.to(dev), deterministic=True, injected_rois=tuple(r.to(dev) for r in rois))
+        total.backward()
+        return model, losses
+
+    train_card_vs_cpu(torch, r50_step_on, "resnet_r50_train_card_vs_cpu", witness=True)
+
+    eq_batches = take_batches(records, mapper, sum(R50_EQ_CHUNKS), seed=3)
+    res = graphed_vs_eager(torch, tcfg, params, eq_batches, R50_EQ_CHUNKS, deterministic=True)
+    emit(resnet_r50_graphed_vs_eager=res)
+    if not res["ok"]:
+        raise AssertionError(f"{R50_CONFIG} graphed vs eager under cudnn.deterministic: {res}")
+    out["graph_launches"]["r50_train_graphed"] = res["launches"]
+
+    gstate, step_k = build_train_state(tcfg, params), build_train_step_scan(tcfg)
+    step_k(gstate, eq_batches[:2])  # the eager warm-up steps
+    step_k(gstate, eq_batches[2:4])  # the capture and its first replays
+    torch.cuda.reset_peak_memory_stats()
+    graphed = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step_k(gstate, eq_batches[:GRAPH_K])
+        torch.cuda.synchronize()
+        graphed.append((time.perf_counter() - t) * 1e3 / GRAPH_K)
+    out["graph_launches"]["r50_train_graphed"] = {
+        k: v + step_k.kernel_launches()[k] for k, v in out["graph_launches"]["r50_train_graphed"].items()}
+    out["r50_train"] = {"eager_step_ms_median": eager_ms, "eager_queries_per_s": 1e3 / eager_ms,
+                        "eager_peak_mem_gb": peak, "graphed_step_ms_median": statistics.median(graphed),
+                        "graphed_queries_per_s": 1e3 / statistics.median(graphed),
+                        "graphed_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(resnet_r50_train={"config": R50_CONFIG, "canvas": list(TRAIN_CANVAS), "shots": tcfg.fs.support_shot,
+                           "steps": len(rows), **out["r50_train"], "total_loss_trace": [m["total_loss"] for m in rows],
+                           "train_s": time.perf_counter() - t0, "card": smi})
+
+    # ---- mnv3_fpn served at batch 1 (K1 at 128 channels), card vs CPU in f32
+    torch.backends.cudnn.allow_tf32 = False
+    mcfg = serving_vovnet().replace(backbone_name="mnv3_fpn", compute_dtype="float32")
+    mparams = init_params(mcfg, seed=0)
+    msup, mboxes = support_inputs(torch, np, mcfg, 5, rng)
+    mcaches = {d: build_support_cache(mcfg, mparams, msup, mboxes, device=d) for d in ("cuda", "cpu")}
+    mserve = {d: build_inference_fn(mcfg, mparams, device=d) for d in ("cuda", "cpu")}
+    mdet = {}
+    launches = count_launches(cgm_cuda, nms_cuda, lambda: mdet.update(
+        cuda=mserve["cuda"](mcaches["cuda"], single, IMAGE_HW)))
+    mdet["cpu"] = mserve["cpu"](mcaches["cpu"], single.cpu(), IMAGE_HW)
+    mnv3_vs_cpu = match(np, *(unpack_detections_np(pack_detections(mdet[d])) for d in ("cuda", "cpu")), MATCH_DSCORE)
+    emit(resnet_mnv3_serve={"backbone": "mnv3_fpn", "launches": launches, "card_vs_cpu": mnv3_vs_cpu})
+    if launches != {"cgm": 3, "nms": 2} or not mnv3_vs_cpu["ok"]:
+        raise AssertionError(f"mnv3_fpn serving: launches {launches}, card vs CPU {mnv3_vs_cpu}")
+    out["launches"]["mnv3_serve"] = launches
+
+    # ---- the AttentionRPN baseline (Base-FSOD-C4.yaml): cache, inference, a training step
+    t0 = time.perf_counter()
+    bcfg = load_yaml(BASELINE_YAML)
+    bparams = init_baseline_params(bcfg.depth, seed=0)
+    pixels = Config().input
+    bsup, bboxes = support_inputs(torch, np, Config(), bcfg.support_shot, rng)  # 240 crops on 256 canvases
+    bcaches = {d: arpn.build_baseline_cache(bcfg, bparams, bsup, bboxes, device=d) for d in ("cuda", "cpu")}
+    emit(resnet_baseline_cache_card_vs_cpu=caches_close(torch, bcaches, "the baseline"))
+    frames, gt_lists = synthetic_frames(np, 2, seed=23)
+    out_hw = resize_shortest_edge_size(*FRAME_HW, BASELINE_SHORT, BASELINE_MAX)
+    canvas_hw = (ceil_to(out_hw[0]), ceil_to(out_hw[1]))
+    u8frames = torch.from_numpy(np.stack(frames)).permute(0, 3, 1, 2).cuda()
+    canvases = preprocess_device(u8frames, out_hw, canvas_hw, pixels.pixel_mean, pixels.pixel_std).contiguous()
+    bserve = {d: arpn.build_baseline_inference_fn(bcfg, bparams, device=d) for d in ("cuda", "cpu")}
+    bdet, bseen = {}, {}
+    launches = count_launches(cgm_cuda, nms_cuda, lambda: bseen.update(record_nms_calls(
+        torch, lambda: bdet.update(cuda=bserve["cuda"](bcaches["cuda"], canvases[0], out_hw)))))
+    bdet["cpu"] = bserve["cpu"](bcaches["cpu"], canvases[0].cpu(), out_hw)
+    base_sites = [([1, bcfg.rpn_pre_nms_topk_test], bcfg.rpn_nms_thresh),
+                  ([1, bcfg.rpn_post_nms_topk_test], bcfg.test_nms_thresh)]
+    nms_checks, worst = held_nms_sites(torch, bseen, base_sites, "the baseline's request")
+    held(worst, nms_checks)
+    base_vs_cpu = match(np, *(unpack_detections_np(pack_detections(bdet[d])) for d in ("cuda", "cpu")), MATCH_DSCORE,
+                        by_class=True)
+    emit(resnet_baseline_serve={"yaml": BASELINE_YAML, "shots": bcfg.support_shot, "support_canvas": list(bsup.shape[-2:]),
+                                "canvas": list(canvas_hw), "resized": list(out_hw), "launches": launches,
+                                "nms_checks": nms_checks, "card_vs_cpu": base_vs_cpu})
+    if launches != {"cgm": 0, "nms": 2} or not base_vs_cpu["ok"]:
+        raise AssertionError(f"the baseline's request: launches {launches}, card vs CPU {base_vs_cpu}")
+    out["launches"]["baseline_serve"] = launches
+    for (shape, thr), args, site in zip(base_sites, bseen["kernel"], ("baseline_rpn_test", "baseline_final")):
+        out["k2"][site] = {"launches": 1, **nms_row(torch, args[:3], thr)}
+    torch.backends.cudnn.allow_tf32 = True
+    b1 = request_times(torch, lambda: bserve["cuda"](bcaches["cuda"], canvases[1], out_hw), 10)
+    out["baseline_serve"] = {"request_ms_median": b1[0], "request_ms_min": b1[1], "request_ms_max": b1[2]}
+
+    # one training step at the same query size, 10 shots: card vs CPU with the same anchor draws and ROIs
+    scale = out_hw[0] / FRAME_HW[0]
+    gt = np.zeros((1, 8, 4), np.float32)
+    gtv = np.zeros((1, 8), bool)
+    n_gt = min(8, len(gt_lists[0]))
+    gt[0, :n_gt] = np.asarray(gt_lists[0][:n_gt], np.float32) * scale
+    gtv[0, :n_gt] = True
+    bbatch = TrainBatch(canvases[:1], torch.tensor([out_hw], dtype=torch.float32, device="cuda"),
+                        torch.from_numpy(gt).cuda(), torch.zeros(1, 8, dtype=torch.int32, device="cuda"),
+                        torch.from_numpy(gtv).cuda(), bsup[None].cuda(), bboxes[None].cuda())
+    brois = train_rois(torch, np, bbatch, bcfg.roi_batch_size, seed=29)
+
+    def baseline_step_on(dev, dtype):
+        model = arpn.make_fsod_rcnn(bcfg, bparams, device=dev).to(dtype).train()
+        total, losses = arpn.baseline_loss_fn(model, bbatch.to(dev), bcfg, torch.Generator().manual_seed(5),
+                                              injected_rois=tuple(r.to(dev) for r in brois))
+        total.backward()
+        return model, losses
+
+    train_card_vs_cpu(torch, baseline_step_on, "resnet_baseline_train_card_vs_cpu", zero_grad=BASELINE_ZERO_GRAD,
+                      witness=True)
+
+    model = arpn.make_fsod_rcnn(bcfg, bparams).train()
+    solver = dataclasses.replace(SolverConfig(), base_lr=BASELINE_LR)
+    optimizer = build_optimizer(solver, model)
+    set_lr(optimizer, BASELINE_LR)
+    generator = torch.Generator(device="cuda").manual_seed(7)
+
+    def bstep():
+        optimizer.zero_grad(set_to_none=True)
+        total, _ = arpn.baseline_loss_fn(model, bbatch, bcfg, generator)
+        total.backward()
+        sgd_update(optimizer, solver)
+        return total.detach()
+
+    step_ms, trace = [], []
+
+    def steps():
+        for i in range(sum(BASELINE_STEPS)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            trace.append(bstep())
+            torch.cuda.synchronize()
+            if i >= BASELINE_STEPS[0]:
+                step_ms.append((time.perf_counter() - t) * 1e3)
+
+    torch.cuda.reset_peak_memory_stats()
+    launches = count_launches(cgm_cuda, nms_cuda, steps)
+    bpeak = torch.cuda.max_memory_allocated() / 1e9
+    trace = torch.stack(trace).tolist()
+    if launches != {"cgm": 0, "nms": len(trace)} or not all(np.isfinite(trace)):
+        raise AssertionError(f"the baseline's train steps: launches {launches}, losses {trace}")
+    out["launches"]["baseline_train"] = launches
+    with torch.no_grad():
+        nms_checks, worst, seen = nms_checks_on_request(torch, lambda: arpn.baseline_loss_fn(model, bbatch, bcfg,
+                                                                                            generator))
+    train_site = ([1, bcfg.rpn_pre_nms_topk_train], bcfg.rpn_nms_thresh)
+    if [(c["shape"], c["thr"]) for c in nms_checks] != [train_site] or nms_checks[0]["mismatches"]:
+        raise AssertionError(f"the baseline's training RPN: {nms_checks}")
+    held(worst, nms_checks)
+    out["k2"]["baseline_rpn_train"] = {"launches_per_step": 1, **nms_row(torch, seen["kernel"][0][:3], train_site[1])}
+    out["baseline_train"] = {"step_ms_median": statistics.median(step_ms), "step_ms_min": min(step_ms),
+                             "queries_per_s": 1e3 / statistics.median(step_ms), "peak_mem_gb": bpeak,
+                             "total_loss_trace": trace}
+    emit(resnet_baseline={"serve": out["baseline_serve"], "train": out["baseline_train"],
+                          "baseline_s": time.perf_counter() - t0, "card": smi})
+    for site, row in out["k2"].items():
+        emit(timing="nms", site=site, **row, card=smi)
+    emit(resnet_phase_s=time.perf_counter() - t_phase)
+    return out
+
+
 def request_times(torch, fn, iters):
     """(median, min, max) ms of fn() by the host's clock, each call ending
     in a sync, after 3 warm-up calls."""
@@ -2403,15 +2875,13 @@ def main() -> int:
     # cross-class call on the inputs phase 8's counted run gave it
     # (class-offset boxes), and [1, 4096] random scenes (16 classes' width)
     boxes, scores, valid, thr = multi_site["args"]
-    nv = int(valid.sum())
-    wide_site = {"launches": multi_site["launches"], "batch": 1, "k": MULTICLASS_K, "valid": nv, "thr": thr,
-                 **nms_row(torch, (boxes, scores, valid), thr, MULTICLASS_K, nv)}
+    wide_site = {"launches": multi_site["launches"], **nms_row(torch, (boxes, scores, valid), thr)}
     emit(timing="nms", site="multiclass9", **wide_site, card=smi)
     boxes, scores, _ = nms_scenes(np, WIDE_NMS_K, nms_rng)
     args = (torch.from_numpy(boxes[:1]).cuda(), torch.from_numpy(scores[:1]).cuda(),
             torch.ones(1, WIDE_NMS_K, dtype=torch.bool, device="cuda"))
     thr = cfg.roi.nms_thresh_test
-    wide_random = {"batch": 1, "k": WIDE_NMS_K, "thr": thr, **nms_row(torch, args, thr, WIDE_NMS_K, WIDE_NMS_K)}
+    wide_random = nms_row(torch, args, thr)
     emit(timing="nms", site="random", **wide_random, card=smi)
 
     # K2 at the fast presets' ROI site (not in the request's row): [8, 64]
@@ -2519,41 +2989,55 @@ def main() -> int:
     # ---- 18. data parallel: sharded serving and eval, training by ranks
     dp_launches = phase_dp(torch, np, cfg, params, cache, torch.from_numpy(frames), smi)
 
+    # ---- 19. the ResNet-50 family: finetune_R_50_C4_1x, mnv3_fpn, the AttentionRPN baseline
+    resnet = phase_resnet(torch, np, smi)
+
     # launches counted by the wrappers on each eager path; the pinned path's
     # and the graphed train steps' from their graphs' captured launches times
-    # their replays (phases 7, 14, 15 and 17), plus the K-step function's eager
-    # warm-up steps; phase 18's training ranks count theirs and report them
+    # their replays (phases 7, 14, 15, 17 and 19), plus the K-step function's
+    # eager warm-up steps; phase 18's training ranks count theirs and report them
     by_path = {"main": launches, "raw_frames": raw_launches, "multiclass": multi_launches,
                "pinned_replays": pinned_launches, "train": train["launches"], "train_graphed": graphed["launches"],
                "dla_train": dla["train_launches"], "dla_train_graphed": dla["graphed_launches"],
                "dla_eval": dla["eval_launches"], "workflow_glob": workflow["glob_launches"],
                "workflow_dla_c160": workflow["dla_launches"], "quant": quant["launches"],
-               "quant_pinned_replays": quant["pinned_replays"], "dp": dp_launches}
+               "quant_pinned_replays": quant["pinned_replays"], "dp": dp_launches,
+               **{f"resnet_{k}": v for k, v in {**resnet["launches"], **resnet["graph_launches"]}.items()}}
+    resnet_paths = tuple(f"resnet_{k}" for k in resnet["launches"])
     eager_paths = ("main", "raw_frames", "multiclass", "train", "dla_train", "dla_eval", "workflow_glob",
-                   "workflow_dla_c160", "quant", "dp")
+                   "workflow_dla_c160", "quant", "dp") + resnet_paths
     counted = {k: sum(by_path[p][k] for p in eager_paths) for k in ("cgm", "nms")}
+    resnet_entry = {k: {"launches": sum(by_path[p][k] for p in resnet_paths),
+                        "launches_by_path": {p: v[k] for p, v in by_path.items() if p.startswith("resnet_")}}
+                    for k in ("cgm", "nms")}
     common = {"route": "cuda", "library_ms": None}
     emit(kernels=[
         {"name": "cgm_correlate_fused", **common,
          "source": "faster_orefsdet_tpu_torch/csrc/cgm.cu",
          "replaces": "faster_orefsdet_tpu/ops/pallas_cgm.py:47",
          "launches": counted["cgm"], "launches_by_path": {p: v["cgm"] for p, v in by_path.items()},
-         "max_abs_err": cgm_err, "mismatches": cgm_mismatches, "ms": cgm_ms, "enqueue_ms": cgm_enq_ms,
+         "max_abs_err": max(cgm_err, resnet["cgm_err"]), "mismatches": cgm_mismatches + resnet["cgm_mismatches"],
+         "ms": cgm_ms, "enqueue_ms": cgm_enq_ms,
          "plain_ms": cgm_plain_ms, **bound(cgm_bytes, cgm_flops, cgm_tc_flops),
          "train_site": {"launches_per_step": train["launches"]["cgm"] / train["steps"]},
-         "c160_site": {"launches": workflow["dla_launches"]["cgm"], "batch8": cgm160[8], "batch1": cgm160[1]}},
+         "c160_site": {"launches": workflow["dla_launches"]["cgm"], "batch8": cgm160[8], "batch1": cgm160[1]},
+         "resnet": {**resnet_entry["cgm"], "max_abs_err": resnet["cgm_err"],
+                    "out_of_bound": resnet["cgm_mismatches"]}},
         {"name": "nms_mask", **common,
          "source": "faster_orefsdet_tpu_torch/csrc/nms.cu",
          "replaces": "faster_orefsdet_tpu/ops/pallas_nms.py:46",
          "launches": counted["nms"], "launches_by_path": {p: v["nms"] for p, v in by_path.items()},
-         "max_abs_err": max(nms_err, multi_nms_err, train["nms_err"], dla["nms_err"], quant["roi_site"]["max_abs_err"]),
+         "max_abs_err": max(nms_err, multi_nms_err, train["nms_err"], dla["nms_err"], quant["roi_site"]["max_abs_err"],
+                            resnet["nms_err"]),
          "mismatches": nms_mismatches + train["nms_mismatches"] + dla["nms_mismatches"]
-         + quant["roi_site"]["mismatches"],
+         + quant["roi_site"]["mismatches"] + resnet["nms_mismatches"],
          "ms": nms_ms, "enqueue_ms": nms_enq_ms, "plain_ms": nms_plain_ms, **bound(nms_bytes, nms_flops),
          "train_site": train["nms_site"], "dla_train_site": dla["train_site"],
          "dla_serving_decode_site": dla["serve_site"],
          "multiclass9_site": wide_site, f"k{WIDE_NMS_K}_random": wide_random,
-         "fast_roi_site": {**fast_roi, "launches": quant["roi_site"]["launches"]}},
+         "fast_roi_site": {**fast_roi, "launches": quant["roi_site"]["launches"]},
+         "resnet": {**resnet_entry["nms"], "max_abs_err": resnet["nms_err"], "mismatches": resnet["nms_mismatches"],
+                    "sites": resnet["k2"]}},
     ])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

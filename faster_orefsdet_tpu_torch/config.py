@@ -207,8 +207,7 @@ def finetune_vovnet_25shot() -> Config:
 
 def finetune_r50_c4_1x() -> Config:
     """configs/fsod/finetune_R_50_C4_1x.yaml: ResNet-50 + FPN (res3-res5 ->
-    P3-P5), a 4x4 main ROI pooler, 9 shots, LR steps (10000, 12000). The
-    port's detector does not build the resnet_fpn family yet."""
+    P3-P5), a 4x4 main ROI pooler, 9 shots, LR steps (10000, 12000)."""
     cfg = Config(backbone_name="resnet_fpn", output_dir="./output/fsod/r50")
     return cfg.replace(
         roi=dataclasses.replace(cfg.roi, pooler_resolution=4),

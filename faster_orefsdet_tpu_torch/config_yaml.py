@@ -12,10 +12,11 @@ below: a reader of the YAML subset that the reference's configs use (nested
 block mappings, plain and quoted scalars resolved as YAML 1.1 does, flow
 lists, comments). Anything outside that subset raises.
 
-Only CenterNet2Detector yamls resolve. ``Base-FSOD-C4.yaml`` alone is the
-AttentionRPN baseline (FsodRCNN), which the port does not have; configs
-whose ROI features are not the p3/p4/p5 pyramid are dead in the reference
-(``DeadReferenceConfigError``).
+``load_yaml`` dispatches on META_ARCHITECTURE: a CenterNet2Detector yaml
+gives a ``Config``, ``Base-FSOD-C4.yaml`` alone (FsodRCNN, the AttentionRPN
+baseline) a ``pipelines.attention_rpn.BaselineConfig``. ``load_yaml_config``
+takes CenterNet2Detector yamls only. Configs whose ROI features are not the
+p3/p4/p5 pyramid are dead in the reference (``DeadReferenceConfigError``).
 """
 
 from __future__ import annotations
@@ -160,6 +161,34 @@ BACKBONE_BUILDERS = {
     "build_mobilenetV3small_fpn_backbone": "mnv3_fpn",
     "build_p35_resnet_fpn_backbone": "resnet_fpn",
 }
+
+
+# BaselineConfig (FsodRCNN, the AttentionRPN baseline): d2 key -> field
+BASELINE_KEY_MAP: Dict[str, str] = {
+    "MODEL.RPN.PRE_NMS_TOPK_TEST": "rpn_pre_nms_topk_test",
+    "MODEL.RPN.POST_NMS_TOPK_TEST": "rpn_post_nms_topk_test",
+    "MODEL.RPN.PRE_NMS_TOPK_TRAIN": "rpn_pre_nms_topk_train",
+    "MODEL.RPN.POST_NMS_TOPK_TRAIN": "rpn_post_nms_topk_train",
+    "MODEL.RPN.NMS_THRESH": "rpn_nms_thresh",
+    "MODEL.RPN.BATCH_SIZE_PER_IMAGE": "rpn_batch_size",
+    "MODEL.RPN.POSITIVE_FRACTION": "rpn_positive_fraction",
+    "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE": "roi_batch_size",
+    "MODEL.ROI_HEADS.POSITIVE_FRACTION": "roi_positive_fraction",
+    "MODEL.ROI_HEADS.NUM_CLASSES": "num_classes",
+    "MODEL.ROI_HEADS.SCORE_THRESH_TEST": "test_score_thresh",
+    "MODEL.ROI_HEADS.NMS_THRESH_TEST": "test_nms_thresh",
+    "MODEL.RESNETS.DEPTH": "depth",
+    "INPUT.FS.SUPPORT_SHOT": "support_shot",
+}
+# baseline yaml keys without a BaselineConfig field: the training loop's and
+# the runtime's (the solver and input settings apply when it is trained)
+BASELINE_IGNORED_PREFIXES = (
+    "SOLVER.", "INPUT.MIN_SIZE", "INPUT.MAX_SIZE", "INPUT.FS.SUPPORT_WAY",
+    "DATASETS.", "DATALOADER.", "MODEL.META_ARCHITECTURE",
+    "MODEL.PROPOSAL_GENERATOR.NAME", "MODEL.ROI_HEADS.NAME",
+    "MODEL.ROI_HEADS.IOU_THRESHOLDS", "MODEL.BACKBONE.FREEZE_AT",
+    "MODEL.WEIGHTS", "VERSION", "OUTPUT_DIR",
+)
 
 
 # ------------------------------------------------------------------ reader
@@ -405,10 +434,6 @@ def _set_path(obj: Any, path: str, value: Any) -> Any:
 
 def _config_from_flat(flat: Dict[str, Any]) -> Config:
     meta = flat.get("MODEL.META_ARCHITECTURE", "CenterNet2Detector")
-    if meta == "FsodRCNN":
-        raise NotImplementedError(
-            "META_ARCHITECTURE 'FsodRCNN' is the AttentionRPN baseline (Base-FSOD-C4.yaml alone), which the "
-            "port does not have yet; load a CenterNet2Detector yaml such as finetune_vovnet.yaml")
     if meta != "CenterNet2Detector":
         raise ValueError(f"not a CenterNet2Detector yaml (META_ARCHITECTURE={meta!r})")
 
@@ -437,6 +462,29 @@ def _config_from_flat(flat: Dict[str, Any]) -> Config:
     return cfg
 
 
+def _baseline_from_flat(flat: Dict[str, Any]):
+    from .pipelines.attention_rpn import BaselineConfig
+
+    cfg = BaselineConfig()
+    for key, raw in flat.items():
+        if key in BASELINE_KEY_MAP:
+            field = BASELINE_KEY_MAP[key]
+            cfg = dataclasses.replace(cfg, **{field: _coerce(getattr(cfg, field), _parse_value(raw))})
+        elif not any(key.startswith(p) or key == p.rstrip(".") for p in BASELINE_IGNORED_PREFIXES):
+            raise KeyError(f"unmapped baseline config key {key!r}")
+    return cfg
+
+
+def load_yaml(path: str):
+    """A yaml (with its `_BASE_` chain) by its META_ARCHITECTURE: a `Config`,
+    or for FsodRCNN a `pipelines.attention_rpn.BaselineConfig`."""
+    flat = _flatten(load_merged_yaml(path))
+    if flat.get("MODEL.META_ARCHITECTURE", "CenterNet2Detector") == "FsodRCNN":
+        return _baseline_from_flat(flat)
+    return _config_from_flat(flat)
+
+
 def load_yaml_config(path: str) -> Config:
-    """A CenterNet2Detector yaml (with its `_BASE_` chain) as a `Config`."""
+    """A CenterNet2Detector yaml (with its `_BASE_` chain) as a `Config`; an
+    FsodRCNN yaml raises (``load_yaml`` reads it)."""
     return _config_from_flat(_flatten(load_merged_yaml(path)))

@@ -106,10 +106,12 @@ def subsample_proposals(generator: Optional[torch.Generator], prop_boxes: torch.
     """label_and_sample_proposals with PROPOSAL_APPEND_GT, batched: append
     the gt boxes to the proposals, match at cascade_ious[0], then take
     `batch_size_per_image` of them, at most `positive_fraction` positive.
-    Each candidate gets a uniform key drawn from `generator` (the model's
-    device); positives and negatives are ranked by it separately and the
-    first num_pos / num_neg of each kept, then the selection is compacted
-    into exactly `batch_size_per_image` slots.
+    Each candidate gets a uniform key drawn from `generator` on its own
+    device (the model's, or the CPU's to give the card and the CPU the same
+    draws; the keys are then moved to the boxes' device); positives and
+    negatives are ranked by it separately and the first num_pos / num_neg of
+    each kept, then the selection is compacted into exactly
+    `batch_size_per_image` slots.
 
     rows = (first, total): the keys are drawn for the `total` images of a
     global batch, and these B images keep rows first .. first + B of them
@@ -126,7 +128,8 @@ def subsample_proposals(generator: Optional[torch.Generator], prop_boxes: torch.
     max_pos = int(batch * cfg.positive_fraction)
     b, k = boxes.shape[:2]
     first, total = rows or (0, b)
-    r = torch.rand((total, k), generator=generator, device=boxes.device)[first:first + b]
+    dev = generator.device if generator is not None else boxes.device
+    r = torch.rand((total, k), generator=generator, device=dev)[first:first + b].to(boxes.device)
     two = torch.full_like(r, 2.0)
     neg = valid & ~fg
     # the rank of each positive among the positives, each negative among the negatives

@@ -1,7 +1,8 @@
 """CenterNet2Detector: the few-shot ore detector as one nn.Module whose
 phases are methods (counterpart of ``faster_orefsdet_tpu/models/detector.py``):
 
-  features          backbone + neck (VoVNet + FPN, or DLA-34 + BiFPN)
+  features          backbone + neck (VoVNet + FPN, DLA-34 + BiFPN, ResNet-50
+                    + FPN, or MobileNetV3-small + FPN)
   refine_support    adaptive pool -> SM block -> spatial transpose quirk
   correlate         CGM correlation + conv3 fusion (the CGM kernel with
                     cfg.use_pallas_cgm, else the differentiable composition)
@@ -33,19 +34,25 @@ from .centernet_head import CenterNetHead
 from .dla import DLA
 from .fpn import FPN
 from .layers import assign_scale_keys, at_least_f32, linear
+from .mobilenet import MobileNetV3Small
+from .resnet import ResNetC4
 from .sm_block import SMBlock
 from .vovnet import VoVNet
 
 # per-level SM pool size == seg_dim: p3 -> 32, p4 -> 16, p5 -> 8
 SM_POOL_SIZES = {"p3": 32, "p4": 16, "p5": 8}
+RES_LEVELS = ("res3", "res4", "res5")
 
 # the backbone families the port builds
-BACKBONES = ("vovnet_fpn", "dla_bifpn")
+BACKBONES = ("vovnet_fpn", "dla_bifpn", "resnet_fpn", "mnv3_fpn")
+# the families with an FPN over their res3-res5 maps (ResNet-50, MobileNetV3-small)
+RES_FPN = {"resnet_fpn": ResNetC4, "mnv3_fpn": MobileNetV3Small}
 QUANTIZE_MODES = ("none", "int8", "int8_static", "int8_resident")
 
 # parameters that fine-tuning never updates: VoVNet's stem, stage2 and stage3
-# (FREEZE_AT=3; the DLA builders ignore it). Every FrozenBN affine is frozen
-# too; here it is a buffer.
+# (FREEZE_AT=3; the DLA builders ignore it), and by the same names the stem
+# of ResNet and MobileNetV3, as the JAX package's labels freeze them. Every
+# FrozenBN affine is frozen too; here it is a buffer.
 FROZEN_PREFIXES = ("backbone.stem", "backbone.stage2_", "backbone.stage3_")
 
 Kernels = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -93,6 +100,11 @@ class CenterNet2Detector(nn.Module):
             chans = DLA.out_channels(cfg.dla.num_layers)
             self.fpn = BiFPN(levels, tuple(chans[f] for f in levels), c, cfg.fpn.bifpn_repeats, cfg.fpn.bifpn_norm,
                              dtype=self.dtype)
+        elif cfg.backbone_name in RES_FPN:
+            family = RES_FPN[cfg.backbone_name]
+            self.backbone = family(out_features=RES_LEVELS, dtype=self.dtype)
+            chans = family.out_channels()
+            self.fpn = FPN([chans[f] for f in RES_LEVELS], RES_LEVELS, c, cfg.fpn.fuse_type, dtype=self.dtype)
         else:
             # the backbone int8-resident under int8_resident; the FPN keeps the
             # int8_static scheme (its inputs are the float stage outputs)

@@ -33,7 +33,7 @@ def _dtype(x: torch.Tensor, w: torch.Tensor, dtype: Optional[torch.dtype]) -> to
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     dt = _dtype(x, conv.weight, dtype)
     bias = None if conv.bias is None else conv.bias.to(dt)
-    return F.conv2d(x.to(dt), conv.weight.to(dt), bias, conv.stride, conv.padding)
+    return F.conv2d(x.to(dt), conv.weight.to(dt), bias, conv.stride, conv.padding, groups=conv.groups)
 
 
 def linear(x: torch.Tensor, lin: nn.Linear, dtype: Optional[torch.dtype] = None) -> torch.Tensor:

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..models.attention_rpn import FsodRCNN
 from ..models.detector import CenterNet2Detector
 
 
@@ -119,6 +120,46 @@ def init_params(cfg: Config, seed: int = 0) -> Dict[str, torch.Tensor]:
             v = 8.0 + 0.1 * noise
         elif leaf == "weight":
             v = noise / np.sqrt(np.prod(shape[1:]))
+        else:
+            v = 0.1 * noise
+        sd[key] = torch.from_numpy(np.asarray(v, dtype=np.float32))
+    return sd
+
+
+# the baseline's layers that the JAX package initializes at N(0, 0.01^2)
+# rather than by fan-in; the score and box layers smaller still, so that a
+# random model's foreground probabilities stay below 1 and its boxes are not
+# clipped to lines (its ResNet's activations are larger than the JAX
+# init's)
+_BASELINE_SMALL_STD = {"rpn_head_mod.": 0.01, "relation_head.conv_1.": 0.01, "relation_head.cls_score_": 1e-4,
+                       "relation_head.adapt_": 0.01, "relation_head.bbox_pred_cor.": 1e-4}
+
+
+# the spread of a pixel on the 0-255 scale: the baseline's images are
+# normalized by PIXEL_STD 1, so its stem's fan-in init is divided by it
+_PIXEL_SPREAD = 64.0
+
+
+def init_baseline_params(depth: int = 50, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Seeded random weights for the AttentionRPN baseline (``FsodRCNN``) as
+    a state_dict (f32 CPU tensors, the same numbers on any machine): weights
+    N(0, 1/fan_in) (the stem's over _PIXEL_SPREAD as well, so that the res4
+    maps of 0-255-scale images stay O(1) and the RPN's boxes do not collapse),
+    except the RPN head and the relation head's layers at small deviations
+    (``_BASELINE_SMALL_STD``); FrozenBN and LayerNorm scales near 1; other
+    biases small."""
+    g = np.random.default_rng(seed)
+    sd = {}
+    for key, t in FsodRCNN(depth=depth).state_dict().items():
+        shape = tuple(t.shape)
+        noise = g.standard_normal(shape).astype(np.float32)
+        small = next((std for prefix, std in _BASELINE_SMALL_STD.items() if key.startswith(prefix)), None)
+        if key.endswith(("norm.scale", "ln.scale")):
+            v = 1.0 + 0.1 * noise
+        elif key.endswith(".weight"):
+            v = noise * small if small is not None else noise / np.sqrt(np.prod(shape[1:]))
+            if key == "backbone.stem.conv.weight":
+                v = v / _PIXEL_SPREAD
         else:
             v = 0.1 * noise
         sd[key] = torch.from_numpy(np.asarray(v, dtype=np.float32))

@@ -31,6 +31,7 @@ import torch
 
 from ..models.bifpn import NODES_3LEVEL
 from ..models.dla import DLA_SPECS
+from ..models.resnet import RESNET_DEPTH_SPECS
 from ..models.vovnet import VOVNET_STAGE_SPECS
 
 StateDict = Dict[str, torch.Tensor]
@@ -232,3 +233,28 @@ def convert_dla_bifpn_backbone(state_dict: Mapping, num_layers: int = 34, norm: 
         fpn[f"repeat{r}"] = cell
     return _flat({"backbone": backbone, "fpn": fpn})
 
+
+
+def convert_torchvision_resnet(state_dict: Mapping, depth: int = 50) -> StateDict:
+    """A torchvision ResNet state_dict -> the port's ResNet keys: the stem and
+    res2-res5 (``stem.*``, ``res2.block0.conv1.*``, ...), which load into a
+    ``ResNetC4`` with res5 among its outputs; the ``res5.*`` keys alone load
+    into a ``Res5Stage``. torchvision puts a stage's stride on the 3x3 conv:
+    build the model with stride_in_1x1=False."""
+    sd = state_dict.get("model", state_dict)
+    blocks = RESNET_DEPTH_SPECS[depth]
+
+    def conv_bn(conv_key: str, bn_key: str) -> Dict:
+        return {"conv": {"weight": _f32(_t(sd[conv_key + ".weight"]))}, "norm": _frozen_bn(sd, bn_key)}
+
+    tree: Dict = {"stem": conv_bn("conv1", "bn1")}
+    for si, layer in enumerate(("layer1", "layer2", "layer3", "layer4")):
+        stage: Dict = {}
+        for b in range(blocks[si]):
+            p = f"{layer}.{b}"
+            entry = {f"conv{i}": conv_bn(f"{p}.conv{i}", f"{p}.bn{i}") for i in (1, 2, 3)}
+            if f"{p}.downsample.0.weight" in sd:
+                entry["shortcut"] = conv_bn(f"{p}.downsample.0", f"{p}.downsample.1")
+            stage[f"block{b}"] = entry
+        tree[f"res{si + 2}"] = stage
+    return _flat(tree)

@@ -1,5 +1,6 @@
 """Drift guard: the port's config copy equals the JAX package's config for
-every preset the port names."""
+every preset the port names, and the port's BaselineConfig (the
+AttentionRPN baseline's) equals the JAX package's, field for field."""
 
 import dataclasses
 
@@ -49,3 +50,14 @@ def test_default_config_matches_jax():
     from faster_orefsdet_tpu_torch.config import Config
 
     assert dataclasses.asdict(Config()) == dataclasses.asdict(JaxConfig())
+
+
+def test_baseline_config_matches_jax():
+    from faster_orefsdet_tpu.pipelines.attention_rpn import BaselineConfig as JaxBaselineConfig
+    from faster_orefsdet_tpu_torch.pipelines.attention_rpn import BaselineConfig
+
+    fields = [(f.name, f.type) for f in dataclasses.fields(BaselineConfig)]
+    assert fields == [(f.name, f.type) for f in dataclasses.fields(JaxBaselineConfig)]
+    assert dataclasses.asdict(BaselineConfig()) == dataclasses.asdict(JaxBaselineConfig())
+    over = dict(rpn_pre_nms_topk_test=128, test_nms_thresh=0.3, support_shot=2)
+    assert dataclasses.asdict(BaselineConfig(**over)) == dataclasses.asdict(JaxBaselineConfig(**over))

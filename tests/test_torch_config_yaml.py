@@ -1,8 +1,10 @@
 """The port's yaml configs against the JAX package's, on every file of
 configs/fsod: the port's own YAML reader equals yaml.safe_load, each
 CenterNet2Detector yaml resolves to the JAX package's Config (as dataclass
-dicts), the dead configurations raise DeadReferenceConfigError in both, the
-AttentionRPN baseline is refused, and an unknown key is an error."""
+dicts), the dead configurations raise DeadReferenceConfigError in both,
+`load_yaml` reads the AttentionRPN baseline's yaml as the JAX package's
+BaselineConfig (and `load_yaml_config` refuses it, as the JAX package's
+does), and an unknown key is an error."""
 
 import dataclasses
 from pathlib import Path
@@ -70,8 +72,39 @@ def test_dead_configs_refused_like_jax(name):
 
 
 def test_baseline_is_not_ported():
-    with pytest.raises(NotImplementedError, match="AttentionRPN baseline"):
+    """load_yaml_config takes CenterNet2Detector yamls only: the baseline's
+    is refused there in both packages (load_yaml reads it, below)."""
+    with pytest.raises(ValueError, match="not a CenterNet2Detector yaml"):
         config_yaml.load_yaml_config(str(CONFIGS / "Base-FSOD-C4.yaml"))
+    with pytest.raises(ValueError, match="not a CenterNet2Detector yaml"):
+        jax_config_yaml.load_yaml_config(str(CONFIGS / "Base-FSOD-C4.yaml"))
+
+
+def test_load_yaml_reads_the_baseline_like_jax():
+    from faster_orefsdet_tpu_torch.pipelines.attention_rpn import BaselineConfig
+
+    got = config_yaml.load_yaml(str(CONFIGS / "Base-FSOD-C4.yaml"))
+    assert isinstance(got, BaselineConfig)
+    ref = jax_config_yaml.load_yaml(str(CONFIGS / "Base-FSOD-C4.yaml"))
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    assert (got.rpn_pre_nms_topk_test, got.roi_batch_size, got.support_shot) == (1000, 128, 10)
+
+
+@pytest.mark.parametrize("name,preset", [("finetune_R_50_C4_1x.yaml", "finetune_R_50_C4_1x"),
+                                         ("finetune_vovnet.yaml", "finetune_vovnet")])
+def test_load_yaml_gives_the_named_config(name, preset):
+    got = config_yaml.load_yaml(str(CONFIGS / name))
+    assert dataclasses.asdict(got) == dataclasses.asdict(get_config(preset))
+    assert dataclasses.asdict(got) == dataclasses.asdict(jax_config_yaml.load_yaml(str(CONFIGS / name)))
+
+
+def test_unknown_baseline_key_is_an_error(tmp_path):
+    bad = tmp_path / "bad.yaml"
+    bad.write_text((CONFIGS / "Base-FSOD-C4.yaml").read_text() + "TEST:\n  NOPE: 1\n")
+    with pytest.raises(KeyError, match="TEST.NOPE"):
+        config_yaml.load_yaml(str(bad))
+    with pytest.raises(KeyError, match="TEST.NOPE"):
+        jax_config_yaml.load_yaml(str(bad))
 
 
 def test_unknown_key_is_an_error(tmp_path):

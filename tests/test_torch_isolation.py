@@ -15,7 +15,7 @@ from faster_orefsdet_tpu_torch.cli import demo, visualize_features
 from faster_orefsdet_tpu_torch.config import get_config
 from faster_orefsdet_tpu_torch.data.coco import SupportEntry
 from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
-from faster_orefsdet_tpu_torch.pipelines import evaluate, inference, support_cache
+from faster_orefsdet_tpu_torch.pipelines import attention_rpn, evaluate, inference, support_cache
 from faster_orefsdet_tpu_torch.data import loader
 from faster_orefsdet_tpu_torch.pipelines import train_step
 from faster_orefsdet_tpu_torch.pipelines.async_predictor import AsyncPredictor
@@ -86,19 +86,25 @@ def test_port_imports_without_jax():
                                     "utils.debug_vis", "cli.build_support", "cli.demo", "cli.visualize_features",
                                     "ops.quant", "pipelines.quant_calib", "utils.events", "parallel",
                                     "parallel.mesh", "parallel.train_dp", "parallel.serve_dp",
-                                    "parallel.eval_dp", "cli.train"])
+                                    "parallel.eval_dp", "cli.train", "pipelines.attention_rpn"])
 def test_new_module_imports_alone(module):
     """The yaml reader, DLA and BiFPN, the checkpoint converter, the debug
     overlays, the workflow's CLIs, the int8 ops, the calibration, the
-    event logger, the data-parallel package and the train command line
-    import with none of jax, flax, yaml, cv2 or PIL present
-    (the card's machine has no PyYAML, cv2 or PIL); the reader reads the
-    reference's configs there."""
+    event logger, the data-parallel package, the train command line and the
+    AttentionRPN baseline (with it the ResNet and MobileNetV3 modules)
+    import with none of jax, flax, yaml, cv2 or PIL present (the card's
+    machine has no PyYAML, cv2 or PIL); the reader reads the reference's
+    configs there, the baseline's included."""
     out = _run_blocked(("jax", "jaxlib", "flax", "optax", "faster_orefsdet_tpu", "yaml", "cv2", "PIL"), f"""
         import importlib
         importlib.import_module("faster_orefsdet_tpu_torch.{module}")
+        if "{module}" == "pipelines.attention_rpn":
+            assert {{"faster_orefsdet_tpu_torch.models.resnet", "faster_orefsdet_tpu_torch.models.mobilenet",
+                     "faster_orefsdet_tpu_torch.models.attention_rpn"}} <= set(sys.modules)
         from faster_orefsdet_tpu_torch.config_yaml import load_yaml_config
         assert load_yaml_config("configs/fsod/finetune_dla.yaml").fpn.out_channels == 160
+        from faster_orefsdet_tpu_torch.config_yaml import load_yaml
+        assert type(load_yaml("configs/fsod/Base-FSOD-C4.yaml")).__name__ == "BaselineConfig"
         loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not loaded, loaded
         """)
@@ -245,6 +251,49 @@ def test_quantized_detector_runs_without_jax(name):
         cache = SupportCache(*(torch.zeros(s, s, 128) for s in (32, 16, 8, 8, 4)))
         det = build_inference_fn(cfg, sd, device="cpu", act_scales=scales)(cache, images[0], (64.0, 96.0))
         assert det.boxes.shape == (64, 4) and torch.isfinite(det.boxes).all() and det.valid.any()
+        loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not loaded, loaded
+        """)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("builder", [
+    lambda cfg: attention_rpn.make_fsod_rcnn(cfg),
+    lambda cfg: attention_rpn.build_baseline_cache(cfg, None, torch.zeros(1, 3, 64, 64), torch.zeros(1, 4)),
+    lambda cfg: attention_rpn.build_baseline_inference_fn(cfg, None),
+], ids=["make_fsod_rcnn", "build_baseline_cache", "build_baseline_inference_fn"])
+def test_baseline_entry_points_default_to_the_card(builder, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        builder(attention_rpn.BaselineConfig())
+
+
+def test_resnet_family_runs_without_jax():
+    """finetune_R_50_C4_1x and mnv3_fpn serve, and the AttentionRPN baseline
+    builds its cache and serves, on the CPU in an interpreter where jax,
+    flax and the JAX package cannot be imported."""
+    out = _run_blocked(("jax", "jaxlib", "flax", "optax", "orbax", "faster_orefsdet_tpu", "yaml"), """
+        import torch
+        from faster_orefsdet_tpu_torch.config import get_config
+        from faster_orefsdet_tpu_torch.config_yaml import load_yaml
+        from faster_orefsdet_tpu_torch.pipelines import attention_rpn
+        from faster_orefsdet_tpu_torch.pipelines.inference import build_inference_fn
+        from faster_orefsdet_tpu_torch.pipelines.support_cache import SupportCache
+        from faster_orefsdet_tpu_torch.utils.params import init_baseline_params, init_params
+
+        image = torch.randn(3, 64, 96)
+        cache = SupportCache(*(torch.zeros(s, s, 128) for s in (32, 16, 8, 4, 4)))
+        for cfg in (get_config("finetune_R_50_C4_1x"), get_config("serving_vovnet").replace(
+                backbone_name="mnv3_fpn", compute_dtype="float32")):
+            c = cache if cfg.roi.pooler_resolution == 4 else cache._replace(rcnn_8=torch.zeros(8, 8, 128))
+            det = build_inference_fn(cfg, init_params(cfg, seed=0), device="cpu")(c, image, (64.0, 96.0))
+            assert torch.isfinite(det.boxes).all() and det.valid.any()
+        bcfg = load_yaml("configs/fsod/Base-FSOD-C4.yaml")
+        sd = init_baseline_params(bcfg.depth, seed=0)
+        bcache = attention_rpn.build_baseline_cache(bcfg, sd, torch.randn(2, 3, 64, 64),
+                                                    torch.tensor([[4.0, 4.0, 60.0, 60.0]] * 2), device="cpu")
+        det = attention_rpn.build_baseline_inference_fn(bcfg, sd, device="cpu")(bcache, image, (64.0, 96.0))
+        assert torch.isfinite(det.boxes).all() and det.valid.any()
         loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not loaded, loaded
         """)
