@@ -185,7 +185,23 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    each gradient within 1e-3 of its tensor's largest, then 2 + 3 steps with
    sgd_update (1 NMS launch a step, K2 bit for bit on a step's own [1, 2000]
    set), step ms and peak memory. Each new K2 site is timed as phase 11
-   times its rows ("timing": "nms" lines named by site).
+   times its rows ("timing": "nms" lines named by site);
+20. the one-stage CenterNet over P3-P7 (finetune_vovnet with fpn.top_levels=2,
+   strides 8-128, size_divisibility 128, f32, TF32 off) at full width on six
+   synthetic VGA frames on 384x512 canvases, at 1 and 9 classes: one NMS
+   launch a request (the class-aware NMS over [1, 2020] and [1, 3540], the
+   register and the wide sweep), each call bit for bit on the request's own
+   inputs, card vs CPU per frame by phase 5's criteria within each class,
+   K2's rows timed as phase 11 times its rows, request ms at batch 1 in bf16
+   and f32; a 320x448 canvas refused at P7; the six other VoVNet specs, V-19-eSE
+   with FPN P3-P7, Res2Net-50, RegNetX-400MF and RegNetY-400MF at 384x512,
+   DLASeg-34 at 512x512 (random offsets and masks), CoT and CBAM at 128
+   channels on a P3 map, each card vs CPU within 1e-4 of its largest
+   output (or 3x the CPU's own f32 vs f64, printed beside it), eager ms and
+   peak memory; the federated loss card vs CPU; a torch.profiler trace,
+   the flops of a one-stage request, measure_model(serving_vovnet),
+   device_memory; the C++ COCO matcher built with g++ on the machine, and
+   coco_ap with it equal to the numpy twin's on phase 10's eval set.
 
 Each result is one JSON line. The line before the last holds the kernels'
 table; the last line is {"ok": true, "device": {...}}. Run without the
@@ -287,6 +303,13 @@ BASELINE_ZERO_GRAD = ("rpn_enhance.channel_k.bias", "rcnn_enhance.channel_k.bias
 TRAIN_STAGES = ("features", "refine_support", "correlate", "proposal_head", "targets", "decode_proposals",
                 "roi_sampling", "roi_stage", "backward", "optimizer", "Optimizer.step#SGD.step",
                 "Optimizer.zero_grad#SGD.zero_grad")
+# phase 20, the one-stage CenterNet over P3-P7, the rest of the zoo, fed loss, profiling, the native matcher
+ONESTAGE_CONFIG, ONESTAGE_FRAMES, ONESTAGE_CLASSES = "finetune_vovnet", 6, (1, 9)
+ONESTAGE_LEVELS, ONESTAGE_STRIDES = ("p3", "p4", "p5", "p6", "p7"), (8, 16, 32, 64, 128)
+ZOO_INPUT_HW, DLASEG_INPUT_HW, ZOO_ATTENTION_CHANNELS = (384, 512), (512, 512), 128
+ZOO_TOL = 1e-4  # card vs CPU in f32, of each output's largest |value| (or DLA_F32_FACTOR x the witness)
+REGNET_Y_400MF = dict(w_a=27.89, w_0=48, w_m=2.09, depth=16, group_width=8, se_ratio=0.25)
+FED_CLASSES, FED_LOSS_RTOL = 100, 1e-5  # the loss: a sum of 6400 f32 terms in another order
 STAGES = ("features", "correlate", "proposal_head", "decode_proposals", "roi_stage", "roi_inference")
 OWN_KERNELS = ("cgm_kernel", "nms_rank_kernel", "nms_mask_kernel", "nms_sweep_kernel")
 
@@ -2670,6 +2693,271 @@ def phase_resnet(torch, np, smi):
     return out
 
 
+# ------------------------------------------------------------------ phase 20
+def onestage_cfg(cfg, num_classes: int, dtype: str = "float32"):
+    """cfg as the one-stage detector over P3-P7 (fpn.top_levels=2, strides
+    8-128, canvases a multiple of 128) with `num_classes` classes."""
+    return cfg.replace(
+        compute_dtype=dtype,
+        fpn=dataclasses.replace(cfg.fpn, top_levels=2),
+        centernet=dataclasses.replace(cfg.centernet, in_features=ONESTAGE_LEVELS, fpn_strides=ONESTAGE_STRIDES,
+                                      only_proposal=False, num_classes=num_classes),
+        input=dataclasses.replace(cfg.input, size_divisibility=ONESTAGE_STRIDES[-1]),
+    )
+
+
+def zoo_card_vs_cpu(torch, make, x, what) -> dict:
+    """A module of the zoo card vs CPU in f32 (TF32 off): each output within
+    ZOO_TOL of its largest |value|, or within DLA_F32_FACTOR x the CPU's own
+    f32 vs f64 error (phase 15's witness, computed only where ZOO_TOL is
+    exceeded) where that is larger. make() -> the module with its weights;
+    its forward returns a dict of maps or one map."""
+    def run(dev, dtype):
+        model = make().to(device=dev, dtype=dtype).eval()
+        with torch.no_grad():
+            y = model(x.to(device=dev, dtype=dtype))
+        return {k: v.double().cpu() for k, v in (y.items() if isinstance(y, dict) else [("out", y)])}
+
+    card, cpu = run("cuda", torch.float32), run("cpu", torch.float32)
+    res = {}
+    for k, ref in cpu.items():
+        largest = float(ref.abs().max())
+        err = float((card[k] - ref).abs().max())
+        res[k] = {"shape": list(ref.shape), "max_abs_err": err, "largest": largest, "limit": ZOO_TOL * largest}
+    beyond = [k for k, r in res.items() if r["max_abs_err"] > r["limit"]]
+    if beyond:
+        f64 = run("cpu", torch.float64)
+        for k in beyond:
+            witness = float((cpu[k] - f64[k]).abs().max())
+            res[k].update(cpu_f32_vs_f64=witness, limit=max(res[k]["limit"], DLA_F32_FACTOR * witness))
+    bad = {k: r for k, r in res.items() if r["max_abs_err"] > r["limit"]}
+    if bad:
+        raise AssertionError(f"{what} card vs CPU: {bad}")
+    return res
+
+
+def phase_onestage(torch, np, smi):
+    """The one-stage CenterNet over P3-P7 at full width on six VGA frames
+    (1 and 9 classes: K2 at its register and wide sweep), the P7 canvas
+    refusal, the rest of the backbone zoo and the attention zoo at the
+    published widths, the federated loss, the profiling utilities and the
+    native COCO matcher, each card vs CPU."""
+    import tempfile
+
+    from faster_orefsdet_tpu_torch.config import get_config, serving_vovnet
+    from faster_orefsdet_tpu_torch.evaluation import coco_eval
+    from faster_orefsdet_tpu_torch.models.dlaup import DLASeg
+    from faster_orefsdet_tpu_torch.models.fpn import FPN
+    from faster_orefsdet_tpu_torch.models.regnet import RegNet
+    from faster_orefsdet_tpu_torch.models.res2net import Res2Net
+    from faster_orefsdet_tpu_torch.models.vovnet import VOVNET_STAGE_SPECS, VoVNet
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda, fed_loss, nms_cuda
+    from faster_orefsdet_tpu_torch.ops.attention import CBAMBlock, CoTAttention
+    from faster_orefsdet_tpu_torch.ops.heatmap import level_grid_shapes
+    from faster_orefsdet_tpu_torch.pipelines import onestage
+    from faster_orefsdet_tpu_torch.pipelines.inference import pack_detections, rescale_detections, unpack_detections_np
+    from faster_orefsdet_tpu_torch.pipelines.preprocess import ceil_to, preprocess_device, resize_shortest_edge_size
+    from faster_orefsdet_tpu_torch.utils import profiling
+    from faster_orefsdet_tpu_torch.utils.params import init_onestage_params, seeded_init
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "k2": {}, "nms_err": 0.0, "nms_mismatches": 0}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---- the one-stage detector on six VGA frames, 1 and 9 classes (f32)
+    frames, _ = synthetic_frames(np, ONESTAGE_FRAMES, seed=20)
+    u8 = torch.from_numpy(np.stack(frames)).permute(0, 3, 1, 2).contiguous().cuda()
+    base = onestage_cfg(get_config(ONESTAGE_CONFIG), 1)
+    rh, rw = resize_shortest_edge_size(*FRAME_HW, base.input.min_size_test, base.input.max_size_test)
+    d = base.input.size_divisibility
+    canvas = (ceil_to(rh, d), ceil_to(rw, d))
+    canvases = preprocess_device(u8, (rh, rw), canvas, base.input.pixel_mean, base.input.pixel_std)
+    hw = (float(rh), float(rw))
+    shapes = level_grid_shapes(canvas, ONESTAGE_STRIDES)
+    for n in ONESTAGE_CLASSES:
+        cfg = onestage_cfg(get_config(ONESTAGE_CONFIG), n)
+        params = init_onestage_params(cfg, seed=20)
+        fns = {dev: onestage.build_onestage_inference_fn(cfg, params, device=dev) for dev in ("cuda", "cpu")}
+        k = sum(min(cfg.centernet.pre_nms_topk_test, h * w * n) for h, w in shapes)
+        dets, seen = [], {}
+
+        def requests():
+            for i in range(ONESTAGE_FRAMES):
+                dets.append(pack_detections(fns["cuda"](canvases[i], hw)))
+
+        launches = count_launches(cgm_cuda, nms_cuda, lambda: seen.update(record_nms_calls(torch, requests)))
+        out["launches"][f"onestage_{n}class"] = launches
+        checks, worst = check_nms_calls(torch, seen)
+        out["nms_err"] = max(out["nms_err"], worst)
+        out["nms_mismatches"] += sum(c["mismatches"] for c in checks)
+        sites = [c["shape"] for c in checks if c["site"] == "kernel"]
+        cpu_dets = [pack_detections(fns["cpu"](canvases[i].cpu(), hw)) for i in range(ONESTAGE_FRAMES)]
+        matches = [match(np, unpack_detections_np(a), unpack_detections_np(b), MATCH_DSCORE, by_class=True)
+                   for a, b in zip(dets, cpu_dets)]
+        finite = all(bool(torch.isfinite(p).all()) for p in dets)
+        emit(onestage={"classes": n, "canvas": list(canvas), "image_hw": [rh, rw], "k": k, "launches": launches,
+                       "nms_sites": sites, "nms_mismatches": sum(c["mismatches"] for c in checks),
+                       "nms_checks": len(checks), "card_vs_cpu": matches, "all_finite": finite,
+                       "valid_per_frame": [int(p[:, 6].sum()) for p in dets]})
+        if launches != {"cgm": 0, "nms": ONESTAGE_FRAMES} or sites != [[1, k]] * ONESTAGE_FRAMES:
+            raise AssertionError(f"one-stage {n} classes: launches {launches}, K2 sites {sites} (K = {k})")
+        if any(c["mismatches"] for c in checks) or not finite or not all(m["ok"] for m in matches):
+            raise AssertionError(f"one-stage {n} classes: K2 checks {checks}, card vs CPU {matches}")
+        args = seen["kernel"][0]
+        out["k2"][f"onestage{n}"] = {"launches": ONESTAGE_FRAMES, **nms_row(torch, args[:3], args[3])}
+        emit(timing="nms", site=f"onestage{n}", **out["k2"][f"onestage{n}"], card=smi)
+
+    # the refusal: at P7 a 320x448 canvas (the P3-P5 serving canvas of a VGA frame)
+    try:
+        fns["cuda"](torch.zeros(3, *CANVAS_HW, device="cuda"), IMAGE_HW)
+        raise AssertionError("the one-stage detector took a 320x448 canvas at P7")
+    except ValueError as e:
+        if "size_divisibility" not in str(e):
+            raise
+        emit(onestage_refusal={"canvas": list(CANVAS_HW), "error": str(e)})
+
+    # request times, library defaults (TF32 convs), bf16 and f32, batch 1
+    torch.backends.cudnn.allow_tf32 = True
+    times = {}
+    for n in ONESTAGE_CLASSES:
+        for dtype in ("bfloat16", "float32"):
+            cfg = onestage_cfg(get_config(ONESTAGE_CONFIG), n, dtype)
+            fn = onestage.build_onestage_inference_fn(cfg, init_onestage_params(cfg, seed=20))
+            torch.cuda.reset_peak_memory_stats()
+            med, lo, hi = request_times(torch, lambda: fn(canvases[0], hw), 10)
+            times[f"{n}class_{dtype}"] = {"ms_median": med, "ms_min": lo, "ms_max": hi,
+                                          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["times"] = times
+    emit(onestage_e2e={"config": ONESTAGE_CONFIG, "levels": list(ONESTAGE_LEVELS), "canvas": list(canvas),
+                       "batch": 1, **times, "card": smi})
+
+    # ---- the zoo at the published widths, batch 1, card vs CPU (TF32 off), ms and peak memory
+    g = torch.Generator().manual_seed(20)
+    x = torch.randn(1, 3, *ZOO_INPUT_HW, generator=g)
+    x512 = torch.randn(1, 3, *DLASEG_INPUT_HW, generator=g)
+    p3 = torch.randn(1, ZOO_ATTENTION_CHANNELS, ZOO_INPUT_HW[0] // 8, ZOO_INPUT_HW[1] // 8, generator=g)
+    stages = ("stage2", "stage3", "stage4", "stage5")
+
+    class WithFPN(torch.nn.Module):
+        def __init__(self, spec):
+            super().__init__()
+            self.backbone = VoVNet(spec, stages[1:])
+            chans = VoVNet.out_channels(spec)
+            self.fpn = FPN([chans[s] for s in stages[1:]], stages[1:], 128, top_levels=2)
+
+        def forward(self, t):
+            return self.fpn(self.backbone(t))
+
+    def seeded(module, seed):
+        module.load_state_dict(seeded_init(module.state_dict(), seed), strict=True)
+        return module
+
+    zoo = {spec: (lambda s=spec: seeded(VoVNet(s, stages), 1), x)
+           for spec in sorted(VOVNET_STAGE_SPECS) if spec != "V-19-slim-eSE"}
+    zoo["V-19-eSE+FPN-P3-P7"] = (lambda: seeded(WithFPN("V-19-eSE"), 2), x)
+    zoo["Res2Net-50"] = (lambda: seeded(Res2Net(50, ("res2", "res3", "res4", "res5")), 3), x)
+    zoo["RegNetX-400MF"] = (lambda: seeded(RegNet(out_features=("s1", "s2", "s3", "s4")), 4), x)
+    zoo["RegNetY-400MF"] = (lambda: seeded(RegNet(out_features=("s1", "s2", "s3", "s4"), **REGNET_Y_400MF), 5), x)
+    zoo["DLASeg-34"] = (lambda: seeded(DLASeg(34), 6), x512)
+    zoo["CoT-128"] = (lambda: seeded(CoTAttention(ZOO_ATTENTION_CHANNELS), 7), p3)
+    zoo["CBAM-128"] = (lambda: seeded(CBAMBlock(ZOO_ATTENTION_CHANNELS), 8), p3)
+    torch.backends.cudnn.allow_tf32 = False
+    zoo_rows = {}
+    for name, (make, inp) in zoo.items():
+        t0 = time.perf_counter()
+        check = zoo_card_vs_cpu(torch, make, inp, name)
+        zoo_rows[name] = {"input": list(inp.shape), "card_vs_cpu": check, "check_s": time.perf_counter() - t0}
+    torch.backends.cudnn.allow_tf32 = True
+    for name, (make, inp) in zoo.items():
+        model, xin = make().cuda().eval(), inp.cuda()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            med, lo, hi = request_times(torch, lambda: model(xin), 5)
+        zoo_rows[name].update(ms_median=med, ms_min=lo, ms_max=hi,
+                              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                              params=sum(p.numel() for p in model.parameters()))
+        emit(zoo={"module": name, **zoo_rows[name], "card": smi})
+        del model
+    out["zoo"] = zoo_rows
+
+    # ---- the federated loss card vs CPU
+    gc = torch.Generator().manual_seed(21)
+    u = torch.rand(FED_CLASSES, generator=gc)
+    gt = torch.randint(0, FED_CLASSES + 1, (32,), generator=gc)
+    weight = torch.rand(FED_CLASSES, generator=gc) * 30 + 0.5
+    masks = {dev: fed_loss.fed_loss_mask_from_uniforms(u.to(dev), gt.to(dev), FED_CLASSES, 50, weight.to(dev))
+             for dev in ("cuda", "cpu")}
+    scores = torch.randn(64, FED_CLASSES + 1, generator=gc) * 3
+    rows = torch.randint(0, FED_CLASSES + 1, (64,), generator=gc)
+    valid = torch.rand(64, generator=gc) < 0.8
+    losses = {dev: float(fed_loss.sigmoid_cross_entropy_loss(scores.to(dev), rows.to(dev), valid.to(dev),
+                                                             masks[dev])) for dev in ("cuda", "cpu")}
+    drawn = fed_loss.fed_loss_class_mask(gt.cuda(), FED_CLASSES, 50, weight.cuda(),
+                                         generator=torch.Generator(device="cuda").manual_seed(0))
+    fed = {"masks_equal": bool(torch.equal(masks["cuda"].cpu(), masks["cpu"])), "losses": losses,
+           "loss_rel_err": abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"]),
+           "drawn_on_card": int(drawn.sum())}
+    emit(fed_loss=fed)
+    if not fed["masks_equal"] or fed["loss_rel_err"] > FED_LOSS_RTOL or fed["drawn_on_card"] < 50:
+        raise AssertionError(f"fed loss card vs CPU: {fed}")
+
+    # ---- profiling: a trace, the flops of a one-stage request, measure_model, device_memory
+    cfg = onestage_cfg(get_config(ONESTAGE_CONFIG), 1)
+    fn = onestage.build_onestage_inference_fn(cfg, init_onestage_params(cfg, seed=20))
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir):
+            fn(canvases[0], hw)
+            torch.cuda.synchronize()
+        trace_bytes = sum(os.path.getsize(os.path.join(log_dir, f)) for f in os.listdir(log_dir))
+    cost = profiling.cost_analysis(fn, canvases[0], hw)
+    measured = profiling.measure_model(serving_vovnet())
+    mem = profiling.device_memory()
+    prof = {"trace_bytes": trace_bytes, "onestage_request_flops": cost["flops"], "measure_model": measured,
+            "device_memory": mem}
+    emit(profiling=prof)
+    if not (trace_bytes > 0 and cost["flops"] > 0 and measured["params"] > 0 and measured["flops"] > 0
+            and "cuda:0" in mem):
+        raise AssertionError(f"profiling: {prof}")
+
+    # ---- the native COCO matcher: phase 10's eval set, the one-stage detections and jittered ground truth
+    records, _, store = eval_data(np, get_config(ONESTAGE_CONFIG), EVAL_FRAMES, EVAL_SHOTS)
+    eval_u8 = torch.from_numpy(np.stack([store[r.file_name] for r in records])).permute(0, 3, 1, 2).cuda()
+    eval_canvases = preprocess_device(eval_u8, (rh, rw), canvas, base.input.pixel_mean, base.input.pixel_std)
+    det = fn(eval_canvases, torch.tensor([hw] * len(records)))
+    det = unpack_detections_np(pack_detections(rescale_detections(det, (FRAME_HW[0] / rh, FRAME_HW[1] / rw))))
+    jitter = np.random.default_rng(22)
+    dets, gts = [], []
+    for i, r in enumerate(records):
+        gt_boxes = np.asarray([a.bbox for a in r.annotations], np.float64)
+        near = gt_boxes + jitter.normal(0, 3, gt_boxes.shape)
+        boxes = np.concatenate([det["boxes"][i][det["valid"][i]], near])
+        scores = np.concatenate([det["scores"][i][det["valid"][i]], jitter.uniform(0, 1, len(near))])
+        dets.append(coco_eval.DetResult(r.image_id, boxes, scores))
+        gts.append(coco_eval.GTImage(r.image_id, gt_boxes, np.zeros(len(gt_boxes), bool),
+                                     (gt_boxes[:, 2] - gt_boxes[:, 0]) * (gt_boxes[:, 3] - gt_boxes[:, 1])))
+    t0 = time.perf_counter()
+    lib = coco_eval._native_matcher()
+    native = coco_eval.coco_ap(dets, gts)
+    native_s = time.perf_counter() - t0
+    coco_eval._NATIVE = None
+    try:
+        t0 = time.perf_counter()
+        plain = coco_eval.coco_ap(dets, gts)
+        plain_s = time.perf_counter() - t0
+    finally:
+        coco_eval._NATIVE = lib
+    same = all(native[k] == plain[k] or (np.isnan(native[k]) and np.isnan(plain[k])) for k in AP_KEYS)
+    emit(native_cocoeval={"library": str(getattr(lib, "_name", lib)), "frames": len(records), "native": native,
+                          "numpy": plain, "equal": same, "native_s": native_s, "numpy_s": plain_s})
+    if not same:
+        raise AssertionError(f"coco_ap with the native matcher {native} != the numpy twin's {plain}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(onestage_phase_s=out["phase_s"])
+    return out
+
+
 def request_times(torch, fn, iters):
     """(median, min, max) ms of fn() by the host's clock, each call ending
     in a sync, after 3 warm-up calls."""
@@ -2992,6 +3280,9 @@ def main() -> int:
     # ---- 19. the ResNet-50 family: finetune_R_50_C4_1x, mnv3_fpn, the AttentionRPN baseline
     resnet = phase_resnet(torch, np, smi)
 
+    # ---- 20. the one-stage CenterNet over P3-P7, the rest of the zoo, fed loss, profiling, the native matcher
+    one = phase_onestage(torch, np, smi)
+
     # launches counted by the wrappers on each eager path; the pinned path's
     # and the graphed train steps' from their graphs' captured launches times
     # their replays (phases 7, 14, 15, 17 and 19), plus the K-step function's
@@ -3002,10 +3293,11 @@ def main() -> int:
                "dla_eval": dla["eval_launches"], "workflow_glob": workflow["glob_launches"],
                "workflow_dla_c160": workflow["dla_launches"], "quant": quant["launches"],
                "quant_pinned_replays": quant["pinned_replays"], "dp": dp_launches,
-               **{f"resnet_{k}": v for k, v in {**resnet["launches"], **resnet["graph_launches"]}.items()}}
+               **{f"resnet_{k}": v for k, v in {**resnet["launches"], **resnet["graph_launches"]}.items()},
+               **one["launches"]}
     resnet_paths = tuple(f"resnet_{k}" for k in resnet["launches"])
     eager_paths = ("main", "raw_frames", "multiclass", "train", "dla_train", "dla_eval", "workflow_glob",
-                   "workflow_dla_c160", "quant", "dp") + resnet_paths
+                   "workflow_dla_c160", "quant", "dp") + resnet_paths + tuple(one["launches"])
     counted = {k: sum(by_path[p][k] for p in eager_paths) for k in ("cgm", "nms")}
     resnet_entry = {k: {"launches": sum(by_path[p][k] for p in resnet_paths),
                         "launches_by_path": {p: v[k] for p, v in by_path.items() if p.startswith("resnet_")}}
@@ -3028,16 +3320,19 @@ def main() -> int:
          "replaces": "faster_orefsdet_tpu/ops/pallas_nms.py:46",
          "launches": counted["nms"], "launches_by_path": {p: v["nms"] for p, v in by_path.items()},
          "max_abs_err": max(nms_err, multi_nms_err, train["nms_err"], dla["nms_err"], quant["roi_site"]["max_abs_err"],
-                            resnet["nms_err"]),
+                            resnet["nms_err"], one["nms_err"]),
          "mismatches": nms_mismatches + train["nms_mismatches"] + dla["nms_mismatches"]
-         + quant["roi_site"]["mismatches"] + resnet["nms_mismatches"],
+         + quant["roi_site"]["mismatches"] + resnet["nms_mismatches"] + one["nms_mismatches"],
          "ms": nms_ms, "enqueue_ms": nms_enq_ms, "plain_ms": nms_plain_ms, **bound(nms_bytes, nms_flops),
          "train_site": train["nms_site"], "dla_train_site": dla["train_site"],
          "dla_serving_decode_site": dla["serve_site"],
          "multiclass9_site": wide_site, f"k{WIDE_NMS_K}_random": wide_random,
          "fast_roi_site": {**fast_roi, "launches": quant["roi_site"]["launches"]},
          "resnet": {**resnet_entry["nms"], "max_abs_err": resnet["nms_err"], "mismatches": resnet["nms_mismatches"],
-                    "sites": resnet["k2"]}},
+                    "sites": resnet["k2"]},
+         "onestage": {"launches_by_classes": {n: one["launches"][f"onestage_{n}class"]["nms"]
+                                              for n in ONESTAGE_CLASSES},
+                      "max_abs_err": one["nms_err"], "mismatches": one["nms_mismatches"], "sites": one["k2"]}},
     ])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

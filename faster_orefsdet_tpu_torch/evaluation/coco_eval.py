@@ -1,14 +1,20 @@
-"""COCO-style AP evaluation in numpy (counterpart of the numpy path of
+"""COCO-style AP evaluation (counterpart of
 ``faster_orefsdet_tpu/evaluation/coco_eval.py``).
 
 The COCO detection metric for the single category "ore": AP@[.5:.95],
 AP50, AP75, APs/m/l and AR@100, by greedy per-image matching in descending
 score order at 10 IoU thresholds, with crowd and area-range ignores, and
 101-point interpolated precision.
+
+The per-image matcher runs in C++ (``csrc/cocoeval.cc``, built with the
+host's g++ at first use by ``ops._native.host_library``; a failed build
+raises). The numpy matcher is its plain twin, bit-identical, and runs only
+while ``_NATIVE`` is set to None.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
@@ -23,6 +29,17 @@ AREA_RANGES = {
     "large": (96.0**2, 1e10),
 }
 MAX_DETS = 100
+_NATIVE = "build"  # the C++ matcher, built at first use; None selects the numpy twin
+
+
+def _native_matcher():
+    """The loaded C++ matcher, or None while ``_NATIVE`` is None."""
+    global _NATIVE
+    if _NATIVE == "build":
+        from ..ops._native import host_library
+
+        _NATIVE = host_library("cocoeval")
+    return _NATIVE
 
 
 @dataclass
@@ -72,6 +89,21 @@ def _evaluate_image(dt_boxes: np.ndarray, dt_scores: np.ndarray, gt: GTImage,
     t_count = len(IOU_THRS)
     d = len(dt_boxes)
     g = len(g_boxes)
+    num_gt = int(np.sum(~g_ignore))
+    lib = _native_matcher()
+    if lib is not None:
+        def f64(a):
+            return np.ascontiguousarray(a, np.float64).ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+        def u8(a):
+            return np.ascontiguousarray(a, np.uint8).ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+        matched = np.zeros((t_count, d), np.uint8)
+        ignored = np.zeros((t_count, d), np.uint8)
+        lib.evaluate_image(f64(dt_boxes), d, f64(g_boxes), g, u8(g_crowd), u8(g_ignore), f64(IOU_THRS), t_count,
+                           float(area_rng[0]), float(area_rng[1]), u8(matched), u8(ignored))
+        return dt_scores, matched.astype(bool), ignored.astype(bool), num_gt
+
     ious = _iou_matrix(dt_boxes, g_boxes, g_crowd)
     dtm = np.zeros((t_count, d), dtype=np.int64)  # 0 = unmatched, else 1 + gt index
     dt_ig = np.zeros((t_count, d), dtype=bool)
@@ -102,8 +134,6 @@ def _evaluate_image(dt_boxes: np.ndarray, dt_scores: np.ndarray, gt: GTImage,
     da = (dt_boxes[:, 2] - dt_boxes[:, 0]) * (dt_boxes[:, 3] - dt_boxes[:, 1])
     out_of_range = (da < area_rng[0]) | (da > area_rng[1])
     dt_ig |= (dtm == 0) & out_of_range[None, :]
-
-    num_gt = int(np.sum(~g_ignore))
     return dt_scores, dtm > 0, dt_ig, num_gt
 
 

@@ -89,8 +89,6 @@ class CenterNet2Detector(nn.Module):
                              f"got backbone_name={cfg.backbone_name!r}")
         if cfg.backbone_name not in BACKBONES:
             raise ValueError(f"backbone_name {cfg.backbone_name!r}: the port has {BACKBONES}")
-        if cfg.fpn.top_levels != 0:
-            raise ValueError("fpn.top_levels must be 0 (P3-P5)")
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
         c = cfg.fpn.out_channels
@@ -104,7 +102,8 @@ class CenterNet2Detector(nn.Module):
             family = RES_FPN[cfg.backbone_name]
             self.backbone = family(out_features=RES_LEVELS, dtype=self.dtype)
             chans = family.out_channels()
-            self.fpn = FPN([chans[f] for f in RES_LEVELS], RES_LEVELS, c, cfg.fpn.fuse_type, dtype=self.dtype)
+            self.fpn = FPN([chans[f] for f in RES_LEVELS], RES_LEVELS, c, cfg.fpn.fuse_type, cfg.fpn.top_levels,
+                           dtype=self.dtype)
         else:
             # the backbone int8-resident under int8_resident; the FPN keeps the
             # int8_static scheme (its inputs are the float stage outputs)
@@ -112,7 +111,7 @@ class CenterNet2Detector(nn.Module):
                                    resident=cfg.quantize == "int8_resident")
             chans = VoVNet.out_channels(cfg.vovnet.conv_body)
             self.fpn = FPN([chans[f] for f in cfg.fpn.in_features], cfg.fpn.in_features, c,
-                           cfg.fpn.fuse_type, dtype=self.dtype, quant=quant)
+                           cfg.fpn.fuse_type, cfg.fpn.top_levels, dtype=self.dtype, quant=quant)
         self.vip_p3 = SMBlock(c, SM_POOL_SIZES["p3"])
         self.vip_p4 = SMBlock(c, SM_POOL_SIZES["p4"])
         self.vip_p5 = SMBlock(c, SM_POOL_SIZES["p5"])
@@ -122,7 +121,7 @@ class CenterNet2Detector(nn.Module):
             num_box_convs=cfg.centernet.num_box_convs,
             num_share_convs=cfg.centernet.num_share_convs,
             with_agn_hm=cfg.centernet.with_agn_hm, only_proposal=cfg.centernet.only_proposal,
-            dtype=self.dtype,
+            prior_prob=cfg.centernet.prior_prob, dtype=self.dtype,
         )
         self.roi = DSACascadeHead(cfg.roi, c)
         assign_scale_keys(self)
@@ -149,14 +148,16 @@ class CenterNet2Detector(nn.Module):
         if self.dtype is not None:
             if self.cfg.quantize == "none":
                 self.backbone.to(self.dtype)
-                self.fpn.to(self.dtype)
+                for m in self.fpn.compute_convs() if isinstance(self.fpn, FPN) else [self.fpn]:
+                    m.to(self.dtype)
             for conv in self.head.tower_convs():
                 conv.to(self.dtype)
         return self
 
     # ---------------------------------------------------------------- phases
     def features(self, images: torch.Tensor, train: bool = False) -> Dict[str, torch.Tensor]:
-        """images [B, 3, H, W] normalized -> {'p3','p4','p5'} [B, C, H_l, W_l].
+        """images [B, 3, H, W] normalized -> {'p3','p4','p5'} [B, C, H_l, W_l]
+        (and 'p6', 'p7' under fpn.top_levels).
         train=True puts trainable norms (DLA's BatchNorm) in batch-statistics
         mode and updates their running statistics; backbones without them
         ignore it."""

@@ -141,8 +141,9 @@ class QuantConv(nn.Conv2d):
 
 
 class ConvNorm(nn.Module):
-    """conv (no bias) + FrozenBN [+ relu]: the VoVNet conv3x3 / conv1x1 unit.
-    quant=True runs the conv on the int8 path (the same parameters).
+    """conv (no bias) + FrozenBN [+ relu]: the VoVNet conv3x3 / conv1x1 unit
+    (`groups` for a grouped conv). quant=True runs the conv on the int8 path
+    (the same parameters).
 
     resident=True (implies quant) is the int8-resident unit: it takes a float
     map or an ``ops.quant.QTensor``, and its epilogue dequantizes the int32
@@ -153,13 +154,15 @@ class ConvNorm(nn.Module):
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3, stride: int = 1,
                  relu: bool = True, dtype: Optional[torch.dtype] = None, quant: bool = False,
-                 resident: bool = False, emit_float: bool = False):
+                 resident: bool = False, emit_float: bool = False, groups: int = 1):
         super().__init__()
+        if groups != 1 and (quant or resident):
+            raise ValueError("ConvNorm: the int8 path has no grouped conv")
         if quant or resident:
             self.conv = QuantConv(in_ch, features, kernel_size, stride, kernel_size // 2,
                                   dtype=None if resident else dtype)
         else:
-            self.conv = nn.Conv2d(in_ch, features, kernel_size, stride, kernel_size // 2, bias=False)
+            self.conv = nn.Conv2d(in_ch, features, kernel_size, stride, kernel_size // 2, bias=False, groups=groups)
         self.norm = FrozenBatchNorm(features)
         self.relu = relu
         self.dtype = dtype

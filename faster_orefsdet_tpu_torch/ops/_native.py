@@ -1,10 +1,13 @@
-"""Build and load the hand-written CUDA kernels of ``csrc/``.
+"""Build and load the hand-written CUDA kernels of ``csrc/``, and its host
+C++ library.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 alone (no PyTorch headers) into ``_build/<hash>/lib<name>.so``, which is loaded
 with ``ctypes``. The hash covers the sources and the flags, so an edited
 source builds anew; all sources compile in parallel, once per process, at the
-first kernel launch. Nothing here runs at import time.
+first kernel launch. ``csrc/cocoeval.cc`` (the COCO matcher) builds the same
+way with the host's ``g++`` (``host_library``), at its first use. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import fcntl
 import functools
 import hashlib
 import os
+import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
@@ -27,6 +31,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
+
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of each library's functions: {name: (argtypes, restype)}
@@ -36,6 +42,14 @@ _SIGNATURES = {
         "nms_forward": ([_VP, _VP, _VP, ctypes.c_float, _I, _I, _VP, _VP, _VP], _I),
         "nms_workspace_bytes": ([_I, _I], ctypes.c_longlong),
     },
+}
+
+
+_D, _I64, _U8 = ctypes.POINTER(ctypes.c_double), ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8)
+# C signatures of the host libraries' functions
+_HOST_SIGNATURES = {
+    "cocoeval": {"evaluate_image": ([_D, _I64, _D, _I64, _U8, _U8, _D, _I64, ctypes.c_double, ctypes.c_double,
+                                     _U8, _U8], None)},
 }
 
 
@@ -103,3 +117,37 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a kernel's C entry point."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} ({lib.error_string(rc).decode()})")
+
+
+@functools.lru_cache(maxsize=None)
+def host_library(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cc`` built with the host's g++ into
+    ``_build/<hash>/lib<name>.so`` (once; the hash covers the source and the
+    flags) and loaded, its functions' signatures set. A failed build raises,
+    naming the command."""
+    src = CSRC_DIR / f"{name}.cc"
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(src.read_bytes())
+    out = BUILD_ROOT / h.hexdigest()[:16]
+    path = out / f"lib{name}.so"
+    if not path.exists():
+        out.mkdir(parents=True, exist_ok=True)
+        with open(out / "lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not path.exists():
+                tmp = out / f"lib{name}.so.tmp"
+                cmd = [shutil.which("g++") or "g++", *CXX_FLAGS, "-o", str(tmp), str(src)]
+                try:
+                    proc = subprocess.run(cmd, capture_output=True, text=True)
+                except OSError as e:
+                    raise RuntimeError(f"host build of {src.name} failed: {' '.join(cmd)}: {e}") from e
+                if proc.returncode != 0:
+                    raise RuntimeError(f"host build of {src.name} failed (rc={proc.returncode}): {' '.join(cmd)}\n"
+                                       f"{proc.stderr}")
+                os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    for fn_name, (argtypes, restype) in _HOST_SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib

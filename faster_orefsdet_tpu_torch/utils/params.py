@@ -23,6 +23,7 @@ import torch
 from ..config import Config
 from ..models.attention_rpn import FsodRCNN
 from ..models.detector import CenterNet2Detector
+from ..pipelines.onestage import OneStageCenterNet
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -98,9 +99,23 @@ def init_params(cfg: Config, seed: int = 0) -> Dict[str, torch.Tensor]:
     so that activations stay O(1) through the deep chain; norm scales and
     BiFPN fusion weights are near 1, running means 0 and variances 1; the
     heatmap bias sits at a low prior and the box bias at 8 strides."""
+    return seeded_init(CenterNet2Detector(cfg).state_dict(), seed, cfg.centernet.prior_prob)
+
+
+def init_onestage_params(cfg: Config, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Seeded random weights for the one-stage detector of `cfg`
+    (``pipelines.onestage.OneStageCenterNet``), drawn as ``init_params``
+    draws them: the class logits' bias sits at the heatmap's low prior too."""
+    return seeded_init(OneStageCenterNet(cfg).state_dict(), seed, cfg.centernet.prior_prob)
+
+
+def seeded_init(template: Mapping[str, torch.Tensor], seed: int = 0,
+                prior_prob: float = 0.01) -> Dict[str, torch.Tensor]:
+    """Seeded random values for a state_dict's keys, as ``init_params``
+    draws them (any module of the port: a backbone of the zoo, an attention
+    block), the heads' heatmap and class biases at `prior_prob`."""
     g = np.random.default_rng(seed)
-    template = CenterNet2Detector(cfg).state_dict()
-    prior_bias = -math.log((1.0 - cfg.centernet.prior_prob) / cfg.centernet.prior_prob)
+    prior_bias = -math.log((1.0 - prior_prob) / prior_prob)
     sd = {}
     for key, t in template.items():
         shape = tuple(t.shape)
@@ -114,7 +129,7 @@ def init_params(cfg: Config, seed: int = 0) -> Dict[str, torch.Tensor]:
             v = np.ones(shape, np.float32)
         elif key.startswith("head.scale"):
             v = np.ones(shape, np.float32)
-        elif key == "head.agn_hm.bias":
+        elif key in ("head.agn_hm.bias", "head.cls_logits.bias"):
             v = prior_bias + 0.1 * noise
         elif key == "head.bbox_pred.bias":
             v = 8.0 + 0.1 * noise

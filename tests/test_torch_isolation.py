@@ -15,13 +15,14 @@ from faster_orefsdet_tpu_torch.cli import demo, visualize_features
 from faster_orefsdet_tpu_torch.config import get_config
 from faster_orefsdet_tpu_torch.data.coco import SupportEntry
 from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
-from faster_orefsdet_tpu_torch.pipelines import attention_rpn, evaluate, inference, support_cache
+from faster_orefsdet_tpu_torch.pipelines import attention_rpn, evaluate, inference, onestage, support_cache
 from faster_orefsdet_tpu_torch.data import loader
 from faster_orefsdet_tpu_torch.pipelines import train_step
 from faster_orefsdet_tpu_torch.pipelines.async_predictor import AsyncPredictor
 from faster_orefsdet_tpu_torch.parallel import make_mesh, make_sharded_serving
 from faster_orefsdet_tpu_torch.parallel.eval_dp import evaluate_sharded
 from faster_orefsdet_tpu_torch.parallel.mesh import Mesh
+from faster_orefsdet_tpu_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -86,18 +87,24 @@ def test_port_imports_without_jax():
                                     "utils.debug_vis", "cli.build_support", "cli.demo", "cli.visualize_features",
                                     "ops.quant", "pipelines.quant_calib", "utils.events", "parallel",
                                     "parallel.mesh", "parallel.train_dp", "parallel.serve_dp",
-                                    "parallel.eval_dp", "cli.train", "pipelines.attention_rpn"])
+                                    "parallel.eval_dp", "cli.train", "pipelines.attention_rpn",
+                                    "pipelines.onestage models.dlaup models.res2net models.regnet ops.deform_conv "
+                                    "ops.attention ops.fed_loss data.samplers utils.profiling evaluation.coco_eval"])
 def test_new_module_imports_alone(module):
     """The yaml reader, DLA and BiFPN, the checkpoint converter, the debug
     overlays, the workflow's CLIs, the int8 ops, the calibration, the
     event logger, the data-parallel package, the train command line and the
-    AttentionRPN baseline (with it the ResNet and MobileNetV3 modules)
-    import with none of jax, flax, yaml, cv2 or PIL present (the card's
+    AttentionRPN baseline (with it the ResNet and MobileNetV3 modules), the
+    one-stage detector, the rest of the backbone zoo, the deformable conv,
+    the attention zoo, the federated loss, the samplers, the profiling
+    utilities and the COCO evaluation (these ten in one interpreter) import
+    with none of jax, flax, yaml, cv2 or PIL present (the card's
     machine has no PyYAML, cv2 or PIL); the reader reads the reference's
     configs there, the baseline's included."""
     out = _run_blocked(("jax", "jaxlib", "flax", "optax", "faster_orefsdet_tpu", "yaml", "cv2", "PIL"), f"""
         import importlib
-        importlib.import_module("faster_orefsdet_tpu_torch.{module}")
+        for name in "{module}".split():
+            importlib.import_module(f"faster_orefsdet_tpu_torch.{{name}}")
         if "{module}" == "pipelines.attention_rpn":
             assert {{"faster_orefsdet_tpu_torch.models.resnet", "faster_orefsdet_tpu_torch.models.mobilenet",
                      "faster_orefsdet_tpu_torch.models.attention_rpn"}} <= set(sys.modules)
@@ -298,3 +305,39 @@ def test_resnet_family_runs_without_jax():
         assert not loaded, loaded
         """)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("builder", [
+    lambda cfg: onestage.make_onestage(cfg),
+    lambda cfg: onestage.build_onestage_inference_fn(cfg, None),
+    lambda cfg: profiling.measure_model(cfg),
+], ids=["make_onestage", "build_onestage_inference_fn", "measure_model"])
+def test_onestage_and_profiling_default_to_the_card(builder, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        builder(get_config("finetune_vovnet"))
+
+
+def test_coco_matcher_is_the_ports_own(monkeypatch):
+    """The port keeps its own copy of the C++ matcher and builds it into its
+    own build directory: evaluating loads no library from native/."""
+    import ctypes
+
+    from faster_orefsdet_tpu_torch.evaluation import coco_eval
+    from faster_orefsdet_tpu_torch.ops import _native
+
+    assert (REPO / "faster_orefsdet_tpu_torch/csrc/cocoeval.cc").is_file()
+    sources = [p for p in (REPO / "faster_orefsdet_tpu_torch").rglob("*.py") if "native/" in p.read_text()]
+    assert not sources, sources
+    loaded = []
+    cdll = ctypes.CDLL
+    monkeypatch.setattr(ctypes, "CDLL", lambda path, *a, **k: loaded.append(str(path)) or cdll(path, *a, **k))
+    monkeypatch.setattr(coco_eval, "_NATIVE", "build")
+    _native.host_library.cache_clear()
+    try:
+        gt = coco_eval.GTImage(1, np.asarray([[0.0, 0.0, 10.0, 10.0]]), np.zeros(1, bool), np.asarray([100.0]))
+        ap = coco_eval.coco_ap([coco_eval.DetResult(1, np.asarray([[0.0, 0.0, 10.0, 10.0]]), np.ones(1))], [gt])
+    finally:
+        _native.host_library.cache_clear()
+    assert ap["AP"] == 100.0
+    assert len(loaded) == 1 and loaded[0].startswith(str(REPO / "faster_orefsdet_tpu_torch" / "_build")), loaded
