@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (faster_orefsdet_tpu_torch) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ab-baseline DIR]
 
 Phases, each of which stops the run with a non-zero exit when it fails:
 
@@ -11,10 +11,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 3. kernels: the CGM kernel against its plain twin at the p3/p4/p5 shapes of a
    320x448 canvas (batch 1 and 8) and at ragged tile edges (1x1, 3x5, 7x33 at
    batch 3), and at 64, 160 and 256 channels at the three levels (batch 1
-   and 8) and at 1 and 100 channels at 7x33 (batch 3), bf16 and f32 q: its
-   f32 result within |err| <= CGM_ATOL +
-   CGM_RTOL*|ref|, its result in q's dtype that f32 result rounded once, bit
-   for bit. The NMS kernel against the plain fixpoint, bit for bit, at K in
+   and 8), with the taps of 3 and 9 classes (a class axis) at 64, 128, 160
+   and 256 channels at batch 1's levels, and at 1, 100, 130, 390 and 520
+   channels at 7x33 (batch 3; one and two classes), bf16 and f32 q: its
+   f32 result within |err| <= CGM_ATOL + CGM_RTOL*|ref| and within phase
+   19's dot-product bound of the f64 result, its result in q's dtype that f32
+   result rounded once, bit for bit. The NMS kernel against the plain fixpoint, bit for bit, at K in
    {1, 63, 64, 65, 256, 512, 1000, 1024, 1792, 2048, 2049, 2304, 4096, 8192}
    on batches of 10 scenes (random, dense chains, score ties, invalid
    padding, ascending scores, all scores equal), at K in {256, 1024} on each
@@ -42,10 +44,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    advance at capture, so this path's launches are each graph's captured
    launches times its replays;
 8. multiclass: nine 25-shot caches stacked, build_multiclass_inference_fn at
-   batch 1: 27 CGM launches and 2 NMS launches (decode on [9, 1024], across
-   classes on [1, 2304]); the NMS kernel bit for bit against the plain
-   fixpoint on the inputs that request gave it at each site (and the
-   class-aware call against its plain version); card vs CPU in f32 by phase
+   batch 1: 3 CGM launches (one a level, the nine classes' taps stacked)
+   and 2 NMS launches (decode on [9, 1024], across classes on [1, 2304]);
+   the CGM kernel within phase 19's bound and the NMS kernel bit for bit
+   against the plain fixpoint on the inputs that request gave them at each
+   site (and the class-aware call against its plain version); card vs CPU in f32 by phase
    5's criteria within each class; one class stacked against
    build_inference_fn;
 9. async: 16 VGA frames through AsyncPredictor(depth=3), without and with 2
@@ -59,8 +62,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    twin (events), and K2 alone at the training decode's site ([1, 2048] at
    IoU 0.9, random scenes), K2 past 2048 ranks (the nine-class request's
    [1, 2304] on the inputs phase 8 recorded, [1, 4096] on random scenes),
-   K2 at the fast presets' ROI site ([8, 64] at IoU 0.9, random scenes)
-   and K1 at 160 channels (f32 q, batch 1 and 8); then end to end in bf16
+   K2 at the fast presets' ROI site ([8, 64] at IoU 0.9, random scenes),
+   K1 at 160 channels (f32 q, batch 1 and 8), K1 at the nine-class
+   request's site on phase 8's inputs (one launch a level against nine, one
+   a class) and K2 at [1, 16384] on a random scene; then end to end in bf16
    with the library's default TF32 settings: the eager and the pinned path
    at batch 1 and 8, and the nine-class request;
 12. profile: the same batch-1 and batch-8 requests, eager and pinned, under
@@ -203,6 +208,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    device_memory; the C++ COCO matcher built with g++ on the machine, and
    coco_ap with it equal to the numpy twin's on phase 10's eval set.
 
+With --ab-baseline DIR, after phase 20 an "ab" line per kernel row against
+an earlier build's cgm.cu and nms.cu in DIR, timed in turns (earlier, this,
+this, earlier) on the same inputs with the outputs compared: K1 at 160 and
+128 channels, batch 1 and 8; K2 on the inputs the nine-class request ([1,
+2304], phase 8) and the one-stage nine-class request ([1, 3540], phase 20)
+gave it, at [1, 3540], [1, 4096] and [1, 16384] random, and at [8, 1024],
+[8, 256] and [1, 2048].
+
 Each result is one JSON line. The line before the last holds the kernels'
 table; the last line is {"ok": true, "device": {...}}. Run without the
 repository beside it, or without a CUDA device, it exits non-zero and prints
@@ -243,7 +256,10 @@ NMS_LARGEST_K = 16384  # 64 classes of 256, one scene
 WIDE_NMS_K = 4096  # phase 11's K2 row on random scenes past 2048 ranks (16 classes of 256)
 NMS_CPU_K = 2304  # up to this K phase 3 also holds K2 against the plain fixpoint on the CPU
 CGM_OTHER_WIDTHS = (64, 160, 256)  # K1 off its tuned 128 channels
-CGM_RAGGED_WIDTHS = (1, 100)  # widths off the 32-deep slabs and the 16-byte rows
+# widths off the 16-byte rows (1, 130, 390) and the 16-deep steps (100, 130),
+# and past what one slice of W3 holds whole (390, 520: the depth streamed)
+CGM_RAGGED_WIDTHS = (1, 100, 130, 390, 520)
+CGM_CLASSES = (3, 9)  # K1 with taps for several classes (the multiclass request's 9), beside phase 3's one
 DLA_CHANNELS = 160  # finetune_dla's BiFPN width: K1's site with use_pallas_cgm
 ASYNC_FRAMES, EVAL_FRAMES, EVAL_SHOTS = 16, 16, 5
 AP_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR@100")
@@ -408,12 +424,14 @@ def bound(nbytes: float, flops: float, tc_flops: float = 0.0) -> dict:
 
 
 # ------------------------------------------------------------------ inputs
-def cgm_inputs(torch, g, b, h, w, dtype, c=C):
+def cgm_inputs(torch, g, b, h, w, dtype, c=C, n_cls=0):
+    """K1's inputs: one set of taps, or n_cls sets (a class axis) where n_cls > 0."""
     dev = "cuda"
+    lead = (n_cls,) if n_cls else ()
     q = torch.randn(b, h, w, c, device=dev, generator=g).to(dtype)
-    k1 = torch.randn(c, device=dev, generator=g)
-    k13 = torch.randn(3, c, device=dev, generator=g)
-    k31 = torch.randn(3, c, device=dev, generator=g)
+    k1 = torch.randn(*lead, c, device=dev, generator=g)
+    k13 = torch.randn(*lead, 3, c, device=dev, generator=g)
+    k31 = torch.randn(*lead, 3, c, device=dev, generator=g)
     w3 = torch.randn(c, 2 * c, device=dev, generator=g) / (2 * c) ** 0.5  # nn.Linear's [out, in]
     b3 = 0.1 * torch.randn(c, device=dev, generator=g)
     return q, k1, k13, k31, w3, b3
@@ -514,13 +532,16 @@ def phase_kernels(torch, np, cgm_cuda, nms_cuda, nms_plain, nms_batched_plain):
     g = torch.Generator(device="cuda").manual_seed(0)
     cgm_err, cgm_mismatches = 0.0, 0
     # the main path's levels at batch 1 and 8, and ragged tile edges at batch
-    # 3, at C = 128; then the other widths at the main path's levels
-    shapes = [(b, h, w, C) for b in (1, 8) for (h, w) in LEVELS_HW] + [(3, 1, 1, C), (3, 3, 5, C), (3, 7, 33, C)]
-    shapes += [(b, h, w, c) for c in CGM_OTHER_WIDTHS for b in (1, 8) for (h, w) in LEVELS_HW]
-    shapes += [(3, 7, 33, c) for c in CGM_RAGGED_WIDTHS]
-    for (b, h, w, c) in shapes:
+    # 3, at C = 128; then the other widths at the main path's levels; then
+    # taps for several classes at batch 1's levels, and ragged widths
+    shapes = [(1, b, h, w, C) for b in (1, 8) for (h, w) in LEVELS_HW]
+    shapes += [(1, 3, 1, 1, C), (1, 3, 3, 5, C), (1, 3, 7, 33, C)]
+    shapes += [(1, b, h, w, c) for c in CGM_OTHER_WIDTHS for b in (1, 8) for (h, w) in LEVELS_HW]
+    shapes += [(n, 1, h, w, c) for n in CGM_CLASSES for c in (C,) + CGM_OTHER_WIDTHS for (h, w) in LEVELS_HW]
+    shapes += [(n, 3, 7, 33, c) for n in (1, 2) for c in CGM_RAGGED_WIDTHS]  # n = 1: taps without a class axis
+    for (n, b, h, w, c) in shapes:
         for dtype in (torch.bfloat16, torch.float32):
-            args = cgm_inputs(torch, g, b, h, w, dtype, c)
+            args = cgm_inputs(torch, g, b, h, w, dtype, c, n_cls=n if n > 1 else 0)
             out32 = cgm_cuda.cgm_correlate_fused(*args, out_dtype=torch.float32)
             out = cgm_cuda.cgm_correlate_fused(*args)  # in q's dtype, as the main path calls it
             torch.cuda.synchronize()
@@ -531,11 +552,16 @@ def phase_kernels(torch, np, cgm_cuda, nms_cuda, nms_plain, nms_batched_plain):
             # rounding of two f32 values 1e-6 apart can differ by one ulp, so
             # the tolerance is held on the f32 result)
             rounded = int((out != out32.to(dtype)).sum())
-            cgm_err, cgm_mismatches = max(cgm_err, float(err.max())), cgm_mismatches + bad + rounded
-            emit(check="cgm", batch=b, hw=[h, w], channels=c, q_dtype=str(dtype)[6:], max_abs_err=float(err.max()),
-                 out_of_tolerance=bad, out_dtype=str(out.dtype)[6:], rounding_mismatches=rounded)
-            if bad or rounded or out.dtype != dtype or not torch.isfinite(out32).all():
-                raise AssertionError(f"CGM kernel disagrees with its plain twin at {b}x{h}x{w}x{c}")
+            # and phase 19's bound: within a dot product's error of the f64 result
+            ref64, terms = cgm_f64(torch, *args)
+            over = int(((out32.double() - ref64).abs() > CGM_ATOL + CGM_RTOL * terms).sum())
+            cgm_err, cgm_mismatches = max(cgm_err, float(err.max())), cgm_mismatches + bad + rounded + over
+            emit(check="cgm", classes=n, batch=b, hw=[h, w], channels=c, q_dtype=str(dtype)[6:],
+                 max_abs_err=float(err.max()), out_of_tolerance=bad, out_of_bound=over, out_dtype=str(out.dtype)[6:],
+                 rounding_mismatches=rounded)
+            if bad or rounded or over or out.dtype != dtype or out.shape != (n * b, h, w, c) \
+                    or not torch.isfinite(out32).all():
+                raise AssertionError(f"CGM kernel disagrees with its plain twin at {n} classes, {b}x{h}x{w}x{c}")
     rng = np.random.default_rng(0)
     nms_mismatches, nms_err = 0, 0.0
     for k in (1, 63, 64, 65, 256, 512, 1000, 1024, 1792, 2048) + NMS_WIDE_K:
@@ -742,11 +768,12 @@ def phase_multiclass(torch, np, cfg, params, serve1, singles, img32):
               for s in MULTICLASS_SEEDS]
     mcache = stack_support_caches(caches)
     multi = build_multiclass_inference_fn(cfg, params)
-    out, seen = {}, {}
-    # the counted run records what K2 gets, so that the cross-class site's
-    # launches and inputs are this run's own
+    out, seen, cgm_seen = {}, {}, []
+    # the counted run records what K1 and K2 get, so that the cross-class
+    # site's launches and inputs are this run's own
     launches = count_launches(cgm_cuda, nms_cuda, lambda: seen.update(record_nms_calls(
-        torch, lambda: out.update(p=pack_detections(multi(mcache, singles[0], IMAGE_HW))))))
+        torch, lambda: cgm_seen.extend(record_cgm_calls(
+            torch, lambda: out.update(p=pack_detections(multi(mcache, singles[0], IMAGE_HW))))))))
     p = out["p"]
     classes = p[:, 5][p[:, 6] > 0.5]
     ok_out = bool(tuple(p.shape) == (100, 7) and torch.isfinite(p).all() and len(classes) > 0
@@ -765,23 +792,28 @@ def phase_multiclass(torch, np, cfg, params, serve1, singles, img32):
     single = unpack_detections_np(pack_detections(serve1(caches[0], singles[0], IMAGE_HW)))
     one_class = match(np, one, single, PINNED_DSCORE)
     nms_checks, nms_err = check_nms_calls(torch, seen)
+    cgm_checks, cgm_err, cgm_bad = check_cgm_calls(torch, cgm_seen)
     cross = [args for args in seen["kernel"] if list(args[0].shape[:2]) == [1, MULTICLASS_K]]
     emit(multiclass={"classes": len(caches), "launches": launches,
                      "valid_per_class": np.bincount(classes.long().cpu().numpy(), minlength=len(caches)).tolist(),
                      "card_vs_cpu_f32": card_vs_cpu, "one_class_vs_build_inference_fn": one_class,
-                     "nms_on_the_request_inputs": nms_checks})
+                     "nms_on_the_request_inputs": nms_checks, "cgm_on_the_request_inputs": cgm_checks})
     if not ok_out:
         raise AssertionError(f"multiclass detections are not finite [100, 7] with classes 0..{len(caches) - 1}")
-    if launches != {"cgm": 3 * len(caches), "nms": 2}:
-        raise AssertionError(f"kernel launch counts {launches} on the multiclass path")
+    # one K1 launch a level over the classes' stacked taps, as the JAX
+    # package's vmapped Pallas call
+    if launches != {"cgm": 3, "nms": 2} or [c["classes"] for c in cgm_checks] != [len(caches)] * 3 or cgm_bad:
+        raise AssertionError(f"kernel launch counts {launches} on the multiclass path, K1 calls {cgm_checks}")
     if not (card_vs_cpu["ok"] and one_class["ok"]):
         raise AssertionError("multiclass detections do not match")
     sites = [c["shape"] for c in nms_checks if c["site"] == "kernel"]
     if sites != [[len(caches), 1024], [1, MULTICLASS_K]] or any(c["mismatches"] for c in nms_checks):
         raise AssertionError(f"the NMS kernel on the multiclass request's own inputs: {nms_checks}")
     # K2 at the cross-class site: its launches in the counted run, and the
-    # inputs of the first (class-offset boxes, scores, valid, threshold)
-    return multi, mcache, launches, nms_err, {"launches": len(cross), "args": cross[0]}
+    # inputs of the first (class-offset boxes, scores, valid, threshold);
+    # K1's calls, one a level
+    return multi, mcache, launches, nms_err, {"launches": len(cross), "args": cross[0], "cgm_calls": cgm_seen,
+                                              "cgm_err": cgm_err}
 
 
 def nms_checks_on_request(torch, request):
@@ -2314,6 +2346,20 @@ def record_cgm_calls(torch, request):
     return seen
 
 
+def cgm_f64(torch, q, k1, k13, k31, w3, b3):
+    """K1's function in f64 on the card, and the sum of each output's terms'
+    |values| (|[attn | q]| . |W3|^T + |b3|); taps with a class axis give
+    both class-major, as the kernel lays out its output."""
+    from faster_orefsdet_tpu_torch.ops.correlation import cgm_correlate
+
+    if k1.dim() == 2:
+        parts = [cgm_f64(torch, q, *taps, w3, b3) for taps in zip(k1, k13, k31)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    a = [t.double() for t in (q, k1, k13, k31, w3, b3)]
+    cat = torch.cat([cgm_correlate(*a[:4]), a[0]], dim=-1)
+    return torch.relu(cat @ a[4].t() + a[5]), cat.abs() @ a[4].abs().t() + a[5].abs()
+
+
 def check_cgm_calls(torch, seen):
     """Each recorded K1 call again through the kernel (f32 out), its plain
     twin (f32) and the same function in f64 on the card. A request's own
@@ -2326,20 +2372,17 @@ def check_cgm_calls(torch, seen):
     error reported beside it. Returns (checks, worst |err|, values out of
     the bound)."""
     from faster_orefsdet_tpu_torch.ops import cgm_cuda
-    from faster_orefsdet_tpu_torch.ops.correlation import cgm_correlate
 
     checks, worst, bad_total = [], 0.0, 0
     for q, k1, k13, k31, w3, b3, _ in seen:
         out = cgm_cuda.cgm_correlate_fused(q, k1, k13, k31, w3, b3, out_dtype=torch.float32)
         plain = cgm_cuda.cgm_fused_plain(q, k1, k13, k31, w3, b3, out_dtype=torch.float32)
-        a = [t.double() for t in (q, k1, k13, k31, w3, b3)]
-        cat = torch.cat([cgm_correlate(*a[:4]), a[0]], dim=-1)
-        ref = torch.relu(cat @ a[4].t() + a[5])
-        terms = cat.abs() @ a[4].abs().t() + a[5].abs()
+        ref, terms = cgm_f64(torch, q, k1, k13, k31, w3, b3)
         err, plain_err = (out.double() - ref).abs(), (plain.double() - ref).abs()
         bad = int((err > CGM_ATOL + CGM_RTOL * terms).sum())
         worst, bad_total = max(worst, float(err.max())), bad_total + bad
-        checks.append({"shape": list(q.shape), "q_dtype": str(q.dtype)[6:], "max_abs_err": float(err.max()),
+        checks.append({"shape": list(q.shape), "classes": k1.shape[0] if k1.dim() == 2 else 1,
+                       "q_dtype": str(q.dtype)[6:], "max_abs_err": float(err.max()),
                        "max_err_of_terms": float((err / terms).max()),
                        "plain_f32_max_abs_err": float(plain_err.max()),
                        "plain_f32_max_err_of_terms": float((plain_err / terms).max()),
@@ -2761,7 +2804,7 @@ def phase_onestage(torch, np, smi):
     from faster_orefsdet_tpu_torch.utils.params import init_onestage_params, seeded_init
 
     t_phase = time.perf_counter()
-    out = {"launches": {}, "k2": {}, "nms_err": 0.0, "nms_mismatches": 0}
+    out = {"launches": {}, "k2": {}, "k2_args": {}, "nms_err": 0.0, "nms_mismatches": 0}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2805,6 +2848,7 @@ def phase_onestage(torch, np, smi):
         if any(c["mismatches"] for c in checks) or not finite or not all(m["ok"] for m in matches):
             raise AssertionError(f"one-stage {n} classes: K2 checks {checks}, card vs CPU {matches}")
         args = seen["kernel"][0]
+        out["k2_args"][f"onestage{n}"] = args
         out["k2"][f"onestage{n}"] = {"launches": ONESTAGE_FRAMES, **nms_row(torch, args[:3], args[3])}
         emit(timing="nms", site=f"onestage{n}", **out["k2"][f"onestage{n}"], card=smi)
 
@@ -2958,6 +3002,125 @@ def phase_onestage(torch, np, smi):
     return out
 
 
+def build_baseline(torch, baseline: str) -> dict:
+    """The kernels' sources in directory `baseline` (cgm.cu and nms.cu of an
+    earlier build of the port) built with the port's nvcc flags into
+    `baseline`/_build and loaded: {name: ctypes library}, the earlier C
+    interfaces (cgm_forward without the class count)."""
+    import ctypes
+
+    from faster_orefsdet_tpu_torch.ops import _native
+
+    out = os.path.join(baseline, "_build")
+    os.makedirs(out, exist_ok=True)
+    procs = {name: subprocess.Popen([_native._nvcc(), *_native.NVCC_FLAGS, "-o", os.path.join(out, f"lib{name}.so"),
+                                     os.path.join(baseline, f"{name}.cu")], stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True) for name in ("cgm", "nms")}
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"baseline {name}.cu: nvcc rc={proc.returncode}\n{log}")
+        libs[name] = ctypes.CDLL(os.path.join(out, f"lib{name}.so"))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    libs["cgm"].cgm_forward.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+    libs["cgm"].cgm_forward.restype = i
+    libs["nms"].nms_forward.argtypes = [vp, vp, vp, ctypes.c_float, i, i, vp, vp, vp]
+    libs["nms"].nms_forward.restype = i
+    return libs
+
+
+def phase_ab(torch, np, smi, baseline: str, request_sites) -> dict:
+    """The kernels of this tree against an earlier build's (sources in
+    `baseline`), each row timed device-only (graph_ms) in turns, earlier,
+    this, this, earlier, on the same inputs, the outputs compared: K1 at
+    160 channels (f32 q, batch 1 and 8, p3+p4+p5, the redesigned any-width
+    path) and at 128 (bf16, the tuned kernel); K2 past 2048 ranks (the
+    redesigned wide sweep: `request_sites`, {name: (boxes, scores, valid,
+    thr)} a request gave it, then [1, 3540] and [1, 4096] random, [1,
+    16384]) and at or below 2048 (the register sweep: the request's
+    [8, 1024] and [8, 256], the training decode's [1, 2048])."""
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
+
+    old = build_baseline(torch, baseline)
+    rows = {}
+
+    def turns(name, earlier, this, check):
+        times = {"earlier": [], "this": []}
+        for who in ("earlier", "this", "this", "earlier"):
+            times[who].append(graph_ms(torch, earlier if who == "earlier" else this))
+        row = {"earlier_ms": statistics.mean(times["earlier"]), "this_ms": statistics.mean(times["this"]),
+               "earlier_runs_ms": times["earlier"], "this_runs_ms": times["this"], **check()}
+        row["this_over_earlier"] = row["this_ms"] / row["earlier_ms"]
+        rows[name] = row
+        emit(ab=name, **row, card=smi)
+        if not row["same"]:
+            raise AssertionError(f"A/B {name}: this build's output differs from the earlier build's")
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for c, dtype in ((DLA_CHANNELS, torch.float32), (C, torch.bfloat16)):
+        for b in (1, 8):
+            levels = [cgm_inputs(torch, g, b, lh, lw, dtype, c) for (lh, lw) in LEVELS_HW]
+            outs = {"earlier": [torch.empty(a[0].shape, dtype=dtype, device="cuda") for a in levels]}
+
+            def earlier():
+                for a, o in zip(levels, outs["earlier"]):
+                    q = a[0]
+                    rc = old["cgm"].cgm_forward(q.data_ptr(), int(dtype == torch.bfloat16),
+                                                *(t.data_ptr() for t in a[1:]), o.data_ptr(),
+                                                int(dtype == torch.bfloat16), *q.shape,
+                                                torch.cuda.current_stream().cuda_stream)
+                    if rc:
+                        raise RuntimeError(f"earlier cgm_forward: CUDA error {rc}")
+
+            def this():
+                outs["this"] = [cgm_cuda.cgm_correlate_fused(*a) for a in levels]
+
+            def check():
+                earlier()
+                this()
+                torch.cuda.synchronize()
+                err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(outs["earlier"], outs["this"]))
+                ref = max(float(x.float().abs().max()) for x in outs["earlier"])
+                # both within phase 3's tolerance of the plain twin: their difference is at most twice it
+                return {"max_abs_diff": err, "same": err <= 2 * (CGM_ATOL + CGM_RTOL * ref)}
+
+            turns(f"cgm_c{c}_b{b}", earlier, this, check)
+
+    rng = np.random.default_rng(12)
+    sites = list(request_sites.items())
+    for k, b, thr in ((3540, 1, 0.6), (4096, 1, 0.9), (NMS_LARGEST_K, 1, 0.9), (1024, 8, 0.7), (256, 8, 0.9),
+                      (TRAIN_NMS_K, 1, 0.9)):
+        boxes, scores, _ = nms_scenes(np, k, rng)
+        args = (torch.from_numpy(boxes[:b]).cuda(), torch.from_numpy(scores[:b]).cuda(),
+                torch.ones(b, k, dtype=torch.bool, device="cuda"), thr)
+        sites.append((f"nms_b{b}_k{k}", args))
+    for name, (boxes, scores, valid, thr) in sites:
+        b, k = scores.shape
+        workspace = torch.empty(nms_cuda._workspace_bytes(b, k), dtype=torch.uint8, device="cuda")
+        keeps = {"earlier": torch.empty(b, k, dtype=torch.bool, device="cuda")}
+
+        def earlier():
+            rc = old["nms"].nms_forward(boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), thr, b, k,
+                                        workspace.data_ptr(), keeps["earlier"].data_ptr(),
+                                        torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"earlier nms_forward: CUDA error {rc}")
+
+        def this():
+            keeps["this"] = nms_cuda.nms_mask(boxes, scores, valid, thr)
+
+        def check():
+            earlier()
+            this()
+            torch.cuda.synchronize()
+            return {"batch": b, "k": k, "valid": [int(v) for v in valid.sum(-1)],
+                    "same": bool(torch.equal(keeps["earlier"], keeps["this"]))}
+
+        turns(name, earlier, this, check)
+    return rows
+
+
 def request_times(torch, fn, iters):
     """(median, min, max) ms of fn() by the host's clock, each call ending
     in a sync, after 3 warm-up calls."""
@@ -2986,7 +3149,13 @@ def replay_ms(torch, graph, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
+    parser.add_argument("--ab-baseline", metavar="DIR",
+                        help="also time the kernels against an earlier build's cgm.cu and nms.cu in DIR, in turns")
+    ab_baseline = parser.parse_args(argv).ab_baseline
     try:
         import numpy as np
         import torch
@@ -3208,6 +3377,42 @@ def main() -> int:
         emit(timing="cgm", channels=DLA_CHANNELS, batch=b, levels="p3+p4+p5", **cgm160[b],
              share_of_bound=cgm160[b]["bound_ms"] / tot["ms"], card=smi)
 
+    # K1 at the nine-class request's site, on the inputs phase 8's counted
+    # run gave it (bf16 q, batch 1, taps [9, C] a level): one launch a level
+    # over the stacked taps against nine launches a level, one a class
+    multi9 = dict.fromkeys(("ms", "nine_launches_ms", "enqueue_ms", "plain_ms", "bytes", "tc_flops", "flops"), 0.0)
+    for q, k1, k13, k31, w3, b3, out_dtype in multi_site["cgm_calls"]:
+        def one_launch():
+            cgm_cuda.cgm_correlate_fused(q, k1, k13, k31, w3, b3, out_dtype)
+
+        def nine_launches():
+            for taps in zip(k1, k13, k31):
+                cgm_cuda.cgm_correlate_fused(q, *taps, w3, b3, out_dtype)
+
+        n = k1.shape[0] * q.numel()
+        row = {"ms": graph_ms(torch, one_launch), "nine_launches_ms": graph_ms(torch, nine_launches),
+               "enqueue_ms": enqueue_ms(torch, one_launch, 50),
+               "plain_ms": enqueue_ms(torch, lambda: cgm_cuda.cgm_fused_plain(q, k1, k13, k31, w3, b3, out_dtype), 20),
+               "bytes": q.numel() * q.element_size() + n * (torch.finfo(out_dtype).bits // 8)
+               + (k1.numel() * 7 + 2 * C * C + C) * 4,
+               "tc_flops": n * 2 * 2 * C, "flops": n * 15}
+        emit(timing="cgm", site=f"multiclass{MULTICLASS_CLASSES}", classes=k1.shape[0], hw=list(q.shape[1:3]),
+             **{k: row[k] for k in ("ms", "nine_launches_ms", "enqueue_ms", "plain_ms")},
+             **bound(row["bytes"], row["flops"], row["tc_flops"]), card=smi)
+        multi9 = {k: v + row[k] for k, v in multi9.items()}
+    multi9 = {"launches": len(multi_site["cgm_calls"]), "classes": MULTICLASS_CLASSES,
+              **{k: multi9[k] for k in ("ms", "nine_launches_ms", "enqueue_ms", "plain_ms")},
+              **bound(multi9["bytes"], multi9["flops"], multi9["tc_flops"])}
+    multi9["share_of_bound"] = multi9["bound_ms"] / multi9["ms"]
+    emit(timing="cgm", site=f"multiclass{MULTICLASS_CLASSES}", levels="p3+p4+p5", **multi9, card=smi)
+
+    # K2's wide sweep on one random scene of 64 classes' width (phase 3's largest K)
+    boxes, scores, _ = nms_scenes(np, NMS_LARGEST_K, np.random.default_rng(NMS_LARGEST_K))
+    wide_largest = nms_row(torch, (torch.from_numpy(boxes[:1]).cuda(), torch.from_numpy(scores[:1]).cuda(),
+                                   torch.ones(1, NMS_LARGEST_K, dtype=torch.bool, device="cuda")),
+                          cfg.roi.nms_thresh_test)
+    emit(timing="nms", site="random", **wide_largest, card=smi)
+
     torch.backends.cudnn.allow_tf32 = True  # the library defaults for serving
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -3283,6 +3488,12 @@ def main() -> int:
     # ---- 20. the one-stage CenterNet over P3-P7, the rest of the zoo, fed loss, profiling, the native matcher
     one = phase_onestage(torch, np, smi)
 
+    # phase 11's A/B lines: the kernels against an earlier build's, K2 also
+    # on the nine-class and the one-stage nine-class requests' own inputs
+    if ab_baseline:
+        phase_ab(torch, np, smi, ab_baseline, {"nms_multiclass9_k2304": multi_site["args"],
+                                               "nms_onestage9_k3540": one["k2_args"]["onestage9"]})
+
     # launches counted by the wrappers on each eager path; the pinned path's
     # and the graphed train steps' from their graphs' captured launches times
     # their replays (phases 7, 14, 15, 17 and 19), plus the K-step function's
@@ -3308,11 +3519,13 @@ def main() -> int:
          "source": "faster_orefsdet_tpu_torch/csrc/cgm.cu",
          "replaces": "faster_orefsdet_tpu/ops/pallas_cgm.py:47",
          "launches": counted["cgm"], "launches_by_path": {p: v["cgm"] for p, v in by_path.items()},
-         "max_abs_err": max(cgm_err, resnet["cgm_err"]), "mismatches": cgm_mismatches + resnet["cgm_mismatches"],
+         "max_abs_err": max(cgm_err, multi_site["cgm_err"], resnet["cgm_err"]),
+         "mismatches": cgm_mismatches + resnet["cgm_mismatches"],
          "ms": cgm_ms, "enqueue_ms": cgm_enq_ms,
          "plain_ms": cgm_plain_ms, **bound(cgm_bytes, cgm_flops, cgm_tc_flops),
          "train_site": {"launches_per_step": train["launches"]["cgm"] / train["steps"]},
          "c160_site": {"launches": workflow["dla_launches"]["cgm"], "batch8": cgm160[8], "batch1": cgm160[1]},
+         f"multiclass{MULTICLASS_CLASSES}_site": multi9,
          "resnet": {**resnet_entry["cgm"], "max_abs_err": resnet["cgm_err"],
                     "out_of_bound": resnet["cgm_mismatches"]}},
         {"name": "nms_mask", **common,
@@ -3327,6 +3540,7 @@ def main() -> int:
          "train_site": train["nms_site"], "dla_train_site": dla["train_site"],
          "dla_serving_decode_site": dla["serve_site"],
          "multiclass9_site": wide_site, f"k{WIDE_NMS_K}_random": wide_random,
+         f"k{NMS_LARGEST_K}_random": wide_largest,
          "fast_roi_site": {**fast_roi, "launches": quant["roi_site"]["launches"]},
          "resnet": {**resnet_entry["nms"], "max_abs_err": resnet["nms_err"], "mismatches": resnet["nms_mismatches"],
                     "sites": resnet["k2"]},

@@ -205,6 +205,12 @@ def finetune_vovnet_25shot() -> Config:
     return Config()
 
 
+def finetune_vovnet_kshot(shot: int) -> Config:
+    """finetune_vovnet with `shot` support images a class."""
+    cfg = Config()
+    return cfg.replace(fs=dataclasses.replace(cfg.fs, support_shot=shot))
+
+
 def finetune_r50_c4_1x() -> Config:
     """configs/fsod/finetune_R_50_C4_1x.yaml: ResNet-50 + FPN (res3-res5 ->
     P3-P5), a 4x4 main ROI pooler, 9 shots, LR steps (10000, 12000)."""
@@ -285,6 +291,8 @@ def serving_vovnet_turbo() -> Config:
 _NAMED_CONFIGS = {
     "finetune_vovnet": finetune_vovnet_25shot,
     "finetune_vovnet_25shot": finetune_vovnet_25shot,
+    "finetune_vovnet_5shot": lambda: finetune_vovnet_kshot(5),
+    "finetune_vovnet_15shot": lambda: finetune_vovnet_kshot(15),
     "finetune_R_50_C4_1x": finetune_r50_c4_1x,
     "finetune_dla": finetune_dla,
     "serving_vovnet": serving_vovnet,

@@ -29,23 +29,25 @@
 //     rows. The next chunk's rows are copied into shared memory with
 //     cp.async (two buffers) while this one resolves. The keep mask is
 //     written in the original order via rank_of.
-// (c') above K = 2048, nms_sweep_wide_kernel, one block of 256 threads per
-//     image: a mask row holds ceil(K/64) words, the removed and kept bitsets
-//     live in shared memory (16 bytes per word), each chunk's decisions are
-//     resolved as in (c) from its diagonal words (loaded one chunk ahead),
-//     then the kept rows' later words are ORed into the removed bitset, one
-//     (row, word) pair a thread, read straight from the mask in global
-//     memory (a shared-memory atomicOr each). Its only limit is the
-//     workspace, B*K*ceil(K/64)*8 bytes of mask: 32 MiB an image at K =
-//     16384.
+// (c') above K = 2048, nms_sweep_wide_kernel, also one warp per image: a
+//     mask row holds ceil(K/64) words; the removed and kept bitsets live in
+//     shared memory, each word written by one lane; each chunk's decisions
+//     are resolved as in (c), then each lane folds one word of the kept
+//     rows at a time from shared memory, where the chunk's rows (their words
+//     from the diagonal on) arrive by cp.async in pieces of 32 words, three
+//     pieces ahead of the fold. No block barrier, no atomics. Its
+//     limits: the workspace, about B*K*ceil(K/64)*8 bytes of mask (rows
+//     rounded up to an even count of words; 32 MiB an image at K = 16384),
+//     and the bitsets' shared memory (K up to about 660,000).
 //
 // What bounds it on the card: it reads K*(16+4+1) bytes and writes K per
 // image, and the IoU work is K*K/2 pairs, so neither bytes nor operations
 // bound it at K <= 2048. The sweep's serial chain does: K/64 chunks, each 64
 // dependent register steps (a bit test into a predicate, a predicated AND),
 // one shuffle and a fold of the kept rows; at batch 8 the mask's IoU work
-// comes next. Past K = 2048 each chunk of the wide sweep waits on two block
-// barriers and an L2 round trip for the kept rows' words.
+// comes next. Past K = 2048 the wide sweep's chunk adds to the same
+// 64-step chain the fold of ceil((chunks - c) / 32) pieces, each 64
+// shared-memory loads a lane.
 //
 // Changed from the first port of this kernel: that one built both triangles
 // in the original index order (half of them never read), and its sweep
@@ -61,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int BLOCK = 64;       // ranks per chunk = bits per word
@@ -70,17 +74,39 @@ constexpr int RANK_BOXES = 16;  // boxes per block of the rank kernel,
 constexpr int RANK_SPLIT = 16;  // each compared by 16 threads of one warp
 constexpr int RANK_TILE = 2048; // keys the rank kernel holds in shared memory at a time
 constexpr int MASK_SPLIT = 4;   // threads per row of the mask kernel
-constexpr int WIDE_THREADS = 256;  // threads of the wide sweep's block
+constexpr int WIDE_PIECE = 32;  // words of a row the wide sweep fetches at a time: one a lane
+constexpr int WIDE_BUFS = 4;    // pieces of the wide sweep's ring (16 KiB each): three in flight ahead of the fold
+constexpr int WIDE_THREADS = 256;  // threads of the wide sweep's block: one warp sweeps, all write the keep mask
+constexpr int WIDE_KEEP = 8;    // ranks a thread loads at once for the keep mask
+constexpr size_t WIDE_SMEM_MAX = 232448;  // the dynamic shared memory a block may opt into
+constexpr int MAX_DEVICES = 64;
 
 typedef unsigned long long u64;
 
 size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
+// Opt `kernel` into `smem` bytes of dynamic shared memory on the current
+// device, once per device (the attribute holds for one device).
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, size_t smem, std::atomic<bool> (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!done[dev].load()) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    done[dev].store(true);
+  }
+  return cudaSuccess;
+}
+
 // u64 words a row of the mask holds: up to SWEEP_K, ceil(K/64) rounded up to
 // a power of two >= 2, so that a row is whole 16-byte pieces and WS divides
-// the warp; above it, ceil(K/64)
+// the warp; above it, ceil(K/64) rounded up to even, so that every row
+// starts on 16 bytes (the wide sweep's bulk copies)
 int row_words(int K) {
-  if (K > SWEEP_K) return (K + BLOCK - 1) / BLOCK;
+  if (K > SWEEP_K) return ((K + BLOCK - 1) / BLOCK + 1) & ~1;
   int ws = 2;
   while (ws * BLOCK < K) ws *= 2;
   return ws;
@@ -350,56 +376,130 @@ nms_sweep_kernel(const u64* __restrict__ mask, const int* __restrict__ n_valid,
   }
 }
 
-// Above SWEEP_K: one block per image. ws = ceil(K/64) words a row; dynamic
-// shared memory holds the removed and kept bitsets, 2 * ws words.
+// Above SWEEP_K: one warp per image, as the register sweep. ws = ceil(K/64)
+// words a row, rounded up to even (rows start on 16 bytes). The removed and
+// kept bitsets live in shared memory, word w of removed written only by the
+// lane that folds it, so a __syncwarp orders them and no block barrier is
+// needed. Chunk c's rows, words (c & ~1) .. chunks-1 (words past the valid
+// count hold no rank), are fetched by cp.async in pieces of WIDE_PIECE
+// words into a ring of WIDE_BUFS pieces kept WIDE_BUFS - 1 pieces ahead of
+// the fold; the diagonal word of every row is in the chunk's first piece,
+// and each lane folds one word of each piece from shared memory over the
+// chunk's kept rows: 64 loads issued together, then selected by the kept
+// bits (a branch a row would wait on each load in turn). The block's
+// other warps wait for the sweep at one barrier, then all write the keep
+// mask.
+__device__ __forceinline__ int wide_pieces(int c, int chunks) {
+  return (chunks - (c & ~1) + WIDE_PIECE - 1) / WIDE_PIECE;
+}
+
+// piece p of chunk c: rows 64c .. 64c+m-1, words s .. min(s+WIDE_PIECE,
+// chunks)-1 with s = (c & ~1) + WIDE_PIECE*p, into dst[row][word - s], 16
+// bytes a copy: 16 lanes a row, two rows at a time, or 8 lanes a row, four
+// at a time, where a row has at most 8 pairs of words
+template <int SPAN>
+__device__ __forceinline__ void fetch_rows(const u64* __restrict__ src, u64* dst, int pairs, int m, int ws,
+                                           int lane) {
+  const int j = lane % SPAN;
+  if (j < pairs) {
+#pragma unroll 4
+    for (int r = lane / SPAN; r < m; r += 32 / SPAN)
+      cp_async16(dst + r * WIDE_PIECE + 2 * j, src + (size_t)r * ws + 2 * j);
+  }
+}
+
+__device__ __forceinline__ void fetch_piece(const u64* __restrict__ img, u64* dst, int c, int p, int m,
+                                            int chunks, int ws, int lane) {
+  const int s = (c & ~1) + WIDE_PIECE * p;
+  const int pairs = (min(WIDE_PIECE, chunks - s) + 1) / 2;  // the last may hold the word at `chunks`: never folded
+  const u64* src = img + (size_t)BLOCK * c * ws + s;
+  if (pairs > WIDE_PIECE / 4)
+    fetch_rows<WIDE_PIECE / 2>(src, dst, pairs, m, ws, lane);
+  else
+    fetch_rows<WIDE_PIECE / 4>(src, dst, pairs, m, ws, lane);
+}
+
+// the sweep of one image by one warp (lane 0 .. 31); fills kept[chunks]
+__device__ __forceinline__ void sweep_wide_warp(const u64* __restrict__ img, int n, int ws, u64* rows,
+                                                u64* removed, u64* kept, int lane) {
+  const int chunks = (n + BLOCK - 1) / BLOCK;
+  for (int w = lane; w < ws; w += 32) removed[w] = 0ull;
+
+  // the fetches walk (chunk, piece) in the order the fold takes them; one
+  // commit group each, empty past the last piece, so that WIDE_BUFS - 1
+  // groups are always in flight
+  int fc = 0, fp = 0, issued = 0;
+  auto fetch_next = [&]() {
+    if (fc < chunks) {
+      fetch_piece(img, rows + (issued % WIDE_BUFS) * BLOCK * WIDE_PIECE, fc, fp, min(BLOCK, n - BLOCK * fc),
+                  chunks, ws, lane);
+      if (++fp == wide_pieces(fc, chunks)) {
+        ++fc;
+        fp = 0;
+      }
+    }
+    cp_async_commit();
+    ++issued;
+  };
+  for (int i = 0; i < WIDE_BUFS - 1; ++i) fetch_next();
+
+  int used = 0;  // pieces taken
+  for (int c = 0; c < chunks; ++c) {
+    const int m = min(BLOCK, n - BLOCK * c);
+    const int s0 = c & ~1;
+    const int np = wide_pieces(c, chunks);
+    u64 kc = 0ull;
+    for (int p = 0; p < np; ++p, ++used) {
+      cp_async_wait<WIDE_BUFS - 2>();
+      __syncwarp();
+      const u64* R = rows + (used % WIDE_BUFS) * BLOCK * WIDE_PIECE;
+      if (p == 0) {
+        // the chunk's decisions, alike in every lane, from its diagonal words
+        kc = resolve_chunk(~removed[c] & (m == BLOCK ? ~0ull : (1ull << m) - 1), R + (c - s0), WIDE_PIECE);
+        if (lane == 0) kept[c] = kc;
+      }
+      // the later words: this lane's word of the piece takes the OR of the
+      // kept rows' (words <= c are decided)
+      const int w = s0 + WIDE_PIECE * p + lane;
+      if (w > c && w < chunks) {
+        u64 acc[4] = {0ull, 0ull, 0ull, 0ull};
+#pragma unroll
+        for (int r = 0; r < BLOCK; ++r) acc[r & 3] |= (kc >> r) & 1ull ? R[r * WIDE_PIECE + lane] : 0ull;
+        removed[w] |= (acc[0] | acc[1]) | (acc[2] | acc[3]);
+      }
+      __syncwarp();  // the piece is read and `removed` written before the slot is fetched into again
+      fetch_next();
+    }
+  }
+  cp_async_wait<0>();  // the ring's empty groups
+}
+
 __global__ void __launch_bounds__(WIDE_THREADS)
 nms_sweep_wide_kernel(const u64* __restrict__ mask, const int* __restrict__ n_valid,
                       const int* __restrict__ rank_of, int K, int ws, uint8_t* __restrict__ keep) {
-  extern __shared__ u64 bitsets[];
-  u64* removed = bitsets;
-  u64* kept = bitsets + ws;
-  __shared__ u64 diag[2][BLOCK];  // the diagonal words of this chunk and the next
-  __shared__ int kept_rows[BLOCK];  // the chunk's kept rows, in order
+  extern __shared__ __align__(16) u64 wide[];
+  u64* rows = wide;                                       // WIDE_BUFS x [BLOCK][WIDE_PIECE]
+  u64* removed = rows + WIDE_BUFS * BLOCK * WIDE_PIECE;   // [ws]
+  u64* kept = removed + ws;                               // [ws]
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const size_t base = (size_t)b * K;
-  const u64* img = mask + base * ws;
-  const int n = n_valid[b];
-  const int chunks = (n + BLOCK - 1) / BLOCK;
-
-  for (int w = tid; w < ws; w += WIDE_THREADS) removed[w] = 0ull;
-  if (tid < min(BLOCK, n)) diag[0][tid] = img[(size_t)tid * ws];
+  if (tid < 32) sweep_wide_warp(mask + base * ws, n_valid[b], ws, rows, removed, kept, tid);
   __syncthreads();
-  for (int c = 0; c < chunks; ++c) {
-    const int m = min(BLOCK, n - BLOCK * c);
-    const int m_next = min(BLOCK, n - BLOCK * (c + 1));
-    u64 next = 0ull;
-    if (tid < m_next) next = img[(size_t)(BLOCK * (c + 1) + tid) * ws + c + 1];
-
-    // the chunk's decisions, alike in every thread
-    const u64 kc = resolve_chunk(~removed[c] & (m == BLOCK ? ~0ull : (1ull << m) - 1), diag[c & 1], 1);
-    if (tid < BLOCK && ((kc >> tid) & 1ull)) kept_rows[__popcll(kc & ((1ull << tid) - 1))] = tid;
-    if (tid == 0) kept[c] = kc;
-    __syncthreads();
-
-    // the later words: word w of every kept row folds into removed word w,
-    // one (kept row, word) pair a thread, consecutive threads on consecutive
-    // words of a row; words at or past `chunks` hold no valid rank
-    const u64* R = img + (size_t)BLOCK * c * ws;
-    const int nw = chunks - c - 1;
-    const int pairs = __popcll(kc) * nw;
-    for (int e = tid; e < pairs; e += WIDE_THREADS) {
-      const int w = c + 1 + e % nw;
-      const u64 v = R[(size_t)kept_rows[e / nw] * ws + w];
-      if (v) atomicOr(removed + w, v);
+  // the keep mask in the original order, WIDE_KEEP ranks a thread in flight
+  for (int i0 = tid; i0 < K; i0 += WIDE_THREADS * WIDE_KEEP) {
+    int r[WIDE_KEEP];
+#pragma unroll
+    for (int j = 0; j < WIDE_KEEP; ++j) {
+      const int i = i0 + WIDE_THREADS * j;
+      r[j] = i < K ? rank_of[base + i] : -1;
     }
-    if (tid < m_next) diag[(c + 1) & 1][tid] = next;
-    __syncthreads();
-  }
-  for (int i = tid; i < K; i += WIDE_THREADS) {
-    const int r = rank_of[base + i];
-    keep[base + i] = r >= 0 && ((kept[r >> 6] >> (r & 63)) & 1ull);
+#pragma unroll
+    for (int j = 0; j < WIDE_KEEP; ++j) {
+      const int i = i0 + WIDE_THREADS * j;
+      if (i < K) keep[base + i] = r[j] >= 0 && ((kept[r[j] >> 6] >> (r[j] & 63)) & 1ull);
+    }
   }
 }
 
@@ -412,12 +512,11 @@ cudaError_t sweep(const u64* mask, const int* n_valid, const int* rank_of, int B
 
 cudaError_t sweep_wide(const u64* mask, const int* n_valid, const int* rank_of, int B, int K,
                        int ws, uint8_t* keep, cudaStream_t s) {
-  const size_t smem = 2 * sizeof(u64) * ws;
-  if (smem > 48 * 1024) {  // past the default: opt in (up to 227 KiB, K of about 930000)
-    const cudaError_t err = cudaFuncSetAttribute(
-        nms_sweep_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  const size_t smem = sizeof(u64) * (WIDE_BUFS * BLOCK * WIDE_PIECE + 2 * (size_t)ws);
+  if (smem > WIDE_SMEM_MAX) return cudaErrorInvalidValue;  // K past about 660,000: a 55 GB mask an image
+  static std::atomic<bool> opted[MAX_DEVICES];
+  const cudaError_t err = opt_in_smem(nms_sweep_wide_kernel, WIDE_SMEM_MAX, opted);
+  if (err != cudaSuccess) return err;
   nms_sweep_wide_kernel<<<B, WIDE_THREADS, smem, s>>>(mask, n_valid, rank_of, K, ws, keep);
   return cudaGetLastError();
 }

@@ -180,8 +180,8 @@ class CenterNet2Detector(nn.Module):
             out[level] = x.transpose(1, 2)  # the reference's permute(0,3,2,1) quirk
         return out
 
-    def correlate(self, query_feats: Dict[str, torch.Tensor],
-                  kernels: Dict[str, Kernels]) -> Dict[str, torch.Tensor]:
+    def correlate(self, query_feats: Dict[str, torch.Tensor], kernels: Dict[str, Kernels],
+                  per_class: bool = False) -> Dict[str, torch.Tensor]:
         """CGM correlation + conv3 fusion per level.
 
         With cfg.use_pallas_cgm (the serving presets) the whole level runs in
@@ -189,22 +189,36 @@ class CenterNet2Detector(nn.Module):
         the batch, f32 arithmetic, the result in the level's dtype; it has no
         backward. Without it (fine-tuning) the level is the differentiable
         composition cgm_correlate -> cgm_conv3 -> relu, as in the JAX
-        package; its taps may carry a leading batch axis, one set per image."""
+        package; its taps may carry a leading batch axis, one set per image.
+
+        With `per_class` the taps' leading axis is a class axis instead (N
+        sets, k1 [N, C]) and each level's result is [N*B, C, H, W],
+        class-major (row c*B + i: class c, image i): one kernel launch a
+        level under cfg.use_pallas_cgm, else the composition once a class."""
         out = {}
         for level in self.levels:
             q_nhwc = query_feats[level].contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
             if self.cfg.use_pallas_cgm:
+                if kernels[level][0].dim() != (2 if per_class else 1):
+                    raise ValueError(f"correlate: the fused CGM takes one set of taps, or one a class with "
+                                     f"per_class=True; got k1 {tuple(kernels[level][0].shape)}")
                 # w3 [C, 2C] f32 as stored, columns [attn; q]
                 fused = cgm_correlate_fused(q_nhwc, *kernels[level], self.cgm_conv3.weight, self.cgm_conv3.bias)
+            elif per_class:
+                fused = torch.cat([self._composition(q_nhwc, *taps) for taps in zip(*kernels[level])])
             else:
-                k1, k13, k31 = kernels[level]
-                if k1.dim() == 2:  # per image: [B, C], [B, 3, C] -> broadcast over H, W
-                    k1 = k1[:, None, None, :]
-                    k13, k31 = (k.transpose(0, 1)[:, :, None, None, :] for k in (k13, k31))
-                corr = cgm_correlate(q_nhwc, k1, k13, k31)
-                fused = torch.relu(linear(torch.cat([corr, q_nhwc], dim=-1), self.cgm_conv3))
+                fused = self._composition(q_nhwc, *kernels[level])
             out[level] = fused.permute(0, 3, 1, 2)
         return out
+
+    def _composition(self, q_nhwc: torch.Tensor, k1: torch.Tensor, k13: torch.Tensor,
+                     k31: torch.Tensor) -> torch.Tensor:
+        """relu(conv3([cgm_correlate(q) | q])): the differentiable level."""
+        if k1.dim() == 2:  # per image: [B, C], [B, 3, C] -> broadcast over H, W
+            k1 = k1[:, None, None, :]
+            k13, k31 = (k.transpose(0, 1)[:, :, None, None, :] for k in (k13, k31))
+        corr = cgm_correlate(q_nhwc, k1, k13, k31)
+        return torch.relu(linear(torch.cat([corr, q_nhwc], dim=-1), self.cgm_conv3))
 
     def proposal_head(self, pos_features: Dict[str, torch.Tensor]):
         """CenterNet head over the correlated pyramid -> (agn_hms, bbox_regs)."""

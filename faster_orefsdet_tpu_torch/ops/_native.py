@@ -37,7 +37,7 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of each library's functions: {name: (argtypes, restype)}
 _SIGNATURES = {
-    "cgm": {"cgm_forward": ([_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP], _I)},
+    "cgm": {"cgm_forward": ([_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP], _I)},
     "nms": {
         "nms_forward": ([_VP, _VP, _VP, ctypes.c_float, _I, _I, _VP, _VP, _VP], _I),
         "nms_workspace_bytes": ([_I, _I], ctypes.c_longlong),

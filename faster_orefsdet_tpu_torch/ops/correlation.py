@@ -7,6 +7,11 @@ import torch
 import torch.nn.functional as F
 
 
+def depthwise_correlate_1x1(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Per-channel scale: q [..., H, W, C] * k [C] (a 1x1 depthwise conv)."""
+    return q * k
+
+
 def _stencil3_w(q: torch.Tensor, k3: torch.Tensor) -> torch.Tensor:
     """3-tap stencil along W of q [..., H, W, C], zero padded:
     out[w] = sum_d q[w+d-1] * k3[d]."""
@@ -26,13 +31,18 @@ def _stencil3_h(q: torch.Tensor, k3: torch.Tensor) -> torch.Tensor:
     )
 
 
+def depthwise_correlate_1x3_3x1(q: torch.Tensor, k_1x3: torch.Tensor, k_3x1: torch.Tensor) -> torch.Tensor:
+    """relu(stencil_w(q, k_1x3)), then stencil_h along H (no relu on the
+    output). k_1x3 / k_3x1 [3, C]: taps along W / H."""
+    return _stencil3_h(torch.relu(_stencil3_w(q, k_1x3)), k_3x1)
+
+
 def cgm_correlate(
     q: torch.Tensor, k_1x1: torch.Tensor, k_1x3: torch.Tensor, k_3x1: torch.Tensor
 ) -> torch.Tensor:
     """The per-level CGM chain before the conv3 fusion, on q [..., H, W, C]:
     relu(relu(q*k)*k) + relu(stencil_h(relu(stencil_w(q, k13)), k31)) + q.
     k_1x1 [C]; k_1x3 / k_3x1 [3, C] taps along W / H."""
-    c2 = torch.relu(torch.relu(q * k_1x1) * k_1x1)
-    d1 = torch.relu(_stencil3_w(q, k_1x3))
-    d2 = torch.relu(_stencil3_h(d1, k_3x1))
+    c2 = torch.relu(depthwise_correlate_1x1(torch.relu(depthwise_correlate_1x1(q, k_1x1)), k_1x1))
+    d2 = torch.relu(depthwise_correlate_1x3_3x1(q, k_1x3, k_3x1))
     return c2 + d2 + q

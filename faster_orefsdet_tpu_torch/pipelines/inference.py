@@ -71,7 +71,8 @@ def _freeze_scales(cfg: Config, act_scales: Optional[Mapping[str, float]]) -> Op
 
 
 def cache_kernels(model: CenterNet2Detector, cache: SupportCache) -> Dict[str, Kernels]:
-    """The CGM kernels of a single-class cache, per level."""
+    """The CGM kernels of a cache, per level: one set for a single-class
+    cache, one a class (k1 [N, C], k13 and k31 [N, 3, C]) for a stacked one."""
     return {level: support_kernels(getattr(cache, level)) for level in model.levels}
 
 
@@ -129,10 +130,10 @@ def query_path_single(model: CenterNet2Detector, cache: SupportCache, image: tor
 def query_path_multiclass(model: CenterNet2Detector, mcache: SupportCache, images: torch.Tensor,
                           image_hw: torch.Tensor) -> Detections:
     """The multiclass query path over a stacked cache (``stack_support_caches``,
-    N classes): the backbone once, then per class the CGM correlation (one
-    CGM launch per class and level: the kernel takes one set of taps), and
-    the head, decode and cascade batched over (class, image) rows; the NMS
-    across classes at the end. images [B, 3, Hc, Wc], image_hw [B, 2] ->
+    N classes): the backbone once, then the CGM correlation of every class
+    (one CGM launch a level, over the classes' stacked taps), and the head,
+    decode and cascade batched over (class, image) rows; the NMS across
+    classes at the end. images [B, 3, Hc, Wc], image_hw [B, 2] ->
     Detections [B, detections_per_image, ...] with class ids in 0..N-1.
 
     The JAX package's multiclass semantics, where they differ from
@@ -146,9 +147,7 @@ def query_path_multiclass(model: CenterNet2Detector, mcache: SupportCache, image
     with record_function("features"):
         feats = model.features(images)
     with record_function("correlate"):
-        per_class = [model.correlate(feats, cache_kernels(model, SupportCache(*(t[c] for t in mcache))))
-                     for c in range(n_cls)]
-        pos_feats = {level: torch.cat([pc[level] for pc in per_class]) for level in model.levels}
+        pos_feats = model.correlate(feats, cache_kernels(model, mcache), per_class=True)
     with record_function("proposal_head"):
         agn_hms, bbox_regs = model.proposal_head(pos_feats)
     with record_function("decode_proposals"):

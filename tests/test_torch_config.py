@@ -1,18 +1,35 @@
-"""Drift guard: the port's config copy equals the JAX package's config for
-every preset the port names, and the port's BaselineConfig (the
+"""Drift guard: the port names exactly the JAX package's presets, each
+config equals the JAX package's field for field, and the port's BaselineConfig (the
 AttentionRPN baseline's) equals the JAX package's, field for field."""
 
 import dataclasses
 
 import pytest
 
+from faster_orefsdet_tpu.config import _NAMED_CONFIGS as JAX_NAMED_CONFIGS
 from faster_orefsdet_tpu.config import get_config as jax_get_config
 from faster_orefsdet_tpu_torch.config import PRESETS, get_config
 
 
-@pytest.mark.parametrize("name", PRESETS)
+def test_presets_are_jax_presets():
+    assert set(PRESETS) == set(JAX_NAMED_CONFIGS)
+
+
+# over the JAX package's names, so that a preset the port lacks fails here
+@pytest.mark.parametrize("name", sorted(JAX_NAMED_CONFIGS))
 def test_preset_matches_jax_config(name):
     assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(jax_get_config(name))
+
+
+@pytest.mark.parametrize("name,shot", [("finetune_vovnet_5shot", 5), ("finetune_vovnet_15shot", 15)])
+def test_kshot_presets(name, shot):
+    from faster_orefsdet_tpu_torch.config import finetune_vovnet_kshot
+
+    cfg = get_config(name)
+    assert cfg.fs.support_shot == shot
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(finetune_vovnet_kshot(shot))
+    assert dataclasses.asdict(cfg.replace(fs=get_config("finetune_vovnet").fs)) == \
+        dataclasses.asdict(get_config("finetune_vovnet"))
 
 
 OVERRIDES = [

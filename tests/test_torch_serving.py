@@ -220,3 +220,49 @@ def test_multiclass_single_class_consistency(pair):
     np.testing.assert_allclose(b.scores[b.valid].numpy(), a.scores[a.valid].numpy(),
                                rtol=SCORE_RTOL, atol=SCORE_ATOL)
     assert not b.classes.any()
+
+
+def test_multiclass_fused_is_one_cgm_call_a_level(pair, monkeypatch):
+    """Under use_pallas_cgm a 3-class request calls the fused CGM once a
+    level, with the classes' stacked taps ([3, C]), and gives what the
+    composition path (a call a class) gives."""
+    from faster_orefsdet_tpu_torch.models import detector
+
+    p = pair
+    cfg = p["cfg"].replace(use_pallas_cgm=True)
+    img = torch.from_numpy(np.random.default_rng(9).standard_normal((3, 96, 128)).astype(np.float32))
+    mcache = stack_support_caches(p["caches"])
+    ref = tinf.build_multiclass_inference_fn(p["cfg"], p["sd"], device="cpu")(mcache, img, (96.0, 128.0))
+    calls = []
+    real = detector.cgm_correlate_fused
+    monkeypatch.setattr(detector, "cgm_correlate_fused", lambda q, k1, *a, **k: calls.append(tuple(k1.shape))
+                        or real(q, k1, *a, **k))
+    det = tinf.build_multiclass_inference_fn(cfg, p["sd"], device="cpu")(mcache, img, (96.0, 128.0))
+    assert calls == [(3, 128)] * 3
+    _assert_detections_match(_np(det), _np(ref))
+    assert torch.equal(det.classes[det.valid], ref.classes[ref.valid])
+
+
+def test_multiclass_fused_batch2_matches_jax(pair):
+    """The port's multiclass query path under use_pallas_cgm over two images
+    at once (rows class-major, c*B + i) against the JAX package's multiclass
+    path on each image."""
+    p = pair
+    cfg = p["cfg"].replace(use_pallas_cgm=True)
+    g = np.random.default_rng(4)
+    imgs = g.standard_normal((2, 96, 128, 3)).astype(np.float32)
+    hws = ((96.0, 128.0), (80.0, 112.0))
+    model = tinf.make_detector(cfg, p["sd"], device="cpu")
+    det = tinf.query_path_multiclass(model, stack_support_caches(p["caches"]),
+                                     torch.from_numpy(imgs).permute(0, 3, 1, 2).contiguous(), torch.tensor(hws))
+    jfn = jinf.build_multiclass_inference_fn(p["jcfg"])
+    mcache = jsc.stack_support_caches(p["jcaches"])
+    for i in range(2):
+        ref = jfn(p["params"], mcache, jnp.asarray(imgs[i]), jnp.asarray(hws[i]))
+        got, want = {k: v[i] for k, v in _np(det).items()}, _np(ref)
+        gcls, rcls = det.classes[i].numpy(), np.asarray(ref.classes)
+        for d, cls in ((got, gcls), (want, rcls)):
+            d["boxes"] = d["boxes"] + 1000.0 * cls[:, None]
+        _assert_detections_match(got, want)
+        assert np.array_equal(np.bincount(gcls[got["valid"]], minlength=3),
+                              np.bincount(rcls[want["valid"]], minlength=3))
