@@ -55,7 +55,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    readback workers, each result against that frame's own pinned call;
 10. eval: `evaluate` on 16 synthetic frames (filled ellipses on noise, the
    ground truth their boxes) at batch 1 and 8, every AP value finite (the
-   weights are random: the values check the loop, not the detector);
+   weights are random: the values check the loop, not the detector),
+   through its pinned function: one graph captured (3 CGM and 2 NMS
+   launches), every request a replay; its `fps` beside the eager builders'
+   images/s on the same timing loop (`eager_fps`);
 11. timing: each kernel at the main path's shapes, on the device only (50
    calls captured in a CUDA graph, the replay timed with CUDA events; L2
    warm) and as enqueued from the host (events around 50 calls), its plain
@@ -120,7 +123,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    as the params npz (round trip equal); cli/build_support on a synthetic
    COCO set held in memory (12 VGA scenes); cli/demo under serving_vovnet
    at full width with --params on 8 VGA frames by image glob (3 CGM and 2
-   NMS launches an image), on 16 frames as a video by --frame-batch 8, by
+   NMS launches an image), on 16 frames as a video by --frame-batch 8
+   (pinned raw-frame serving: one graph captured, then replays), by
    --parallel (against the glob run at |dscore| <= 1e-5) and with --debug
    on 2 frames (finite overlays from the same forward pass: 3 CGM and 2
    NMS launches an image); the glob and the video runs in f32 card
@@ -147,15 +151,18 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    replay on the request's own operands); serving_vovnet_fast in bf16 timed
    and profiled the same way as the yardstick;
 18. data parallel over n = min(cards, 4) cards: make_mesh(cards + 1)
-   refused; make_sharded_serving on phase 6's 8 VGA frames (serving_vovnet)
-   against one card's build_serving_fn: each card's share bit for bit
-   against card 0 serving the same frames (at n = 1 the whole batch; at
-   n > 1 the batch in f32 against one card's batch of 8 by phase 5's
+   refused; make_sharded_serving (a pinned replica a card) on phase 6's 8
+   VGA frames (serving_vovnet): each card's share bit for bit against card
+   0's pinned replay of the same frames (at n = 1 the whole batch; at n > 1
+   the batch in f32 against one card's eager batch of 8 by phase 5's
    criteria is printed, not held: it measures the batch's effect on
-   cuDNN); 3n CGM and 2n NMS launches; images/s at n and at 1 (host clock, each
-   call ending in a sync); evaluate_sharded
-   on phase 10's 16 frames, 8 / n a card, against evaluate at batch 8 / n
-   (the same batches: the AP table equal); finetune_vovnet data-parallel
+   cuDNN); a graph of 3 CGM and 2 NMS launches a card, one replay each;
+   images/s (host clock, each call ending in a sync) pinned at n cards and
+   at one, at 8 frames a call and at 8 frames a card, and through eager
+   replicas at n and at one (a line says so where one card is visible);
+   evaluate_sharded on phase 10's 16 frames, 8 / n a card, against
+   evaluate at batch 8 / n, both pinned (the same batches: the AP table
+   equal; one graph a card, every request a replay); finetune_vovnet data-parallel
    training at full width (TF32 off, no dropout, ROI sampling on): two
    ranks on cuda:0 over gloo with a global batch of 2 for 4 steps, and, with
    two cards or more, one NCCL rank a card with a global batch of n (else a
@@ -206,9 +213,21 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    peak memory; the federated loss card vs CPU; a torch.profiler trace,
    the flops of a one-stage request, measure_model(serving_vovnet),
    device_memory; the C++ COCO matcher built with g++ on the machine, and
-   coco_ap with it equal to the numpy twin's on phase 10's eval set.
+   coco_ap with it equal to the numpy twin's on phase 10's eval set;
+21. pinned entry points, the counterparts of the JAX package's jitted
+   serving builders, against their eager builders under the library's
+   defaults: build_pinned_serving_fn on phase 6's 8 VGA frames at batch 1
+   and 8, build_pinned_multiclass_inference_fn on phase 8's nine-class
+   request, build_pinned_onestage_inference_fn at 1 and 9 classes in f32
+   and bf16 on two of phase 20's 384x512 canvases, and
+   build_pinned_baseline_inference_fn on phase 19's 608x800 canvas: each
+   by phase 5's criteria at |dscore| <= 1e-5; each graph's captured K1 and
+   K2 launches equal to an eager request's (3 and 2, 3 and 2, 0 and 1, 0
+   and 2); K2 bit for bit and K1 within phase 19's bound on the eager
+   requests' own inputs; request ms at the median, eager and pinned, a
+   line each (`"pinned_entry_ms"`).
 
-With --ab-baseline DIR, after phase 20 an "ab" line per kernel row against
+With --ab-baseline DIR, after phase 21 an "ab" line per kernel row against
 an earlier build's cgm.cu and nms.cu in DIR, timed in turns (earlier, this,
 this, earlier) on the same inputs with the outputs compared: K1 at 160 and
 128 channels, batch 1 and 8; K2 on the inputs the nine-class request ([1,
@@ -217,7 +236,8 @@ gave it, at [1, 3540], [1, 4096] and [1, 16384] random, and at [8, 1024],
 [8, 256] and [1, 2048].
 
 Each result is one JSON line. The line before the last holds the kernels'
-table; the last line is {"ok": true, "device": {...}}. Run without the
+table (with each kernel's graph sites of phase 21, their captured launches
+and replays); the last line is {"ok": true, "device": {...}}. Run without the
 repository beside it, or without a CUDA device, it exits non-zero and prints
 no result.
 """
@@ -322,6 +342,7 @@ TRAIN_STAGES = ("features", "refine_support", "correlate", "proposal_head", "tar
 # phase 20, the one-stage CenterNet over P3-P7, the rest of the zoo, fed loss, profiling, the native matcher
 ONESTAGE_CONFIG, ONESTAGE_FRAMES, ONESTAGE_CLASSES = "finetune_vovnet", 6, (1, 9)
 ONESTAGE_LEVELS, ONESTAGE_STRIDES = ("p3", "p4", "p5", "p6", "p7"), (8, 16, 32, 64, 128)
+PINNED_ONESTAGE_FRAMES = 2  # phase 21: pinned against eager on two of phase 20's frames a configuration
 ZOO_INPUT_HW, DLASEG_INPUT_HW, ZOO_ATTENTION_CHANNELS = (384, 512), (512, 512), 128
 ZOO_TOL = 1e-4  # card vs CPU in f32, of each output's largest |value| (or DLA_F32_FACTOR x the witness)
 REGNET_Y_400MF = dict(w_a=27.89, w_0=48, w_m=2.09, depth=16, group_width=8, se_ratio=0.25)
@@ -740,8 +761,8 @@ def phase_pinned(torch, np, cfg, params, cache, serve1, serve8, singles, u8, hw8
     torch.cuda.synchronize()
     no_alias = (first.data_ptr() != second.data_ptr() and torch.equal(first, got[0])
                 and torch.equal(second, got[1]) and not torch.equal(first, second))
-    graphs = {f"{list(k[0])} {str(k[1])[6:]}": {"captured_launches": g.launches, "replays": g.replays}
-              for k, g in pinned.graphs.items()}
+    graphs = {f"{list(k[0][0])} {str(k[0][1])[6:]}": {"captured_launches": g.launches, "replays": g.replays}
+              for k, g in pinned.graphs.items()}  # keyed by the (shape, dtype) of each input, images first
     emit(pinned={"images_checked": len(checks), "all_matched": all(c["ok"] for c in checks),
                  "max_dscore": max(c["max_dscore"] for c in checks), "bit_identical_values": identical,
                  "values": total, "held_results_do_not_alias": no_alias, "graphs": graphs,
@@ -932,19 +953,88 @@ def eval_data(np, cfg, n_frames, shots, seed=5):
     return records, entries, store
 
 
+def pinned_built(module, name, run):
+    """Runs run() with `module`.`name` (a pinned builder as an entry point
+    imported it) keeping each pinned function it builds; returns them, so
+    that their graphs' replayed launches can be read."""
+    builder, built = getattr(module, name), []
+
+    def keeping(*args, **kwargs):
+        fn = builder(*args, **kwargs)
+        built.append(fn)
+        return fn
+
+    setattr(module, name, keeping)
+    try:
+        run()
+    finally:
+        setattr(module, name, builder)
+    return built
+
+
+def eager_eval_fps(torch, np, cfg, params, cache, records, batch, imread):
+    """`evaluate`'s timing loop (host clock around a request and the
+    read-back of its detections, the first request left out, a batch's
+    time divided by its size) on the eager builders that `evaluate` ran to
+    PR 11: the eager images/s beside the pinned `fps`."""
+    from faster_orefsdet_tpu_torch.data.loader import eval_canvas, eval_loader
+    from faster_orefsdet_tpu_torch.pipelines.inference import build_batched_inference_fn, build_inference_fn
+
+    items = list(eval_loader(records, cfg, eval_canvas(records, cfg), raw_uint8=batch > 1, imread=imread))
+    if batch > 1:
+        infer = build_batched_inference_fn(cfg, params)
+        requests = []
+        for i in range(0, len(items), batch):
+            buf = items[i:i + batch]
+            buf += [buf[0]] * (batch - len(buf))
+            canvases = torch.stack([b[1] for b in buf])
+            hws = torch.tensor([list(b[2]) for b in buf], dtype=torch.float32)
+            requests.append(lambda c=canvases, h=hws: infer(cache, c, h))
+    else:
+        infer = build_inference_fn(cfg, params)
+        requests = [lambda c=canvas, h=hw: infer(cache, c, h) for _, canvas, hw, _ in items]
+    times = []
+    for request in requests:
+        t0 = time.perf_counter()
+        det = request()
+        _ = [getattr(det, f).cpu().numpy() for f in ("boxes", "scores", "valid")]
+        times.append((time.perf_counter() - t0) / batch)
+    return 1.0 / float(np.mean(times[1:]))
+
+
 def phase_eval(torch, np, cfg, params, smi):
     """evaluate on synthetic frames at batch 1 and 8 (frames and support
-    crops held in memory, read through `imread`)."""
+    crops held in memory, read through `imread`) through its pinned
+    function: one graph captured (its warm-ups and capture counted), every
+    request a replay; its fps beside the eager builders' on the same loop."""
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
+    from faster_orefsdet_tpu_torch.pipelines import evaluate as evaluate_module
     from faster_orefsdet_tpu_torch.pipelines.evaluate import encode_support_set, evaluate
+    from faster_orefsdet_tpu_torch.pipelines.graphs import WARMUP_CALLS
 
     records, entries, store = eval_data(np, cfg, EVAL_FRAMES, EVAL_SHOTS)
     cache = encode_support_set(cfg, params, entries, shot=EVAL_SHOTS, imread=store.get)
     for bs in (1, 8):
-        res = evaluate(cfg, params, cache, records, batch_size=bs, imread=store.get)
-        emit(eval={"batch": bs, "frames": len(records), **res, "card": smi,
+        res = {}
+        built = []
+        counted = count_launches(cgm_cuda, nms_cuda, lambda: built.extend(pinned_built(
+            evaluate_module, "build_pinned_inference_fn",
+            lambda: res.update(evaluate(cfg, params, cache, records, batch_size=bs, imread=store.get)))))
+        requests = -(-len(records) // bs)
+        replayed = built[0].kernel_launches()
+        graphs = [g.launches for g in built[0].graphs.values()]
+        eager_fps = eager_eval_fps(torch, np, cfg, params, cache, records, bs, store.get)
+        emit(eval={"batch": bs, "frames": len(records), **res, "eager_fps": eager_fps,
+                   "pinned_fps_over_eager": res["fps"] / eager_fps, "graphs_captured_launches": graphs,
+                   "counted_launches": counted, "replayed_launches": replayed, "card": smi,
                    "note": "random weights: the AP values check the loop, not the detector"})
         if not all(np.isfinite(res[k]) for k in AP_KEYS):
             raise AssertionError(f"eval at batch {bs}: an AP value is not finite")
+        if (len(built) != 1 or graphs != [{"cgm": 3, "nms": 2}]
+                or replayed != {"cgm": 3 * requests, "nms": 2 * requests}
+                or counted != {"cgm": 3 * (WARMUP_CALLS + 1), "nms": 2 * (WARMUP_CALLS + 1)}):
+            raise AssertionError(f"eval at batch {bs}: not one graph replayed a request ({graphs}, counted {counted}, "
+                                 f"replayed {replayed})")
 
 
 def train_rois(torch, np, batch, n: int, seed: int):
@@ -1429,7 +1519,9 @@ def phase_dla(torch, np, smi):
     from faster_orefsdet_tpu_torch.data.loader import train_loader
     from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
     from faster_orefsdet_tpu_torch.ops.nms import nms_mask as nms_plain
+    from faster_orefsdet_tpu_torch.pipelines import evaluate as evaluate_module
     from faster_orefsdet_tpu_torch.pipelines.evaluate import encode_support_set, evaluate
+    from faster_orefsdet_tpu_torch.pipelines.graphs import WARMUP_CALLS
     from faster_orefsdet_tpu_torch.pipelines.inference import build_inference_fn
     from faster_orefsdet_tpu_torch.pipelines.preprocess import preprocess_host
     from faster_orefsdet_tpu_torch.pipelines.train_step import build_train_step_scan
@@ -1486,10 +1578,11 @@ def phase_dla(torch, np, smi):
     sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
     erecords, entries, store = eval_data(np, cfg, DLA_EVAL_FRAMES, DLA_EVAL_FRAMES, seed=6)
     cache = encode_support_set(cfg, sd, entries, shot=DLA_EVAL_FRAMES, imread=store.get)
-    res = {}
-    eval_launches = count_launches(cgm_cuda, nms_cuda,
-                                   lambda: res.update(evaluate(cfg, sd, cache, erecords, batch_size=1,
-                                                               imread=store.get)))
+    res, built = {}, []
+    counted = count_launches(cgm_cuda, nms_cuda, lambda: built.extend(pinned_built(
+        evaluate_module, "build_pinned_inference_fn",
+        lambda: res.update(evaluate(cfg, sd, cache, erecords, batch_size=1, imread=store.get)))))
+    eval_launches = built[0].kernel_launches()  # evaluate replays one pinned graph
     infer = build_inference_fn(cfg, sd)
     inp = cfg.input
     canvas, hw, _ = preprocess_host(store["frame0"], inp.min_size_test, inp.max_size_test, CANVAS_HW,
@@ -1504,13 +1597,15 @@ def phase_dla(torch, np, smi):
                   "plain_ms": enqueue_ms(torch, lambda: nms_plain(dboxes, dscores, dvalid, thr_dec), 10),
                   **bound(k_dec * 22, n_valid * (n_valid - 1) // 2 * 13 + k_dec ** 2 * 3)}
     emit(dla_eval={"frames": len(erecords), "shots": len(entries), **res, "launches": eval_launches,
+                   "counted_launches": counted,
                    "nms_on_a_request": serve_checks, "decode_site": serve_site, "card": smi,
                    "note": "random weights: the AP values check the loop, not the detector"})
     sites = [(c["shape"], c["thr"]) for c in serve_checks if c["site"] == "kernel"]
     if not all(np.isfinite(res[k]) for k in AP_KEYS):
         raise AssertionError("finetune_dla eval: an AP value is not finite")
-    if eval_launches != {"cgm": 0, "nms": 2 * len(erecords)}:
-        raise AssertionError(f"finetune_dla eval launches {eval_launches} (expected 0 CGM, 2 NMS an image)")
+    if eval_launches != {"cgm": 0, "nms": 2 * len(erecords)} or counted != {"cgm": 0, "nms": 2 * (WARMUP_CALLS + 1)}:
+        raise AssertionError(f"finetune_dla eval launches {eval_launches}, counted {counted} (expected 0 CGM, "
+                             "2 NMS an image replayed from one graph)")
     if sites != [([1, k_dec], thr_dec), ([1, cfg.centernet.post_nms_topk_test], cfg.roi.nms_thresh_test)] \
             or any(c["mismatches"] for c in serve_checks):
         raise AssertionError(f"the NMS kernel on a finetune_dla request's inputs: {serve_checks}")
@@ -1684,6 +1779,7 @@ def phase_workflow(torch, np, smi):
     from faster_orefsdet_tpu_torch.data.synthetic import generate_ore_dataset
     from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
     from faster_orefsdet_tpu_torch.pipelines.evaluate import encode_support_set
+    from faster_orefsdet_tpu_torch.pipelines.graphs import WARMUP_CALLS
     from faster_orefsdet_tpu_torch.data.coco import load_support_index
     from faster_orefsdet_tpu_torch.utils.checkpoint import load_params_npz, save_params_npz
     from faster_orefsdet_tpu_torch.utils.params import init_params
@@ -1757,8 +1853,10 @@ def phase_workflow(torch, np, smi):
             raise AssertionError(f"demo by glob: launches {launches}, finite {finite}")
         if not pinned_vs_eager["all_matched"]:
             raise AssertionError(f"demo --parallel against the glob run: {pinned_vs_eager}")
-        batches = -(-WORKFLOW_VIDEO // WORKFLOW_FRAME_BATCH)
-        if len(vid16.draws) != WORKFLOW_VIDEO or vid_launches != {"cgm": 3 * batches, "nms": 2 * batches}:
+        # the video's frame batches go through the pinned serving function:
+        # one graph captured (its warm-ups and capture counted), then replays
+        if len(vid16.draws) != WORKFLOW_VIDEO or vid_launches != {"cgm": 3 * (WARMUP_CALLS + 1),
+                                                                   "nms": 2 * (WARMUP_CALLS + 1)}:
             raise AssertionError(f"demo by video: {len(vid16.draws)} frames, launches {vid_launches}")
         if not dbg_ok or dbg_launches != {"cgm": 3 * 2, "nms": 2 * 2}:  # one forward pass an image
             raise AssertionError(f"demo --debug: overlays {len(dbg.debugs)}, launches {dbg_launches}")
@@ -2206,18 +2304,24 @@ def dp_reference(torch, cfg, params, batches):
 
 
 def phase_dp(torch, np, cfg, params, cache, frames_u8, smi):
-    """Data parallelism: sharded serving and sharded eval over
-    min(cards, DP_MAX_CARDS) cards against one card, make_mesh's refusal,
-    finetune_vovnet data-parallel training by two gloo ranks on cuda:0 and,
-    where there are two cards or more, by one NCCL rank a card, each against
-    one process over the same global batches."""
+    """Data parallelism: sharded serving (a pinned replica a card) and
+    sharded eval over min(cards, DP_MAX_CARDS) cards against one card,
+    make_mesh's refusal, finetune_vovnet data-parallel training by two gloo
+    ranks on cuda:0 and, where there are two cards or more, by one NCCL rank
+    a card, each against one process over the same global batches. Returns
+    the replicas' replayed launches ("pinned") and the training ranks'
+    counted ones ("train")."""
     from faster_orefsdet_tpu_torch.config import get_config
     from faster_orefsdet_tpu_torch.data.loader import train_loader
     from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
-    from faster_orefsdet_tpu_torch.parallel import make_mesh, make_sharded_serving
+    from faster_orefsdet_tpu_torch.parallel import eval_dp, make_mesh, make_sharded_serving
     from faster_orefsdet_tpu_torch.parallel.eval_dp import evaluate_sharded
+    from faster_orefsdet_tpu_torch.pipelines import evaluate as evaluate_module
     from faster_orefsdet_tpu_torch.pipelines.evaluate import encode_support_set, evaluate
-    from faster_orefsdet_tpu_torch.pipelines.inference import build_serving_fn, pack_detections, unpack_detections_np
+    from faster_orefsdet_tpu_torch.pipelines.graphs import WARMUP_CALLS
+    from faster_orefsdet_tpu_torch.pipelines.inference import (
+        build_pinned_serving_fn, build_serving_fn, pack_detections, unpack_detections_np,
+    )
     from faster_orefsdet_tpu_torch.pipelines.support_cache import build_support_cache
     from faster_orefsdet_tpu_torch.utils.params import init_params
 
@@ -2233,24 +2337,28 @@ def phase_dp(torch, np, cfg, params, cache, frames_u8, smi):
     mesh = make_mesh(n)
     torch.backends.cudnn.allow_tf32 = False  # the comparisons, as phases 3-10
     torch.backends.cuda.matmul.allow_tf32 = False
+    once = {"cgm": 3 * (WARMUP_CALLS + 1), "nms": 2 * (WARMUP_CALLS + 1)}  # a graph's warm-ups and capture
 
-    # ---- (a) sharded serving against one card: each card's share bit for
-    # bit against card 0 serving the same frames (at n = 1 the whole batch)
+    # ---- (a) sharded serving through a pinned replica a card against card
+    # 0's pinned replay of the same frames, bit for bit (at n = 1 the whole batch)
     frames = frames_u8[:DP_SERVE_BATCH].cuda()
     sharded, canvas = make_sharded_serving(cfg, params, FRAME_HW, mesh, cache)
-    single, _ = build_serving_fn(cfg, params, FRAME_HW)
+    single, _ = build_pinned_serving_fn(cfg, params, cache, FRAME_HW)
     out = {}
-    serve_launches = count_launches(cgm_cuda, nms_cuda, lambda: out.update(det=sharded(frames)))
+    counted = count_launches(cgm_cuda, nms_cuda, lambda: out.update(det=sharded(frames)))
+    serve_launches = sharded.kernel_launches()  # one replay a card
+    graphs = [[g.launches for g in r.graphs.values()] for r in sharded.replicas]
     share = DP_SERVE_BATCH // n
     shares_equal = [all(torch.equal(a[i * share:(i + 1) * share], b)
-                        for a, b in zip(out["det"], single(cache, frames[i * share:(i + 1) * share])))
+                        for a, b in zip(out["det"], single(frames[i * share:(i + 1) * share])))
                     for i in range(n)]
-    check = {"shares_bit_identical_to_card0": shares_equal}
+    check = {"shares_bit_identical_to_card0_pinned": shares_equal, "graphs_captured_launches": graphs,
+             "counted_launches": counted}
     ok = all(shares_equal)
     if n > 1:
-        # reported, not held: the batch in f32 against one card's batch of 8
-        # by phase 5's criteria. That compares batch 8 with batch 8 / n on
-        # one card (the shares are bit for bit card 0's): cuDNN picks its
+        # reported, not held: the batch in f32 against one card's eager batch
+        # of 8 by phase 5's criteria. That compares batch 8 with batch 8 / n
+        # on one card (the shares are bit for bit card 0's): cuDNN picks its
         # convolutions by the batch, and on noise frames a random model's
         # near-tied proposals swap at the top-k boundary
         cfg32 = cfg.replace(compute_dtype="float32")
@@ -2262,47 +2370,81 @@ def phase_dp(torch, np, cfg, params, cache, frames_u8, smi):
         check["f32_batch_effect_reported"] = [match(np, {k: v[i] for k, v in g.items()},
                                                     {k: v[i] for k, v in r.items()}, MATCH_DSCORE)
                                               for i in range(DP_SERVE_BATCH)]
-    torch.backends.cudnn.allow_tf32 = True  # the library defaults for the times, as phase 11
-    at_n = request_times(torch, lambda: sharded(frames), DP_SERVE_ITERS)
-    at_1 = request_times(torch, lambda: single(cache, frames), DP_SERVE_ITERS)
+    # images/s, the library defaults (TF32 convs) as phase 11, host clock,
+    # each call ending in a sync: pinned at n cards and at one, at 8 frames
+    # a call (8 / n a card) and at 8 frames a card, and the same through the
+    # eager replicas that make_sharded_serving held to PR 11
+    torch.backends.cudnn.allow_tf32 = True
+    eager = [(build_serving_fn(cfg, params, FRAME_HW, device=dev)[0], cache.to(dev), dev) for dev in mesh.devices]
+
+    def eager_sharded(fr):
+        dets = [fn(c, part.to(dev, non_blocking=True)) for (fn, c, dev), part in zip(eager, fr.chunk(n))]
+        return [torch.cat([t.to(mesh.devices[0], non_blocking=True) for t in ts]) for ts in zip(*dets)]
+
+    timed_sharded, _ = make_sharded_serving(cfg, params, FRAME_HW, mesh, cache)
+    timed_single, _ = build_pinned_serving_fn(cfg, params, cache, FRAME_HW)
+    frames_n = frames.repeat(n, 1, 1, 1)  # 8 frames a card
+    runs = {"pinned_at_n": (lambda: timed_sharded(frames), DP_SERVE_BATCH),
+            "pinned_at_1": (lambda: timed_single(frames), DP_SERVE_BATCH),
+            "pinned_at_1_batch_per_card": (lambda: timed_single(frames[:share]), share),
+            "pinned_at_n_8_a_card": (lambda: timed_sharded(frames_n), DP_SERVE_BATCH * n),
+            "eager_at_n": (lambda: eager_sharded(frames), DP_SERVE_BATCH),
+            "eager_at_1": (lambda: eager[0][0](cache, frames), DP_SERVE_BATCH)}
+    rates = {}
+    for name, (fn, images) in runs.items():
+        med = request_times(torch, fn, DP_SERVE_ITERS)[0]
+        rates[name] = {"ms_median": med, "images_per_s": images * 1e3 / med}
+    per_card = rates["pinned_at_1_batch_per_card"]["images_per_s"]
     emit(dp_serve={"config": "serving_vovnet", "frames": [DP_SERVE_BATCH, *FRAME_HW], "canvas": list(canvas),
-                   "cards": n, "visible": count, "launches": serve_launches, **check,
-                   "ms_median_at_n": at_n[0], "images_per_s_at_n": DP_SERVE_BATCH * 1e3 / at_n[0],
-                   "ms_median_at_1": at_1[0], "images_per_s_at_1": DP_SERVE_BATCH * 1e3 / at_1[0],
+                   "cards": n, "visible": count, "launches": serve_launches, **check, **rates,
+                   "pinned_at_n_over_one_card_at_the_same_batch_per_card":
+                       rates["pinned_at_n"]["images_per_s"] / per_card,
                    "card": smi})
+    if n == 1:
+        emit(dp_serve_scaling={"cards": 1, "why": "one card visible: sharded serving at n cards against one card "
+                                                  "needs two or more; the figure stays open", "card": smi})
     if not ok:
-        raise AssertionError(f"sharded serving over {n} card(s) differs from one card: {check}")
-    if serve_launches != {"cgm": 3 * n, "nms": 2 * n}:
-        raise AssertionError(f"sharded serving: kernel launches {serve_launches} over {n} card(s)")
+        raise AssertionError(f"sharded serving over {n} card(s) differs from card 0's pinned replay: {check}")
+    if (serve_launches != {"cgm": 3 * n, "nms": 2 * n} or graphs != [[{"cgm": 3, "nms": 2}]] * n
+            or counted != {k: v * n for k, v in once.items()}):
+        raise AssertionError(f"sharded serving: replayed {serve_launches}, graphs {graphs}, counted {counted} "
+                             f"over {n} card(s)")
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- (b) sharded eval against one card at the cards' batch (the same
-    # batches of images: the same table)
+    # batches of images: the same table), both through pinned functions
     records, entries, store = eval_data(np, cfg, EVAL_FRAMES, EVAL_SHOTS)
     ecache = encode_support_set(cfg, params, entries, shot=EVAL_SHOTS, imread=store.get)
     per_device = DP_SERVE_BATCH // n
-    ref_ap = evaluate(cfg, params, ecache, records, batch_size=per_device, imread=store.get)
-    res = {}
-    eval_launches = count_launches(cgm_cuda, nms_cuda, lambda: res.update(
-        evaluate_sharded(cfg, params, ecache, records, mesh, per_device_batch=per_device, imread=store.get)))
+    ref_ap = {}
+    pinned_built(evaluate_module, "build_pinned_inference_fn", lambda: ref_ap.update(
+        evaluate(cfg, params, ecache, records, batch_size=per_device, imread=store.get)))
+    res, built = {}, []
+    counted = count_launches(cgm_cuda, nms_cuda, lambda: built.extend(pinned_built(
+        eval_dp, "build_pinned_inference_fn", lambda: res.update(
+            evaluate_sharded(cfg, params, ecache, records, mesh, per_device_batch=per_device, imread=store.get)))))
+    eval_launches = {k: sum(fn.kernel_launches()[k] for fn in built) for k in ("cgm", "nms")}
     diff = max(abs(res[k] - ref_ap[k]) for k in AP_KEYS if not np.isnan(ref_ap[k])) if any(
         not np.isnan(ref_ap[k]) for k in AP_KEYS) else 0.0
     same_nan = all(np.isnan(res[k]) == np.isnan(ref_ap[k]) for k in AP_KEYS)
     requests = -(-len(records) // DP_SERVE_BATCH)
     emit(dp_eval={"frames": len(records), "cards": n, "per_device_batch": per_device,
                   "sharded": {k: res[k] for k in AP_KEYS}, "one_card": {k: ref_ap[k] for k in AP_KEYS},
-                  "max_abs_diff": diff, "launches": eval_launches, "card": smi,
+                  "one_card_fps": ref_ap.get("fps"), "max_abs_diff": diff, "launches": eval_launches,
+                  "counted_launches": counted, "card": smi,
                   "note": "random weights: the values check the loop, not the detector"})
     if not same_nan or diff > 0.0:
         raise AssertionError(f"evaluate_sharded over {n} card(s) vs evaluate: {res} vs {ref_ap}")
-    if eval_launches != {"cgm": 3 * n * requests, "nms": 2 * n * requests}:
-        raise AssertionError(f"evaluate_sharded: kernel launches {eval_launches}")
+    if (len(built) != n or eval_launches != {"cgm": 3 * n * requests, "nms": 2 * n * requests}
+            or counted != {k: v * n for k, v in once.items()}):
+        raise AssertionError(f"evaluate_sharded: {len(built)} replicas, replayed {eval_launches}, counted {counted}")
+    pinned = {k: serve_launches[k] + eval_launches[k] for k in serve_launches}
 
     # ---- (c) training, two gloo ranks on one card; (d) one NCCL rank a card
     tcfg = get_config(TRAIN_CONFIG)
     tparams = init_params(tcfg, seed=0)
     records, mapper = train_data(tcfg)
-    launches = {k: serve_launches[k] + eval_launches[k] for k in serve_launches}
+    launches = {"cgm": 0, "nms": 0}
     runs = [("one_card_gloo", 2, "cuda:0", "gloo")]
     if count >= 2:
         runs.append(("cards_nccl", n, "cuda", None))
@@ -2321,7 +2463,7 @@ def phase_dp(torch, np, cfg, params, cache, frames_u8, smi):
         launches = {k: launches[k] + got[k] for k in launches}
     torch.backends.cudnn.allow_tf32 = True
     emit(dp_phase_s=time.perf_counter() - t_phase)
-    return launches
+    return {"pinned": pinned, "train": launches}
 
 
 # ------------------------------------------------------------------ phase 19
@@ -2663,6 +2805,8 @@ def phase_resnet(torch, np, smi):
     torch.backends.cudnn.allow_tf32 = True
     b1 = request_times(torch, lambda: bserve["cuda"](bcaches["cuda"], canvases[1], out_hw), 10)
     out["baseline_serve"] = {"request_ms_median": b1[0], "request_ms_min": b1[1], "request_ms_max": b1[2]}
+    out["baseline_request"] = {"cfg": bcfg, "params": bparams, "cache": bcaches["cuda"], "canvas": canvases[0],
+                               "image_hw": out_hw}
 
     # one training step at the same query size, 10 shots: card vs CPU with the same anchor draws and ROIs
     scale = out_hw[0] / FRAME_HW[0]
@@ -2873,6 +3017,7 @@ def phase_onestage(torch, np, smi):
             times[f"{n}class_{dtype}"] = {"ms_median": med, "ms_min": lo, "ms_max": hi,
                                           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     out["times"] = times
+    out["canvases"], out["image_hw"] = canvases, hw
     emit(onestage_e2e={"config": ONESTAGE_CONFIG, "levels": list(ONESTAGE_LEVELS), "canvas": list(canvas),
                        "batch": 1, **times, "card": smi})
 
@@ -3000,6 +3145,117 @@ def phase_onestage(torch, np, smi):
     out["phase_s"] = time.perf_counter() - t_phase
     emit(onestage_phase_s=out["phase_s"])
     return out
+
+
+# ------------------------------------------------------------------ phase 21
+def entry_point(torch, np, smi, path, eager, pinned, inputs, by_class, iters=(10, 20)):
+    """An eager request and its pinned counterpart on the same inputs (a
+    list of argument tuples, one request each): the eager requests counted
+    with K1's and K2's inputs recorded and held (K2 bit for bit against its
+    plain twin, K1 within phase 19's dot-product bound); the pinned requests
+    against them by phase 5's criteria at |dscore| <= PINNED_DSCORE; each
+    graph's captured launches equal to an eager request's; then request ms
+    at the median, eager and pinned, each on its own line."""
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
+    from faster_orefsdet_tpu_torch.pipelines.inference import pack_detections, unpack_detections_np
+
+    ref, cgm_seen, nms_seen = [], [], {}
+    launches = count_launches(cgm_cuda, nms_cuda, lambda: cgm_seen.extend(record_cgm_calls(
+        torch, lambda: nms_seen.update(record_nms_calls(torch, lambda: ref.extend(eager(*x) for x in inputs))))))
+    per_request = {k: v // len(inputs) for k, v in launches.items()}
+    got = [pinned(*x) for x in inputs]
+    torch.cuda.synchronize()
+    checks = []
+    for a, b in zip(got, ref):
+        pa, pb = pack_detections(a), pack_detections(b)
+        ga, gb = (unpack_detections_np(p.reshape(-1, *p.shape[-2:])) for p in (pa, pb))
+        checks += [match(np, {k: v[i] for k, v in ga.items()}, {k: v[i] for k, v in gb.items()}, PINNED_DSCORE,
+                         by_class=by_class) for i in range(len(ga["valid"]))]
+    identical = sum(int((pack_detections(a) == pack_detections(b)).sum()) for a, b in zip(got, ref))
+    graphs = [g.launches for g in pinned.graphs.values()]
+    nms_checks, nms_err = check_nms_calls(torch, nms_seen)
+    cgm_checks, cgm_err, cgm_bad = check_cgm_calls(torch, cgm_seen)
+    row = {"path": path, "requests": len(inputs), "eager_launches_per_request": per_request,
+           "graphs_captured_launches": graphs, "images_checked": len(checks),
+           "all_matched": all(c["ok"] for c in checks), "max_dscore": max(c["max_dscore"] for c in checks),
+           "bit_identical_values": identical, "values": sum(pack_detections(a).numel() for a in got),
+           "nms_sites": [c["shape"] for c in nms_checks if c["site"] == "kernel"],
+           "nms_mismatches": sum(c["mismatches"] for c in nms_checks), "nms_max_abs_err": nms_err,
+           "cgm_calls": [[c["shape"], c["classes"]] for c in cgm_checks], "cgm_max_abs_err": cgm_err,
+           "cgm_out_of_bound": cgm_bad}
+    emit(pinned_entry=row)
+    if not row["all_matched"] or any(g != per_request for g in graphs) or not graphs:
+        raise AssertionError(f"pinned {path}: detections {checks}, graphs {graphs} against {per_request} an eager "
+                             "request")
+    if row["nms_mismatches"] or cgm_bad:
+        raise AssertionError(f"pinned {path}: the kernels on the request's own inputs: {nms_checks} {cgm_checks}")
+    x = inputs[0]
+    for side, fn, n in (("eager", eager, iters[0]), ("pinned", pinned, iters[1])):
+        med, lo, hi = request_times(torch, lambda: fn(*x), n)
+        row[f"{side}_ms_median"] = med
+        emit(pinned_entry_ms={"path": path, "side": side, "ms_median": med, "ms_min": lo, "ms_max": hi,
+                              "card": smi})
+    return row, launches, pinned.kernel_launches()
+
+
+def phase_pinned_entry_points(torch, np, smi, cfg, params, cache, frames_u8, multi, mcache, image, base, one):
+    """The pinned counterparts of the JAX package's jitted serving builders
+    at full width against their eager builders (``entry_point``), under the
+    library's defaults (TF32 convs) on both sides, as phase 11 times: raw
+    frames (phase 6's eight VGA frames, batch 1 and 8), the nine-class
+    request (phase 8's cache and canvas), the one-stage request at 1 and 9
+    classes in f32 and bf16 (phase 20's 384x512 canvases, two frames), the
+    AttentionRPN baseline (phase 19's 608x800 canvas)."""
+    from faster_orefsdet_tpu_torch.config import get_config
+    from faster_orefsdet_tpu_torch.pipelines import attention_rpn as arpn
+    from faster_orefsdet_tpu_torch.pipelines import onestage
+    from faster_orefsdet_tpu_torch.pipelines.inference import (
+        build_pinned_multiclass_inference_fn, build_pinned_serving_fn, build_serving_fn,
+    )
+    from faster_orefsdet_tpu_torch.utils.params import init_onestage_params
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows, counted, replayed = {}, {}, {}
+
+    def run(path, *args, **kwargs):
+        rows[path], counted[path], replayed[path] = entry_point(torch, np, smi, path, *args, **kwargs)
+
+    frames = frames_u8.cuda()
+    serve, _ = build_serving_fn(cfg, params, FRAME_HW)
+    eager_serve = lambda f: serve(cache, f)  # noqa: E731
+    # a function a batch, so that each path's replays are its own
+    run("raw_frames_b1", eager_serve, build_pinned_serving_fn(cfg, params, cache, FRAME_HW)[0],
+        [(frames[i:i + 1],) for i in range(len(frames))], False)
+    pinned_serve, canvas = build_pinned_serving_fn(cfg, params, cache, FRAME_HW)
+    run("raw_frames_b8", eager_serve, pinned_serve, [(frames,)], False)
+    run(f"multiclass{MULTICLASS_CLASSES}", lambda *x: multi(mcache, *x),
+        build_pinned_multiclass_inference_fn(cfg, params, mcache), [(image, IMAGE_HW)], True)
+    for n in ONESTAGE_CLASSES:
+        for dtype in ("float32", "bfloat16"):
+            ocfg = onestage_cfg(get_config(ONESTAGE_CONFIG), n, dtype)
+            oparams = init_onestage_params(ocfg, seed=20)
+            run(f"onestage{n}_{dtype}", onestage.build_onestage_inference_fn(ocfg, oparams),
+                onestage.build_pinned_onestage_inference_fn(ocfg, oparams),
+                [(one["canvases"][i], one["image_hw"]) for i in range(PINNED_ONESTAGE_FRAMES)], True)
+    bserve = arpn.build_baseline_inference_fn(base["cfg"], base["params"])
+    run("baseline", lambda *x: bserve(base["cache"], *x),
+        arpn.build_pinned_baseline_inference_fn(base["cfg"], base["params"], base["cache"]),
+        [(base["canvas"], base["image_hw"])], True, iters=(5, 10))
+    expected = {"raw_frames_b1": {"cgm": 3, "nms": 2}, "raw_frames_b8": {"cgm": 3, "nms": 2},
+                f"multiclass{MULTICLASS_CLASSES}": {"cgm": 3, "nms": 2}, "baseline": {"cgm": 0, "nms": 2},
+                **{f"onestage{n}_{d}": {"cgm": 0, "nms": 1} for n in ONESTAGE_CLASSES for d in ("float32", "bfloat16")}}
+    got = {path: row["eager_launches_per_request"] for path, row in rows.items()}
+    slower = [path for path, row in rows.items() if row["pinned_ms_median"] > row["eager_ms_median"]]
+    emit(pinned_entry_points={"canvas": list(canvas), "launches_per_request": got, "pinned_slower_than_eager": slower,
+                              "phase_s": time.perf_counter() - t_phase, "card": smi})
+    if got != expected:
+        raise AssertionError(f"phase 21: launches a request {got}, expected {expected}")
+    sites = {path: sorted({tuple(shape) for shape in row["nms_sites"]}) for path, row in rows.items()}
+    return {"rows": rows, "sites": sites, "counted": counted, "replayed": replayed,
+            "nms_err": max(r["nms_max_abs_err"] for r in rows.values()),
+            "cgm_err": max(r["cgm_max_abs_err"] for r in rows.values())}
 
 
 def build_baseline(torch, baseline: str) -> dict:
@@ -3443,7 +3699,7 @@ def main(argv=None) -> int:
     for b, wall in ((1, b1[0]), (8, b8[0])):
         emit(profile={"path": "eager", "batch": b, **profile_requests(torch, serve_at[b], wall), "card": smi})
     for b, wall in ((1, p1[0]), (8, p8[0])):
-        captured = next(c for key, c in pinned.graphs.items() if key[0][0] == b)
+        captured = next(c for key, c in pinned.graphs.items() if key[0][0][0] == b)  # the images' batch
         # the replays' own kernels, as the profiler saw them, must be the
         # graph's captured launches: this is what shows that the pinned path
         # launches the kernels, whose counters advance only at capture. The
@@ -3488,27 +3744,37 @@ def main(argv=None) -> int:
     # ---- 20. the one-stage CenterNet over P3-P7, the rest of the zoo, fed loss, profiling, the native matcher
     one = phase_onestage(torch, np, smi)
 
+    # ---- 21. the pinned entry points: raw frames, nine classes, one-stage, baseline, against eager
+    entry = phase_pinned_entry_points(torch, np, smi, cfg, params, cache, torch.from_numpy(frames), multi, mcache,
+                                      singles[0], resnet["baseline_request"], one)
+
     # phase 11's A/B lines: the kernels against an earlier build's, K2 also
     # on the nine-class and the one-stage nine-class requests' own inputs
     if ab_baseline:
         phase_ab(torch, np, smi, ab_baseline, {"nms_multiclass9_k2304": multi_site["args"],
                                                "nms_onestage9_k3540": one["k2_args"]["onestage9"]})
 
-    # launches counted by the wrappers on each eager path; the pinned path's
+    # launches counted by the wrappers on each eager path; the pinned paths'
     # and the graphed train steps' from their graphs' captured launches times
-    # their replays (phases 7, 14, 15, 17 and 19), plus the K-step function's
-    # eager warm-up steps; phase 18's training ranks count theirs and report them
+    # their replays (phases 7, 10, 14, 15, 17, 18, 19 and 21), plus the K-step
+    # function's eager warm-up steps; phase 18's training ranks count theirs
+    # and report them
+    entry_eager = {f"entry_{p}": v for p, v in entry["counted"].items()}
+    entry_graphs = {f"entry_{p}_pinned_replays": v for p, v in entry["replayed"].items()}
     by_path = {"main": launches, "raw_frames": raw_launches, "multiclass": multi_launches,
                "pinned_replays": pinned_launches, "train": train["launches"], "train_graphed": graphed["launches"],
                "dla_train": dla["train_launches"], "dla_train_graphed": dla["graphed_launches"],
-               "dla_eval": dla["eval_launches"], "workflow_glob": workflow["glob_launches"],
+               "dla_eval_pinned_replays": dla["eval_launches"], "workflow_glob": workflow["glob_launches"],
                "workflow_dla_c160": workflow["dla_launches"], "quant": quant["launches"],
-               "quant_pinned_replays": quant["pinned_replays"], "dp": dp_launches,
+               "quant_pinned_replays": quant["pinned_replays"], "dp_pinned_replays": dp_launches["pinned"],
+               "dp_train": dp_launches["train"],
                **{f"resnet_{k}": v for k, v in {**resnet["launches"], **resnet["graph_launches"]}.items()},
-               **one["launches"]}
+               **one["launches"], **entry_eager, **entry_graphs}
     resnet_paths = tuple(f"resnet_{k}" for k in resnet["launches"])
-    eager_paths = ("main", "raw_frames", "multiclass", "train", "dla_train", "dla_eval", "workflow_glob",
-                   "workflow_dla_c160", "quant", "dp") + resnet_paths + tuple(one["launches"])
+    eager_paths = ("main", "raw_frames", "multiclass", "train", "dla_train", "workflow_glob", "workflow_dla_c160",
+                   "quant", "dp_train") + resnet_paths + tuple(one["launches"]) + tuple(entry_eager)
+    graph_sites = {p: {"captured_launches_per_replay": row["graphs_captured_launches"][0],
+                       "replays": entry["replayed"][p]} for p, row in entry["rows"].items()}
     counted = {k: sum(by_path[p][k] for p in eager_paths) for k in ("cgm", "nms")}
     resnet_entry = {k: {"launches": sum(by_path[p][k] for p in resnet_paths),
                         "launches_by_path": {p: v[k] for p, v in by_path.items() if p.startswith("resnet_")}}
@@ -3519,7 +3785,7 @@ def main(argv=None) -> int:
          "source": "faster_orefsdet_tpu_torch/csrc/cgm.cu",
          "replaces": "faster_orefsdet_tpu/ops/pallas_cgm.py:47",
          "launches": counted["cgm"], "launches_by_path": {p: v["cgm"] for p, v in by_path.items()},
-         "max_abs_err": max(cgm_err, multi_site["cgm_err"], resnet["cgm_err"]),
+         "max_abs_err": max(cgm_err, multi_site["cgm_err"], resnet["cgm_err"], entry["cgm_err"]),
          "mismatches": cgm_mismatches + resnet["cgm_mismatches"],
          "ms": cgm_ms, "enqueue_ms": cgm_enq_ms,
          "plain_ms": cgm_plain_ms, **bound(cgm_bytes, cgm_flops, cgm_tc_flops),
@@ -3527,13 +3793,15 @@ def main(argv=None) -> int:
          "c160_site": {"launches": workflow["dla_launches"]["cgm"], "batch8": cgm160[8], "batch1": cgm160[1]},
          f"multiclass{MULTICLASS_CLASSES}_site": multi9,
          "resnet": {**resnet_entry["cgm"], "max_abs_err": resnet["cgm_err"],
-                    "out_of_bound": resnet["cgm_mismatches"]}},
+                    "out_of_bound": resnet["cgm_mismatches"]},
+         "graph_sites": {p: {"captured_launches_per_replay": v["captured_launches_per_replay"]["cgm"],
+                             "replayed_launches": v["replays"]["cgm"]} for p, v in graph_sites.items()}},
         {"name": "nms_mask", **common,
          "source": "faster_orefsdet_tpu_torch/csrc/nms.cu",
          "replaces": "faster_orefsdet_tpu/ops/pallas_nms.py:46",
          "launches": counted["nms"], "launches_by_path": {p: v["nms"] for p, v in by_path.items()},
          "max_abs_err": max(nms_err, multi_nms_err, train["nms_err"], dla["nms_err"], quant["roi_site"]["max_abs_err"],
-                            resnet["nms_err"], one["nms_err"]),
+                            resnet["nms_err"], one["nms_err"], entry["nms_err"]),
          "mismatches": nms_mismatches + train["nms_mismatches"] + dla["nms_mismatches"]
          + quant["roi_site"]["mismatches"] + resnet["nms_mismatches"] + one["nms_mismatches"],
          "ms": nms_ms, "enqueue_ms": nms_enq_ms, "plain_ms": nms_plain_ms, **bound(nms_bytes, nms_flops),
@@ -3546,7 +3814,10 @@ def main(argv=None) -> int:
                     "sites": resnet["k2"]},
          "onestage": {"launches_by_classes": {n: one["launches"][f"onestage_{n}class"]["nms"]
                                               for n in ONESTAGE_CLASSES},
-                      "max_abs_err": one["nms_err"], "mismatches": one["nms_mismatches"], "sites": one["k2"]}},
+                      "max_abs_err": one["nms_err"], "mismatches": one["nms_mismatches"], "sites": one["k2"]},
+         "graph_sites": {p: {"captured_launches_per_replay": v["captured_launches_per_replay"]["nms"],
+                             "replayed_launches": v["replays"]["nms"], "shapes": entry["sites"][p]}
+                         for p, v in graph_sites.items()}},
     ])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -18,9 +18,10 @@ from the index, preprocess each frame at the test scale, run the query path,
 draw the boxes and print the timings. Images go one at a time through
 ``build_inference_fn`` (batch 1), or with --parallel through
 ``AsyncPredictor`` (pinned CUDA-graph replays, host work overlapped). Video
-frames go --frame-batch at a time through ``build_serving_fn`` (raw frames
-resized on the device; the tail batch padded with its first frame), split
-over --num-devices cards by ``parallel.make_sharded_serving`` when it is
+frames go --frame-batch at a time through ``build_pinned_serving_fn`` (raw
+frames resized on the device, the request a CUDA-graph replay on the card;
+the tail batch padded with its first frame), split over --num-devices cards
+by ``parallel.make_sharded_serving`` (a pinned replica a card) when it is
 above 1, or one at a time at --frame-batch 1 (--parallel: through
 ``AsyncPredictor``).
 --debug also writes each image's per-level heatmap overlays
@@ -260,15 +261,12 @@ def run(args: argparse.Namespace, media: Media) -> int:
                 # the weights and the cache on each device
                 from ..parallel import make_mesh, make_sharded_serving
 
-                sharded, _ = make_sharded_serving(cfg, params, (h, w), make_mesh(args.num_devices, dev), cache,
-                                                  act_scales=act_scales)
-
-                def serve(cache, frames):
-                    return sharded(frames)
+                serve, _ = make_sharded_serving(cfg, params, (h, w), make_mesh(args.num_devices, dev), cache,
+                                                act_scales=act_scales)
             else:
-                from ..pipelines.inference import build_serving_fn
+                from ..pipelines.inference import build_pinned_serving_fn
 
-                serve, _ = build_serving_fn(cfg, params, (h, w), device=dev, act_scales=act_scales)
+                serve, _ = build_pinned_serving_fn(cfg, params, cache, (h, w), device=dev, act_scales=act_scales)
             buf: List[np.ndarray] = []
 
             def flush():
@@ -276,7 +274,7 @@ def run(args: argparse.Namespace, media: Media) -> int:
                 count = len(buf)
                 batch = np.stack(buf + [buf[0]] * (fb - count))
                 t0 = time.perf_counter()
-                det = serve(cache, torch.from_numpy(batch).permute(0, 3, 1, 2))
+                det = serve(torch.from_numpy(batch).permute(0, 3, 1, 2))
                 boxes, scores, valid = (det.boxes.float().cpu().numpy(), det.scores.float().cpu().numpy(),
                                         det.valid.cpu().numpy())
                 t_total += time.perf_counter() - t0

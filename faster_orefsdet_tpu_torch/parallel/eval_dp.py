@@ -2,10 +2,11 @@
 (counterpart of ``faster_orefsdet_tpu/parallel/eval_dp.py``).
 
 The reference splits the eval image list across its GPUs and gathers the
-results on rank 0. Here one process enqueues each device's share of a batch
-of raw uint8 canvases on its replica of the batched query path, then reads
-the detections back and feeds the evaluator, as ``pipelines.evaluate``
-does.
+results on rank 0. Here one process copies each device's share of a batch
+of raw uint8 canvases to its pinned replica of the batched query path
+(``build_pinned_inference_fn``: one CUDA graph on each card, the support
+cache fixed in it) and replays them all, then reads the detections back
+and feeds the evaluator, as ``pipelines.evaluate`` does.
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ from ..data.coco import ImageRecord
 from ..data.loader import Imread, eval_canvas, eval_loader
 from ..evaluation import COCOEvaluator
 from ..pipelines.evaluate import add_image
-from ..pipelines.inference import build_batched_inference_fn
+from ..pipelines.inference import build_pinned_inference_fn
 from ..pipelines.support_cache import SupportCache
+from ..utils.device import resolve_device
 from .mesh import Mesh
 
 
@@ -35,8 +37,9 @@ def evaluate_sharded(cfg: Config, params: Mapping[str, torch.Tensor], cache: Sup
     short last batch repeats its last image. act_scales as the builders
     take them (required by the static int8 presets)."""
     canvas_hw = canvas_hw or eval_canvas(records, cfg)
-    replicas = [(build_batched_inference_fn(cfg, params, device=dev, act_scales=act_scales), cache.to(dev), dev)
-                for dev in mesh.devices]
+    # each device resolved (refused without a card) before the cache is copied there
+    replicas = [build_pinned_inference_fn(cfg, params, cache.to(dev), device=dev, act_scales=act_scales)
+                for dev in map(resolve_device, mesh.devices)]
     full = mesh.size * per_device_batch
     evaluator = COCOEvaluator()
     pending: List = []
@@ -47,8 +50,9 @@ def evaluate_sharded(cfg: Config, params: Mapping[str, torch.Tensor], cache: Sup
             pending.append(pending[-1])
         canvases = torch.stack([p[1] for p in pending])
         hws = torch.tensor([[float(p[2][0]), float(p[2][1])] for p in pending], dtype=torch.float32)
-        dets = [infer(c, imgs.to(dev, non_blocking=True), hw.to(dev, non_blocking=True))
-                for (infer, c, dev), imgs, hw in zip(replicas, canvases.chunk(mesh.size), hws.chunk(mesh.size))]
+        if mesh.devices[0].type == "cuda":  # pinned host memory: each card's copy is asynchronous
+            canvases, hws = canvases.pin_memory(), hws.pin_memory()
+        dets = [infer(imgs, hw) for infer, imgs, hw in zip(replicas, canvases.chunk(mesh.size), hws.chunk(mesh.size))]
         boxes, scores, valid = (np.concatenate([getattr(d, f).cpu().numpy() for d in dets])
                                 for f in ("boxes", "scores", "valid"))
         for i in range(k):

@@ -36,6 +36,7 @@ from ..ops.roi_align import roi_align
 from ..structures.boxes import apply_deltas, clip_boxes, encode_deltas
 from ..structures.instances import Detections, GroundTruth
 from ..utils.device import resolve_device
+from .graphs import PinnedFn
 from .train_step import TrainBatch
 
 
@@ -151,6 +152,13 @@ def baseline_inference_single(model: FsodRCNN, cache: BaselineSupportCache, imag
                       valid=sel_scores > 0.0)
 
 
+def _check_baseline_cache(cache: BaselineSupportCache, dev: torch.device) -> BaselineSupportCache:
+    if any(t.device != dev for t in cache):
+        raise ValueError(f"baseline cache on {cache.res4_avg.device}, the model on {dev}: "
+                         f"build it with device={str(dev)!r}")
+    return cache
+
+
 def build_baseline_inference_fn(cfg: BaselineConfig, params: Mapping[str, torch.Tensor], *, device="cuda"):
     """(cache, image [3, H, W], image_hw (h, w)) -> Detections, on `device`
     (the card unless the caller asks for the CPU). The cache must live there."""
@@ -158,13 +166,37 @@ def build_baseline_inference_fn(cfg: BaselineConfig, params: Mapping[str, torch.
     dev = next(model.parameters()).device
 
     def fn(cache: BaselineSupportCache, image: torch.Tensor, image_hw) -> Detections:
-        if any(t.device != dev for t in cache):
-            raise ValueError(f"baseline cache on {cache.res4_avg.device}, the model on {dev}: "
-                             f"build it with device={str(dev)!r}")
         hw = torch.as_tensor(image_hw, dtype=torch.float32).to(dev)
-        return baseline_inference_single(model, cache, image.to(dev).contiguous(), hw, cfg)
+        return baseline_inference_single(model, _check_baseline_cache(cache, dev), image.to(dev).contiguous(), hw,
+                                         cfg)
 
     return fn
+
+
+class _PinnedBaselineFn(PinnedFn):
+    """fn(image, image_hw) -> Detections (see
+    ``build_pinned_baseline_inference_fn``)."""
+
+    def __init__(self, cfg: BaselineConfig, params: Mapping[str, torch.Tensor], cache: BaselineSupportCache, *,
+                 device="cuda"):
+        model = make_fsod_rcnn(cfg, params, device=device)
+        dev = next(model.parameters()).device
+        cache = _check_baseline_cache(cache, dev)
+        super().__init__(lambda image, hw: baseline_inference_single(model, cache, image, hw, cfg), dev)
+
+    def __call__(self, image: torch.Tensor, image_hw) -> Detections:
+        # (h, w) goes to the graph's static buffer from a host tensor
+        return super().__call__(image, torch.as_tensor(image_hw, dtype=torch.float32))
+
+
+def build_pinned_baseline_inference_fn(cfg: BaselineConfig, params: Mapping[str, torch.Tensor],
+                                       cache: BaselineSupportCache, *, device="cuda"):
+    """``build_baseline_inference_fn`` with the weights and the cache fixed
+    at build time: fn(image [3, H, W], image_hw (h, w)) -> Detections, one
+    CUDA graph per (canvas, dtype) on the card (``PinnedFn``). Rebuild the
+    function after changing the weights or the cache. On the CPU it runs the
+    eager path."""
+    return _PinnedBaselineFn(cfg, params, cache, device=device)
 
 
 # ------------------------------------------------------------------ training

@@ -5,7 +5,10 @@ The reference protocol: build the support cache from the K-shot support
 set, run batch-1 inference over the val split, and report the COCO AP table
 with the per-image latency. `evaluate` can also batch B images per request
 (uint8 canvases normalized on the device, the tail batch padded); the query
-path treats each image alone, so both give the same table.
+path treats each image alone, so both give the same table. Requests go
+through the pinned function (``build_pinned_inference_fn``): on the card
+every eval canvas has one shape, so the first request captures a CUDA graph
+and the rest replay it.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from ..config import Config
 from ..data.coco import ImageRecord, SupportEntry
 from ..data.loader import Imread, cv2_imread, eval_canvas, eval_loader
 from ..evaluation import COCOEvaluator
-from .inference import build_batched_inference_fn, build_inference_fn
+from .inference import build_pinned_inference_fn
 from .preprocess import ceil_to, normalize, pad_to_canvas, resize_image_host
 from .support_cache import SupportCache, build_support_cache
 
@@ -65,9 +68,10 @@ def evaluate(cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCach
              act_scales: Optional[Mapping[str, float]] = None) -> Dict[str, float]:
     """Run the eval loop on `device` (the cache must be there) -> the AP
     table plus latency_p50_s, latency_mean_s and fps per image. The first
-    request is left out of the timing (it builds the kernels); a batch's
-    time is divided by batch_size, padding included. Times are the host's
-    clock around a request and the read-back of its detections.
+    request is left out of the timing (it builds the kernels and, on the
+    card, captures the request's graph); a batch's time is divided by
+    batch_size, padding included. Times are the host's clock around a
+    request and the read-back of its detections.
 
     act_scales: calibrated static int8 activation scales
     (``pipelines.quant_calib``). Without them under int8_static or
@@ -92,14 +96,13 @@ def evaluate(cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCach
         out = [getattr(det, f).cpu().numpy() for f in ("boxes", "scores", "valid")]
         return out, time.perf_counter() - t0
 
+    infer = build_pinned_inference_fn(cfg, params, cache, device=device, act_scales=act_scales)
     if batch_size > 1:
-        infer = build_batched_inference_fn(cfg, params, device=device, act_scales=act_scales)
-
         def flush(buf):
             pad = batch_size - len(buf)  # the tail batch repeats its first image
             canvases = torch.stack([b[1] for b in buf] + [buf[0][1]] * pad)
             hws = torch.tensor([list(b[2]) for b in buf] + [list(buf[0][2])] * pad, dtype=torch.float32)
-            (boxes, scores, valid), dt = timed(lambda: infer(cache, canvases, hws))
+            (boxes, scores, valid), dt = timed(lambda: infer(canvases, hws))
             times.append(dt / batch_size)
             for j, (rec, _, _, scale) in enumerate(buf):
                 add_image(evaluator, rec, boxes[j], scores[j], valid[j], scale)
@@ -113,9 +116,8 @@ def evaluate(cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCach
         if buf:
             flush(buf)
     else:
-        infer = build_inference_fn(cfg, params, device=device, act_scales=act_scales)
         for rec, canvas, hw, scale in eval_loader(records, cfg, canvas_hw, imread=imread):
-            (boxes, scores, valid), dt = timed(lambda: infer(cache, canvas, hw))
+            (boxes, scores, valid), dt = timed(lambda: infer(canvas, hw))
             times.append(dt)
             add_image(evaluator, rec, boxes, scores, valid, scale)
 

@@ -26,7 +26,6 @@ and the pinned function's static buffers are contiguous.
 
 from __future__ import annotations
 
-from collections import OrderedDict
 from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -37,11 +36,12 @@ from ..config import Config
 from ..models.cascade_roi import roi_inference
 from ..models.centernet import decode_proposals, stable_topk
 from ..models.detector import CenterNet2Detector, Kernels, support_kernels
-from ..ops import cgm_cuda, nms_cuda
+from ..ops import nms_cuda
 from ..ops.quant import static_act_scales
 from ..structures.boxes import apply_deltas, clip_boxes
 from ..structures.instances import Detections
 from ..utils.device import device_constant, resolve_device
+from .graphs import PinnedFn
 from .preprocess import ceil_to, pixel_stats, preprocess_device, resize_shortest_edge_size
 from .support_cache import SupportCache
 
@@ -128,13 +128,15 @@ def query_path_single(model: CenterNet2Detector, cache: SupportCache, image: tor
 
 @torch.inference_mode()
 def query_path_multiclass(model: CenterNet2Detector, mcache: SupportCache, images: torch.Tensor,
-                          image_hw: torch.Tensor) -> Detections:
+                          image_hw: torch.Tensor, kernels: Optional[Dict[str, Kernels]] = None) -> Detections:
     """The multiclass query path over a stacked cache (``stack_support_caches``,
     N classes): the backbone once, then the CGM correlation of every class
     (one CGM launch a level, over the classes' stacked taps), and the head,
     decode and cascade batched over (class, image) rows; the NMS across
     classes at the end. images [B, 3, Hc, Wc], image_hw [B, 2] ->
     Detections [B, detections_per_image, ...] with class ids in 0..N-1.
+    `kernels`, when given, are ``cache_kernels(model, mcache)`` computed once
+    by the caller (the pinned path).
 
     The JAX package's multiclass semantics, where they differ from
     `query_path`: scores are the mean softmax (no mult_proposal_score);
@@ -147,7 +149,8 @@ def query_path_multiclass(model: CenterNet2Detector, mcache: SupportCache, image
     with record_function("features"):
         feats = model.features(images)
     with record_function("correlate"):
-        pos_feats = model.correlate(feats, cache_kernels(model, mcache), per_class=True)
+        pos_feats = model.correlate(feats, cache_kernels(model, mcache) if kernels is None else kernels,
+                                    per_class=True)
     with record_function("proposal_head"):
         agn_hms, bbox_regs = model.proposal_head(pos_feats)
     with record_function("decode_proposals"):
@@ -325,24 +328,24 @@ def build_multiclass_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor
     return fn
 
 
-MAX_GRAPHS = 4  # captured shapes kept by one pinned function (least recently used goes)
-WARMUP_CALLS = 2
-
-
-class _Graph:
-    """One captured call: the graph, its static input buffers and outputs,
-    the kernel launches captured into it and how often it was replayed."""
-
-    def __init__(self, graph, images, image_hw, out, launches: Dict[str, int]):
-        self.graph, self.images, self.image_hw, self.out = graph, images, image_hw, out
-        self.launches = launches
-        self.replays = 0
-
-
 Output = Union[Detections, torch.Tensor]
 
 
-class PinnedInferenceFn:
+class PinnedImagesFn(PinnedFn):
+    """A pinned function of (images, image_hw): fn(image [3, H, W], image_hw
+    (h, w)) -> the result for that image, or fn(images [B, 3, H, W],
+    image_hw [B, 2] or one pair for all) -> the batch's."""
+
+    def __call__(self, image: torch.Tensor, image_hw) -> Output:
+        single = image.dim() == 3
+        images = image[None] if single else image
+        out = super().__call__(images, _hw(image_hw, (images.shape[0],), self.device))
+        if not single:
+            return out
+        return out[0] if isinstance(out, torch.Tensor) else out._make(t[0] for t in out)
+
+
+class PinnedInferenceFn(PinnedImagesFn):
     """fn(image, image_hw) -> Detections (or packed [.., K, 7]) with the
     weights and the support cache fixed at build time (see
     ``build_pinned_inference_fn``)."""
@@ -351,12 +354,12 @@ class PinnedInferenceFn:
                  device="cuda", packed: bool = False, act_scales: Optional[Mapping[str, float]] = None):
         self.scales = _freeze_scales(cfg, act_scales)
         self.model = make_detector(cfg, params, device=device)
-        self.device = next(self.model.parameters()).device
-        self.cache = _check_cache(cache, self.device)
+        dev = next(self.model.parameters()).device
+        self.cache = _check_cache(cache, dev)
         with torch.inference_mode():
             self.kernels = cache_kernels(self.model, cache)
         self.packed = packed
-        self.graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
+        super().__init__(self._run, dev)
 
     def _run(self, images: torch.Tensor, image_hw: torch.Tensor) -> Output:
         if images.dtype == torch.uint8:
@@ -364,63 +367,6 @@ class PinnedInferenceFn:
         with static_act_scales(self.scales):
             det = query_path(self.model, self.cache, images, image_hw, kernels=self.kernels)
         return pack_detections(det) if self.packed else det
-
-    def __call__(self, image: torch.Tensor, image_hw) -> Output:
-        single = image.dim() == 3
-        images = image[None] if single else image
-        hw = _hw(image_hw, (images.shape[0],), self.device)
-        if self.device.type == "cuda":
-            out = self._replay(images, hw)
-        else:
-            out = self._run(images.to(self.device), hw)
-        if not single:
-            return out
-        return out[0] if isinstance(out, torch.Tensor) else Detections(*(t[0] for t in out))
-
-    def _replay(self, images: torch.Tensor, hw: torch.Tensor) -> Output:
-        key = (tuple(images.shape), images.dtype)
-        g = self.graphs.get(key)
-        if g is None:
-            g = self._capture(images, hw)
-            if len(self.graphs) >= MAX_GRAPHS:
-                self.graphs.popitem(last=False)
-            self.graphs[key] = g
-        else:
-            self.graphs.move_to_end(key)
-            g.images.copy_(images, non_blocking=True)
-            g.image_hw.copy_(hw, non_blocking=True)
-        g.graph.replay()
-        g.replays += 1
-        # a fresh copy on the stream: the next replay overwrites g.out
-        if isinstance(g.out, torch.Tensor):
-            return g.out.clone()
-        return Detections(*(t.clone() for t in g.out))
-
-    def _capture(self, images: torch.Tensor, hw: torch.Tensor) -> _Graph:
-        static_images = torch.empty(images.shape, dtype=images.dtype, device=self.device)
-        static_hw = torch.empty(hw.shape, dtype=torch.float32, device=self.device)
-        static_images.copy_(images)
-        static_hw.copy_(hw)
-        # warm up on a side stream (this also builds the kernels), then capture
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_CALLS):
-                self._run(static_images, static_hw)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        before = (cgm_cuda.counter.launches, nms_cuda.counter.launches)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = self._run(static_images, static_hw)
-        launches = {"cgm": cgm_cuda.counter.launches - before[0], "nms": nms_cuda.counter.launches - before[1]}
-        return _Graph(graph, static_images, static_hw, out, launches)
-
-    def kernel_launches(self) -> Dict[str, int]:
-        """The kernel launches made by replays: each graph's captured launches
-        times its replays. (The wrappers' counters advance when a call is
-        captured, not when it is replayed.)"""
-        return {name: sum(g.launches[name] * g.replays for g in self.graphs.values())
-                for name in ("cgm", "nms")}
 
 
 def build_pinned_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCache, *,
@@ -442,6 +388,69 @@ def build_pinned_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], c
     (act_scales=) are constants of the captured graph, and qconcat's scale
     vectors are kept on the device before the capture."""
     return PinnedInferenceFn(cfg, params, cache, device=device, packed=packed, act_scales=act_scales)
+
+
+def build_pinned_serving_fn(cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCache,
+                            input_hw: Tuple[int, int], *, device="cuda",
+                            act_scales: Optional[Mapping[str, float]] = None) -> Tuple[PinnedFn, Tuple[int, int]]:
+    """``build_serving_fn`` with the weights and the support cache fixed at
+    build time: raw frames [B, 3, H0, W0] (uint8 or float) of a camera of
+    fixed size input_hw -> Detections [B, K, ...] in frame coordinates, the
+    resize, normalization, padding, query path and rescale in one CUDA graph
+    per (batch, dtype) on the card (``PinnedFn``). Returns (fn, canvas_hw).
+    Rebuild the function after changing the weights or the cache. On the
+    CPU it runs the eager path."""
+    scales = _freeze_scales(cfg, act_scales)
+    model = make_detector(cfg, params, device=device)
+    dev = next(model.parameters()).device
+    cache = _check_cache(cache, dev)
+    h0, w0 = input_hw
+    rh, rw = resize_shortest_edge_size(h0, w0, cfg.input.min_size_test, cfg.input.max_size_test)
+    d = cfg.input.size_divisibility
+    canvas_hw = (ceil_to(rh, d), ceil_to(rw, d))
+    # what the graph reads besides the frames, made here and held by the
+    # function: the cache's taps, the resized size, the scale back to the
+    # frame (x by the width ratio, y by the height ratio)
+    with torch.inference_mode():
+        kernels = cache_kernels(model, cache)
+    resized_hw = torch.tensor([float(rh), float(rw)], device=dev)
+    scale = torch.tensor([w0 / rw, h0 / rh] * 2, dtype=torch.float32, device=dev)
+    mean, std = tuple(cfg.input.pixel_mean), tuple(cfg.input.pixel_std)
+
+    @torch.inference_mode()
+    def run(frames: torch.Tensor) -> Detections:
+        if tuple(frames.shape[-2:]) != (h0, w0):
+            raise ValueError(f"frames of {tuple(frames.shape[-2:])}: this function serves {h0}x{w0}")
+        canvases = preprocess_device(frames, (rh, rw), canvas_hw, mean, std)
+        with static_act_scales(scales):
+            det = query_path(model, cache, canvases, resized_hw.expand(frames.shape[0], 2), kernels=kernels)
+        return det._replace(boxes=det.boxes * scale)
+
+    return PinnedFn(run, dev), canvas_hw
+
+
+def build_pinned_multiclass_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], mcache: SupportCache, *,
+                                         device="cuda", act_scales: Optional[Mapping[str, float]] = None
+                                         ) -> PinnedImagesFn:
+    """``build_multiclass_inference_fn`` with the weights and the stacked
+    cache `mcache` fixed at build time (its CGM taps computed once, here):
+    fn(image [3, Hc, Wc] normalized, image_hw (h, w)) -> Detections [K, ...]
+    over every class, or a batch [B, 3, Hc, Wc] with image_hw [B, 2] ->
+    [B, K, ...]; one CUDA graph per (batch, canvas, dtype) on the card
+    (``PinnedFn``). Rebuild the function after changing the weights or the
+    cache. On the CPU it runs the eager path."""
+    scales = _freeze_scales(cfg, act_scales)
+    model = make_detector(cfg, params, device=device)
+    dev = next(model.parameters()).device
+    mcache = _check_cache(mcache, dev)
+    with torch.inference_mode():
+        kernels = cache_kernels(model, mcache)
+
+    def run(images: torch.Tensor, image_hw: torch.Tensor) -> Detections:
+        with static_act_scales(scales):
+            return query_path_multiclass(model, mcache, images, image_hw, kernels=kernels)
+
+    return PinnedImagesFn(run, dev)
 
 
 def pack_detections(det: Detections) -> torch.Tensor:

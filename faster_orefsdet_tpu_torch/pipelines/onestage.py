@@ -36,7 +36,7 @@ from ..ops.nms import keep_top_scores
 from ..structures.boxes import ltrb_to_xyxy
 from ..structures.instances import Detections
 from ..utils.device import resolve_device
-from .inference import _hw
+from .inference import PinnedImagesFn, _hw
 
 
 class OneStageCenterNet(nn.Module):
@@ -171,3 +171,22 @@ def build_onestage_inference_fn(cfg: Config, params: Optional[Mapping[str, torch
         return Detections(*(t[0] for t in det)) if single else det
 
     return fn
+
+
+def build_pinned_onestage_inference_fn(cfg: Config, params: Optional[Mapping[str, torch.Tensor]], *,
+                                       device="cuda") -> PinnedImagesFn:
+    """``build_onestage_inference_fn`` with the weights fixed at build time:
+    the forward and the class-aware decode in one CUDA graph per (batch,
+    canvas, dtype) on the card (``PinnedFn``); the same calls and results.
+    Rebuild the function after changing the weights. On the CPU it runs the
+    eager path."""
+    model = make_onestage(cfg, params, device=device)
+
+    @torch.inference_mode()
+    def run(images: torch.Tensor, image_hw: torch.Tensor) -> Detections:
+        canvas_hw = (images.shape[-2], images.shape[-1])
+        check_canvas(canvas_hw, cfg.centernet.fpn_strides)
+        clss, agn_hms, regs = model(images)
+        return decode_multiclass(clss, agn_hms, regs, cfg, canvas_hw, image_hw)
+
+    return PinnedImagesFn(run, next(model.parameters()).device)

@@ -302,6 +302,8 @@ def pipes(base):
     pcache = tpipe.build_baseline_cache(cfg, base["sd"], nchw(sup), t(sup_boxes), device="cpu")
     pdet = tpipe.build_baseline_inference_fn(cfg, base["sd"], device="cpu")(pcache, t(img).permute(2, 0, 1),
                                                                            QUERY_HW)
+    pinned = tpipe.build_pinned_baseline_inference_fn(cfg, base["sd"], pcache, device="cpu")(
+        t(img).permute(2, 0, 1), QUERY_HW)
     train = tpipe.make_fsod_rcnn(cfg, base["sd"], device="cpu").train()
     batch = TrainBatch(nchw(x["images"]), t(x["hw"]), t(x["gt"]), torch.zeros(1, GT_SLOTS, dtype=torch.int32),
                        torch.from_numpy(x["gtv"]), t(x["sup"]).permute(0, 1, 4, 2, 3), t(x["sup_boxes"]))
@@ -314,6 +316,7 @@ def pipes(base):
                                              injected_rois=(rois, roi_valid))
     return dict(cache=cache, det=det, jtotal=float(total), jlosses={k: float(v) for k, v in losses.items()},
                 other_key_losses=other_key_losses, jgrads=from_jax_params(grads), pcache=pcache, pdet=pdet,
+                pinned=pinned,
                 total=float(ptotal.detach()), losses={k: float(v.detach()) for k, v in plosses.items()}, train=train,
                 injected={k: float(v) for k, v in injected.items()})
 
@@ -325,12 +328,23 @@ def test_cache_matches_jax(pipes):
         np.testing.assert_allclose(got.numpy(), ref, **CACHE_TOL, err_msg=name)
 
 
-def test_inference_matches_jax(pipes):
-    got = _np(pipes["pdet"])
+def _assert_matches_jax_inference(det, pipes):
+    got = _np(det)
     ref = {k: np.asarray(getattr(pipes["det"], k)) for k in ("boxes", "scores", "valid")}
     assert 0.05 < ref["scores"][ref["valid"]].min() and ref["scores"].max() < 0.999  # not saturated
     _assert_detections_match(got, ref)
-    assert np.array_equal(pipes["pdet"].classes.numpy(), np.asarray(pipes["det"].classes))
+    assert np.array_equal(det.classes.numpy(), np.asarray(pipes["det"].classes))
+
+
+def test_inference_matches_jax(pipes):
+    _assert_matches_jax_inference(pipes["pdet"], pipes)
+
+
+def test_pinned_inference_matches_jax(pipes):
+    """build_pinned_baseline_inference_fn (the cache fixed at build time; on
+    the CPU the eager path) against the JAX package's jitted
+    baseline_inference_single (its jitted builder's program)."""
+    _assert_matches_jax_inference(pipes["pinned"], pipes)
 
 
 def test_loss_matches_jax(pipes):

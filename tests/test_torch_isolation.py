@@ -318,6 +318,19 @@ def test_onestage_and_profiling_default_to_the_card(builder, monkeypatch):
         builder(get_config("finetune_vovnet"))
 
 
+@pytest.mark.parametrize("builder", [
+    lambda: inference.build_pinned_serving_fn(get_config("serving_vovnet"), None, None, (480, 640)),
+    lambda: inference.build_pinned_multiclass_inference_fn(get_config("serving_vovnet"), None, None),
+    lambda: onestage.build_pinned_onestage_inference_fn(get_config("finetune_vovnet"), None),
+    lambda: attention_rpn.build_pinned_baseline_inference_fn(attention_rpn.BaselineConfig(), None, None),
+], ids=["build_pinned_serving_fn", "build_pinned_multiclass_inference_fn", "build_pinned_onestage_inference_fn",
+        "build_pinned_baseline_inference_fn"])
+def test_pinned_builders_default_to_the_card(builder, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        builder()
+
+
 def test_coco_matcher_is_the_ports_own(monkeypatch):
     """The port keeps its own copy of the C++ matcher and builds it into its
     own build directory: evaluating loads no library from native/."""

@@ -1,7 +1,8 @@
 """The one-stage CenterNet path of the port against the JAX package, on the
 CPU, over P3-P7 (``fpn.top_levels=2``, strides 8-128, canvases a multiple
 of 128): the class-aware head, ``decode_multiclass`` on the same head
-outputs, ``build_onestage_inference_fn`` against the jitted JAX builder at
+outputs, ``build_onestage_inference_fn`` and its pinned counterpart
+``build_pinned_onestage_inference_fn`` against the jitted JAX builder at
 one and three classes, the FPN's P6/P7, and the refusal of a canvas the
 coarsest stride does not divide.
 
@@ -123,9 +124,15 @@ def test_decode_on_jax_head_outputs(pair):
     assert ref["valid"].sum() > 0 and ref["classes"][ref["valid"]].max() < pair["n"]
 
 
-def test_builder_matches_jax_builder(pair):
+@pytest.fixture(scope="module")
+def jax_builder(pair):
+    """The image through the JAX package's jitted one-stage builder."""
     model, jfn = jos.build_onestage_inference_fn(pair["jcfg"])
-    ref = _np(jfn(to_jax_params(pair["sd"]), jnp.asarray(pair["img"]), jnp.asarray(IMAGE_HW)))
+    return _np(jfn(to_jax_params(pair["sd"]), jnp.asarray(pair["img"]), jnp.asarray(IMAGE_HW)))
+
+
+def test_builder_matches_jax_builder(pair, jax_builder):
+    ref = jax_builder
     fn = onestage.build_onestage_inference_fn(pair["cfg"], pair["sd"], device="cpu")
     before = nms_cuda.counter.launches
     got = _np(fn(pair["x"], IMAGE_HW))
@@ -137,6 +144,17 @@ def test_builder_matches_jax_builder(pair):
     # round differently, by a few ulps)
     batch = _np(fn(torch.stack([pair["x"], pair["x"].flip(-1)]), torch.tensor([IMAGE_HW] * 2)))
     assert_match_by_class({k: v[0] for k, v in batch.items()}, got)
+
+
+def test_pinned_builder_matches_jax_builder(pair, jax_builder):
+    """build_pinned_onestage_inference_fn (on the CPU the eager path) against
+    the JAX package's jitted builder, one image and a batch of one."""
+    fn = onestage.build_pinned_onestage_inference_fn(pair["cfg"], pair["sd"], device="cpu")
+    got = _np(fn(pair["x"], IMAGE_HW))
+    assert got["boxes"].shape == (pair["cfg"].centernet.post_nms_topk_test, 4)
+    assert_match_by_class(got, jax_builder)
+    batch = _np(fn(pair["x"][None], torch.tensor([IMAGE_HW])))
+    assert_match_by_class({k: v[0] for k, v in batch.items()}, jax_builder)
 
 
 def test_jax_tree_loads_strictly():

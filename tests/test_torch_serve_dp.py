@@ -4,7 +4,8 @@ config, weights and caches of ``test_torch_serving.py``:
 
 - ``make_sharded_serving`` against single-device ``build_serving_fn`` on
   the same frames: valid masks exact, boxes within 1e-3 px, scores within
-  1e-5 (tests/test_serve_dp.py's tolerances);
+  1e-5 (tests/test_serve_dp.py's tolerances); each half of the batch bit
+  for bit what one pinned replica (``build_pinned_serving_fn``) gives it;
 - against the JAX package's ``make_sharded_serving`` on a 2-device CPU
   mesh, image by image by test_torch_slice's criteria;
 - a batch that does not split over the mesh is refused;
@@ -27,7 +28,7 @@ from faster_orefsdet_tpu_torch.evaluation import coco_eval
 from faster_orefsdet_tpu_torch.parallel import make_mesh, make_sharded_serving
 from faster_orefsdet_tpu_torch.parallel.eval_dp import evaluate_sharded
 from faster_orefsdet_tpu_torch.pipelines import evaluate
-from faster_orefsdet_tpu_torch.pipelines.inference import build_serving_fn
+from faster_orefsdet_tpu_torch.pipelines.inference import build_pinned_serving_fn, build_serving_fn
 from faster_orefsdet_tpu_torch.pipelines.quant_calib import calibrate_act_scales
 from test_torch_eval import AP_KEYS, _assert_fed_match, _record_fed_detections
 from test_torch_serving import FRAME_HW, _frames, pair  # noqa: F401 (a fixture)
@@ -76,6 +77,23 @@ def test_sharded_serving_matches_single_device_and_jax(pair):  # noqa: F811
     ref = jserve(jnp.asarray(frames))
     for i in range(BATCH):
         _assert_detections_match({k: v[i] for k, v in _np(det).items()}, {k: v[i] for k, v in _np(ref).items()})
+
+
+def test_sharded_serving_equals_one_pinned_replica(pair):  # noqa: F811
+    """Each replica is build_pinned_serving_fn on its device: over a CPU mesh
+    of two, each half of the batch is what one replica gives it, bit for
+    bit, and the whole is one replica's batch within the tolerances."""
+    p = pair
+    frames = _nchw(_frames(22, BATCH))
+    serve, _ = make_sharded_serving(p["cfg"], p["sd"], FRAME_HW, make_mesh(MESH, device="cpu"), p["caches"][0])
+    one, _ = build_pinned_serving_fn(p["cfg"], p["sd"], p["caches"][0], FRAME_HW, device="cpu")
+    det = serve(frames)
+    half = BATCH // MESH
+    for i in range(MESH):
+        for a, b in zip(det, one(frames[i * half:(i + 1) * half])):
+            assert torch.equal(a[i * half:(i + 1) * half], b)
+    _assert_same_detections(det, one(frames))
+    assert serve.kernel_launches() == {"cgm": 0, "nms": 0}  # no graph on the CPU
 
 
 def test_sharded_serving_refuses_an_indivisible_batch(pair):  # noqa: F811

@@ -65,22 +65,43 @@ def _frames(seed, n):
     return np.clip(np.rint(mean + 8.0 * g.standard_normal((n, *FRAME_HW, 3))), 0, 255).astype(np.uint8)
 
 
-def test_serving_fn_matches_jax(pair):
+@pytest.fixture(scope="module")
+def jax_serving(pair):
+    """Two frames through the JAX package's jitted raw-frame serving
+    program: (frames, its canvas, its detections)."""
     p = pair
     frames = _frames(10, 2)
     jfn, jcanvas = jinf.build_serving_fn(p["jcfg"], FRAME_HW)
-    ref = jfn(p["params"], p["jcaches"][0], jnp.asarray(frames))
-    fn, canvas = tinf.build_serving_fn(p["cfg"], p["sd"], FRAME_HW, device="cpu")
-    assert canvas == tuple(jcanvas) == (96, 128)
-    det = fn(p["caches"][0], torch.from_numpy(frames).permute(0, 3, 1, 2))
+    return frames, tuple(jcanvas), jfn(p["params"], p["jcaches"][0], jnp.asarray(frames))
+
+
+def _assert_served(det, ref):
     assert det.boxes.shape == (2, 24, 4)
     boxes = det.boxes[det.valid]
     assert torch.isfinite(boxes).all() and (boxes[:, 2] <= FRAME_HW[1] + 1e-3).all()
     assert (boxes[:, 3] <= FRAME_HW[0] + 1e-3).all()
     for i in range(2):
         _assert_detections_match({k: v[i] for k, v in _np(det).items()}, {k: v[i] for k, v in _np(ref).items()})
+
+
+def test_serving_fn_matches_jax(pair, jax_serving):
+    p = pair
+    frames, jcanvas, ref = jax_serving
+    fn, canvas = tinf.build_serving_fn(p["cfg"], p["sd"], FRAME_HW, device="cpu")
+    assert canvas == jcanvas == (96, 128)
+    _assert_served(fn(p["caches"][0], torch.from_numpy(frames).permute(0, 3, 1, 2)), ref)
     with pytest.raises(ValueError, match="serves 120x160"):
         fn(p["caches"][0], torch.zeros(1, 3, 96, 128))
+
+
+def test_pinned_serving_fn_matches_jax(pair, jax_serving):
+    """build_pinned_serving_fn (the cache fixed at build time; on the CPU
+    the eager path) against the JAX package's jitted build_serving_fn."""
+    p = pair
+    frames, jcanvas, ref = jax_serving
+    fn, canvas = tinf.build_pinned_serving_fn(p["cfg"], p["sd"], p["caches"][0], FRAME_HW, device="cpu")
+    assert canvas == jcanvas
+    _assert_served(fn(torch.from_numpy(frames).permute(0, 3, 1, 2)), ref)
 
 
 def test_pinned_cpu_equals_eager(pair):
@@ -183,14 +204,19 @@ def test_stack_support_caches(pair):
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name)))
 
 
-def test_multiclass_matches_jax(pair):
+@pytest.fixture(scope="module")
+def jax_multiclass(pair):
+    """One image through the JAX package's jitted multiclass builder over
+    the three stacked caches: (image, image_hw, its detections)."""
     p = pair
     img = np.random.default_rng(3).standard_normal((96, 128, 3)).astype(np.float32)
     hw = (96.0, 128.0)
     ref = jinf.build_multiclass_inference_fn(p["jcfg"])(
         p["params"], jsc.stack_support_caches(p["jcaches"]), jnp.asarray(img), jnp.asarray(hw))
-    fn = tinf.build_multiclass_inference_fn(p["cfg"], p["sd"], device="cpu")
-    det = fn(stack_support_caches(p["caches"]), torch.from_numpy(img).permute(2, 0, 1), hw)
+    return img, hw, ref
+
+
+def _assert_multiclass_match(det, ref):
     assert det.boxes.shape == (24, 4) and det.classes.dtype == torch.int32
     got, want = _np(det), _np(ref)
     gcls, rcls = det.classes.numpy(), np.asarray(ref.classes)
@@ -204,6 +230,23 @@ def test_multiclass_matches_jax(pair):
     assert all(gcls[gv][j] == rcls[rv][r] for j, r in pairs)
     assert np.array_equal(np.bincount(gcls[gv], minlength=3), np.bincount(rcls[rv], minlength=3))
     assert len(set(gcls[gv].tolist())) > 1  # more than one class survives the cross-class NMS
+
+
+def test_multiclass_matches_jax(pair, jax_multiclass):
+    p = pair
+    img, hw, ref = jax_multiclass
+    fn = tinf.build_multiclass_inference_fn(p["cfg"], p["sd"], device="cpu")
+    _assert_multiclass_match(fn(stack_support_caches(p["caches"]), torch.from_numpy(img).permute(2, 0, 1), hw), ref)
+
+
+def test_pinned_multiclass_matches_jax(pair, jax_multiclass):
+    """build_pinned_multiclass_inference_fn (the stacked cache and its taps
+    fixed at build time) against the JAX package's jitted builder."""
+    p = pair
+    img, hw, ref = jax_multiclass
+    fn = tinf.build_pinned_multiclass_inference_fn(p["cfg"], p["sd"], stack_support_caches(p["caches"]),
+                                                   device="cpu")
+    _assert_multiclass_match(fn(torch.from_numpy(img).permute(2, 0, 1), hw), ref)
 
 
 def test_multiclass_single_class_consistency(pair):
