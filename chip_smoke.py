@@ -25,7 +25,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    class-aware NMS at the multiclass sites' K = 768 and 2304 (3 and 9
    classes of 256, class-offset boxes) against its plain version;
 4. main path: seeded init_params under serving_vovnet (bf16), a 25-shot support
-   cache from 256x256 crops, then 3 batch-1 requests (build_inference_fn) and
+   cache from 256x256 crops (the build's ms, the first and 3 more: it stays
+   eager, one call a cache), then 3 batch-1 requests (build_inference_fn) and
    2 batch-8 uint8 requests (build_batched_inference_fn) on 320x448 canvases
    with image_hw (320, 427). Every image must give finite packed [100, 7]
    detections, and both kernels' launch counters must have advanced by the
@@ -163,15 +164,34 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    evaluate_sharded on phase 10's 16 frames, 8 / n a card, against
    evaluate at batch 8 / n, both pinned (the same batches: the AP table
    equal; one graph a card, every request a replay); finetune_vovnet data-parallel
-   training at full width (TF32 off, no dropout, ROI sampling on): two
-   ranks on cuda:0 over gloo with a global batch of 2 for 4 steps, and, with
-   two cards or more, one NCCL rank a card with a global batch of n (else a
-   line says why not), each rank a spawned process, cuDNN deterministic on
-   both sides (its default backward differs run to run): every metric within
-   1e-3 of one process over the same global batches at every step, the
-   ranks' weights bit for bit equal after every step, 1 NMS launch a step a
-   rank (reported back by the ranks), each rank's step ms and the ms of
-   the all-reduce of a flat buffer the size of the step's;
+   training at full width (TF32 off, cuDNN deterministic, its default
+   backward differing run to run, ROI sampling on), 8 steps a run: first
+   build_pinned_dp_train_step at world 1 on this card (dropout on) against
+   build_train_step_scan, every metric and weight bit for bit, 1 NMS launch
+   a step, a checkpoint of step 4 resumed in place between replays and the
+   later steps taken again bit for bit, then build_train_step_scan's step
+   timed (the one-process graphed yardstick); two ranks on cuda:0 over
+   gloo with a global batch of 2 (the pinned step refused there, the
+   eager one run) and, with two cards or more, one NCCL rank a card with a
+   global batch of n (else a line says why not), each rank a spawned
+   process: eager and pinned runs without dropout, every metric within
+   1e-3 of one process over the same global batches at each of the first
+   4 steps (the worst over all 8 printed) and within 1e-3 at every step of
+   one process whose convolutions and linear layers each run on one rank's
+   rows at a time (a product over the global batch differs from one over a
+   rank's rows in the last bits, which flips near-tied proposals in the
+   ROI sample as the weights move apart; the two one-process runs against
+   each other printed, the witness); the [B, K] of the NMS launch captured
+   into each rank's graph and the world-1 graph recorded and printed; two
+   eager runs and a pinned one with dropout, the pinned held bit for bit
+   to the eager (or within 3x the two eager runs' difference where they
+   differ), the pinned without dropout likewise; the ranks' weights bit for
+   bit equal after every step of every run; 0 CGM and 1 NMS launch a step
+   a rank (eager counted; pinned: warm-ups and captured x replays); each
+   rank's eager step ms, graphed step ms with the batches on the card and
+   with its loader's pulls inside, the loader's own batches/s, the ms of
+   the all-reduce of a flat buffer the size of the step's, global images/s
+   against the yardstick's;
 19. the ResNet-50 family at full width, f32 weights (TF32 off for the
    comparisons, TF32 convs for the timings): finetune_R_50_C4_1x (ResNet-50
    + FPN, 9 shots, 4x4 pooler) served with use_pallas_cgm at 320x448, an
@@ -236,8 +256,9 @@ gave it, at [1, 3540], [1, 4096] and [1, 16384] random, and at [8, 1024],
 [8, 256] and [1, 2048].
 
 Each result is one JSON line. The line before the last holds the kernels'
-table (with each kernel's graph sites of phase 21, their captured launches
-and replays); the last line is {"ok": true, "device": {...}}. Run without the
+table (with each kernel's graph sites of phase 21 and phase 18's data-
+parallel train step, their captured launches and replays); the last line
+is {"ok": true, "device": {...}}. Run without the
 repository beside it, or without a CUDA device, it exits non-zero and prints
 no result.
 """
@@ -287,6 +308,7 @@ LEVELS_HW = [(CANVAS_HW[0] // s, CANVAS_HW[1] // s) for s in (8, 16, 32)]
 C = 128
 PROFILE_ITERS = 10
 PROFILE_ATTEMPTS = 3
+SUPPORT_BUILD_REPS = 3  # phase 4: the 25-shot cache built again this often, each timed
 # phase 13, fine-tuning finetune_vovnet at full width on synthetic VGA frames
 TRAIN_CONFIG, TRAIN_FRAMES, TRAIN_CANVAS = "finetune_vovnet", 16, (448, 608)
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
@@ -320,7 +342,17 @@ FAST_ROI_K = 64  # serving_vovnet_fast's post_nms_topk_test: K2's ROI site at [B
 # phase 18, data parallel
 DP_MAX_CARDS = 4  # the widest mesh phase 18 drives
 DP_SERVE_BATCH, DP_SERVE_ITERS = 8, 20  # phase 6's VGA frames, one sharded call each
-DP_TRAIN_STEPS = 4
+DP_TRAIN_STEPS = 8  # the pinned step: 2 eager warm-ups, then the capture and 6 replays
+# ranks vs one process, held at TRAIN_LOSS_RTOL over the first 4 steps (the phase's earlier run length),
+# and after them at every step where each rank's ROI sample is the one process's for its image. A
+# product over the global batch and one over a rank's rows differ in the last bits, which in time
+# flips a near-tied proposal into or out of the ROI sample (four NCCL ranks: 1.45e-3 of loss_cls_stage0
+# at step 6); a step where a sample differs is reported with it. Two samples agree where their class
+# targets are equal and their boxes within ROI_SAMPLE_TOL_PX (distinct proposals lie pixels apart)
+DP_REFERENCE_STEPS = 4
+ROI_SAMPLE_TOL_PX = 0.1
+DP_RESUME_STEP = 4  # the world-1 pinned run resumes a checkpoint of this step in place, between replays
+DP_TIMED_STEPS = 20  # the graphed steps timed a way (the batches on the card; the loader's pulls inside)
 DP_ALLREDUCE_ITERS = 20
 DP_RANKS_TIMEOUT_S = 300
 # phase 19, the ResNet-50 family
@@ -870,6 +902,64 @@ def record_nms_calls(torch, request):
     finally:
         nms_cuda._launch, nms_cuda.batched_nms_mask = launch, batched
     return seen
+
+
+def record_captured_nms_shapes(torch, request):
+    """Runs request() with K2's launch entry recording the [B, K] of each
+    launch made while a CUDA graph is being captured (the launches that its
+    replays repeat); returns them. Eager launches are not recorded, and the
+    recording launches nothing."""
+    from faster_orefsdet_tpu_torch.ops import nms_cuda
+
+    launch, shapes = nms_cuda._launch, []
+
+    def wrapped(boxes, *rest):
+        if torch.cuda.is_current_stream_capturing():
+            shapes.append(list(boxes.shape[:2]))
+        return launch(boxes, *rest)
+
+    nms_cuda._launch = wrapped
+    try:
+        request()
+    finally:
+        nms_cuda._launch = launch
+    return shapes
+
+
+def record_roi_samples(torch, request):
+    """Runs request() with the train step's ROI sampler recording what it
+    returns at each call (device copies, read back after request()):
+    returns [(boxes [B, R, 4], class targets [B, R])] as numpy arrays, a
+    step each."""
+    from faster_orefsdet_tpu_torch.pipelines import train_step
+
+    sample, seen = train_step.subsample_proposals, []
+
+    def wrapped(*args, **kwargs):
+        out = sample(*args, **kwargs)
+        seen.append((out[0].detach().clone(), out[1].clone()))
+        return out
+
+    train_step.subsample_proposals = wrapped
+    try:
+        request()
+    finally:
+        train_step.subsample_proposals = sample
+    return [(b.cpu().numpy(), c.cpu().numpy()) for b, c in seen]
+
+
+def roi_sample_flips(np, rows, reference) -> list:
+    """For each step, the images whose ROI sample in `rows` (a rank's
+    [(boxes, classes)] each, or one process's) is not the one in
+    `reference` (one process's over the global batch): class targets
+    unequal or a box beyond ROI_SAMPLE_TOL_PX. Returns a list a step."""
+    out = []
+    for step, (ref_boxes, ref_cls) in enumerate(reference):
+        boxes = np.concatenate([r[step][0] for r in rows])
+        cls = np.concatenate([r[step][1] for r in rows])
+        out.append([i for i in range(len(ref_cls)) if not (
+            np.array_equal(cls[i], ref_cls[i]) and np.abs(boxes[i] - ref_boxes[i]).max() <= ROI_SAMPLE_TOL_PX)])
+    return out
 
 
 def check_nms_calls(torch, seen):
@@ -2186,121 +2276,447 @@ def _digest(tensors) -> str:
     return h.hexdigest()
 
 
-def dp_train_rank(rank, world, device, cfg, params, batches):
+def dp_train_rank(rank, world, device, cfg, params, batches, mode):
     """One rank of phase 18's training (spawned): TF32 off and cuDNN
     deterministic (its default backward sums with atomics, so that two runs
-    of one step differ: phase 14), replicate rank 0's state, DP_TRAIN_STEPS data-parallel steps on this rank's rows of the
-    global batches with the kernels' launches counted (0 just before, read
-    just after), each step timed on the host's clock ending in a sync, the
-    weights' digest after each step; then the all-reduce of a flat f32
-    buffer the size of the step's (gradients, running statistics, metrics)
-    timed alone."""
+    of one step differ: phase 14). A run: rank 0's state replicated, then
+    DP_TRAIN_STEPS steps on this rank's rows of the global batches (on the
+    card), the kernels' launches counted (0 just before, read just after),
+    each step timed on the host's clock ending in a sync, the weights'
+    digest after each step.
+
+    mode "gloo": ``build_pinned_dp_train_step`` must refuse this group, then
+    an eager run without dropout. mode "nccl": eager and pinned runs
+    without dropout, two eager runs and a pinned one with dropout; then the
+    pinned step's time over DP_TIMED_STEPS steps with the batches on the
+    card and over as many with this rank's own loader pulls inside (each
+    rank maps the whole global batch and keeps its rows), and the loader
+    alone. Last, the all-reduce of a flat f32 buffer the size of the step's
+    (gradients, running statistics, metrics) timed alone."""
     import torch
     import torch.distributed as dist
 
+    from faster_orefsdet_tpu_torch.data.loader import train_loader
     from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
     from faster_orefsdet_tpu_torch.parallel import build_dp_train_step, replicate_state, shard_batch
+    from faster_orefsdet_tpu_torch.parallel.train_dp import build_pinned_dp_train_step
     from faster_orefsdet_tpu_torch.pipelines.train_step import build_train_state
     from faster_orefsdet_tpu_torch.utils.params import is_batch_stat
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    state = build_train_state(cfg, params, device=device)
-    replicate_state(state)
-    step = build_dp_train_step(cfg, deterministic=True)
     shards = [shard_batch(b, rank, world).to(device) for b in batches]
-    rows, digests, times = [], [], []
 
-    def run():
-        for b in shards:
-            torch.cuda.synchronize(device)
-            t = time.perf_counter()
-            m = step(state, b)
-            torch.cuda.synchronize(device)
-            times.append((time.perf_counter() - t) * 1e3)
-            rows.append({k: float(v) for k, v in m.items()})
-            digests.append(_digest(state.model.state_dict().values()))
-
-    torch.cuda.synchronize(device)
-    cgm_cuda.counter.launches = nms_cuda.counter.launches = 0
-    run()
-    torch.cuda.synchronize(device)
-    launches = {"cgm": cgm_cuda.counter.launches, "nms": nms_cuda.counter.launches}
-    numel = sum(p.numel() for p in state.model.parameters() if p.grad is not None)
-    numel += sum(v.numel() for k, v in state.model.state_dict().items() if is_batch_stat(k))
-    numel += len(rows[0])
-    flat = torch.zeros(numel, device=device)
-    ar = []
-    for i in range(DP_ALLREDUCE_ITERS + 3):
+    def synced_ms(fn):
         torch.cuda.synchronize(device)
         t = time.perf_counter()
-        dist.all_reduce(flat)
+        fn()
         torch.cuda.synchronize(device)
-        if i >= 3:
-            ar.append((time.perf_counter() - t) * 1e3)
-    return {"rows": rows, "digests": digests, "step_ms": times, "launches": launches,
-            "allreduce_numel": numel, "allreduce_ms": ar, "backend": dist.get_backend(), "device": str(device)}
+        return (time.perf_counter() - t) * 1e3
+
+    def run(build, deterministic: bool, samples: bool = False):
+        state = build_train_state(cfg, params, device=device)
+        replicate_state(state)
+        step = build(cfg, deterministic=deterministic)
+        res = {"rows": [], "digests": [], "step_ms": []}
+        torch.cuda.synchronize(device)
+
+        def steps():
+            for b in shards:
+                out = {}
+                res["step_ms"].append(synced_ms(lambda: out.update(step(state, b))))
+                res["rows"].append({k: float(v) for k, v in out.items()})
+                res["digests"].append(_digest(state.model.state_dict().values()))
+
+        cgm_cuda.counter.launches = nms_cuda.counter.launches = 0
+        if samples:
+            res["roi_samples"] = record_roi_samples(torch, steps)
+        else:
+            res["captured_nms_shapes"] = record_captured_nms_shapes(torch, steps)
+        torch.cuda.synchronize(device)
+        res["counted"] = {"cgm": cgm_cuda.counter.launches, "nms": nms_cuda.counter.launches}
+        if hasattr(step, "kernel_launches"):
+            res["launches"] = step.kernel_launches()
+            res["graphs"] = [{"captured_launches": g.launches, "replays": g.replays} for g in step.graphs.values()]
+        return res, step, state
+
+    out = {"backend": dist.get_backend(), "device": str(device)}
+    if mode == "gloo":
+        try:
+            build_pinned_dp_train_step(cfg)(build_train_state(cfg, params, device=device), shards[0])
+        except ValueError as e:
+            out["pinned_refused"] = str(e)
+        out["eager"], _, state = run(build_dp_train_step, True, samples=True)
+    else:
+        out["eager"] = run(build_dp_train_step, True, samples=True)[0]
+        out["pinned"] = run(build_pinned_dp_train_step, True)[0]
+        out["eager_dropout"] = [run(build_dp_train_step, False)[0] for _ in range(2)]
+        out["pinned_dropout"], step, state = run(build_pinned_dp_train_step, False)
+        # ---- times: the batches on the card, then this rank's loader pulls inside
+        on_card = [synced_ms(lambda: step(state, shards[i % len(shards)])) for i in range(DP_TIMED_STEPS)]
+        records, mapper = train_data(cfg)
+        loader = train_loader(records, mapper, cfg.solver.ims_per_batch, seed=3, device=device)
+        try:
+            with_loader = [synced_ms(lambda: step(state, shard_batch(next(loader), rank, world)))
+                           for _ in range(DP_TIMED_STEPS)]
+            for _ in range(4):  # the loader alone: drain what it holds, then time it
+                next(loader)
+            t = time.perf_counter()
+            for _ in range(LOADER_BATCHES):
+                next(loader)
+            loader_bps = LOADER_BATCHES / (time.perf_counter() - t)
+        finally:
+            loader.close()
+        out["timed"] = {"on_card_ms": on_card, "with_loader_ms": with_loader, "loader_alone_batches_per_s": loader_bps,
+                        "launches": step.kernel_launches(), "steps": state.step,
+                        "graphs": [{"captured_launches": g.launches, "replays": g.replays}
+                                   for g in step.graphs.values()]}
+    numel = sum(p.numel() for p in state.model.parameters() if p.grad is not None)
+    numel += sum(v.numel() for k, v in state.model.state_dict().items() if is_batch_stat(k))
+    numel += len(out["eager"]["rows"][0])
+    flat = torch.zeros(numel, device=device)
+    out["allreduce_numel"] = numel
+    out["allreduce_ms"] = [synced_ms(lambda: dist.all_reduce(flat)) for _ in range(DP_ALLREDUCE_ITERS + 3)][3:]
+    return out
 
 
-def dp_train_run(torch, np, cfg, params, batches, world, device, backend, reference, smi, what):
-    """phase 18's training over `world` ranks against the one-process run
-    `reference` (its metrics rows on the same global batches): every metric
-    within TRAIN_LOSS_RTOL at every step, the ranks' weights bit for bit
-    equal after every step. Returns the ranks' K2 launches."""
+def rel_by_step(rows, reference) -> list:
+    """The worst |metric - reference| / |reference| at each step."""
+    return [max(abs(row[k] - v) / max(abs(v), 1e-12) for k, v in ref.items()) for row, ref in zip(rows, reference)]
+
+
+def worst_rel(rows, reference) -> tuple:
+    """The worst |metric - reference| / |reference| over the steps and the
+    metrics, and where: (err, (step, metric))."""
+    worst, where = 0.0, None
+    for i, ref in enumerate(reference):
+        for k, v in ref.items():
+            err = abs(rows[i][k] - v) / max(abs(v), 1e-12)
+            if err > worst:
+                worst, where = err, (i, k)
+    return worst, where
+
+
+def dp_train_run(torch, np, cfg, params, batches, world, device, backend, reference, per_rank, smi, what,
+                 yardstick):
+    """phase 18's training over `world` ranks (``dp_train_rank``) against
+    the one-process runs `reference` and `per_rank` (each its metrics rows
+    and ROI samples on the same global batches; `per_rank` runs each product
+    on one rank's rows at a time): every metric within TRAIN_LOSS_RTOL of
+    `reference` at each of the first DP_REFERENCE_STEPS steps, and at every
+    step where each rank's ROI sample is `reference`'s for its image; each
+    step's worst and its flipped samples reported, for the ranks and for
+    `per_rank` (the witness: the products' batch alone, in one process,
+    flips samples and moves the losses), the ranks' weights bit for bit
+    equal after every step, 0 CGM and 1 NMS
+    launch a step a rank. Over gloo the pinned step must refuse. Over NCCL the
+    pinned runs as well, and each is held against the eager run on the same
+    batches: bit for bit where two eager runs with dropout agree bit for
+    bit, else within DEFAULTS_FACTOR x their worst loss difference; the
+    dropout must change the losses. `yardstick` is the one-process graphed
+    step's median ms at these settings. Returns the ranks' launches: the
+    eager runs' counted ones, the pinned runs' (warm-ups and captured x
+    replays), the pinned graph's captured launches and replays, and the
+    [B, K] of the NMS launch captured into the ranks' graphs."""
     import tempfile
 
     from faster_orefsdet_tpu_torch.parallel.mesh import spawn_ranks
+    from faster_orefsdet_tpu_torch.pipelines.train_step import WARMUP_STEPS
 
     host = [b.to("cpu") for b in batches]
     torch.cuda.synchronize()  # the copies to the host are asynchronous
+    mode = "gloo" if backend == "gloo" else "nccl"
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        ranks = spawn_ranks(dp_train_rank, world, (cfg, params, host), init_method=f"file://{tmp}/store",
+        ranks = spawn_ranks(dp_train_rank, world, (cfg, params, host, mode), init_method=f"file://{tmp}/store",
                             device=device, backend=backend, timeout=DP_RANKS_TIMEOUT_S)
     wall_s = time.perf_counter() - t0
-    worst, where = 0.0, None
-    for i, ref in enumerate(reference):
-        for r in ranks:
-            for k, v in ref.items():
-                err = abs(r["rows"][i][k] - v) / max(abs(v), 1e-12)
-                if err > worst:
-                    worst, where = err, (i, k)
-    same = all(r["digests"] == ranks[0]["digests"] for r in ranks)
-    launches = {k: sum(r["launches"][k] for r in ranks) for k in ("cgm", "nms")}
-    emit(dp_train={"run": what, "ranks": world, "backend": ranks[0]["backend"],
-                   "devices": [r["device"] for r in ranks], "steps": len(reference),
-                   "global_batch": cfg.solver.ims_per_batch, "canvas": list(TRAIN_CANVAS),
-                   "worst_metric_rel_err_vs_one_rank": worst, "at": where, "rtol": TRAIN_LOSS_RTOL,
-                   "replicas_bit_identical_every_step": same,
-                   "step_ms_median_per_rank": [statistics.median(r["step_ms"][1:]) for r in ranks],
-                   "step_ms_first": [r["step_ms"][0] for r in ranks],
-                   "allreduce_ms_median_per_rank": [statistics.median(r["allreduce_ms"]) for r in ranks],
-                   "allreduce_bytes": 4 * ranks[0]["allreduce_numel"], "launches": launches,
-                   "total_loss": [r["rows"][-1]["total_loss"] for r in ranks], "spawn_to_end_s": wall_s,
-                   "card": smi})
-    if worst > TRAIN_LOSS_RTOL or not same:
-        raise AssertionError(f"{what}: ranks vs one rank {worst:.3e} at {where}, replicas equal: {same}")
-    if launches != {"cgm": 0, "nms": world * len(reference)}:
-        raise AssertionError(f"{what}: kernel launches {launches} (expected 0 CGM, 1 NMS a step a rank)")
+    (ref_rows, ref_samples), (per_rank_rows, per_rank_samples) = reference, per_rank
+    steps = len(ref_rows)
+    per_step = {"cgm": 0, "nms": steps}
+    runs = ["eager"] + (["pinned", "eager_dropout", "pinned_dropout"] if mode == "nccl" else [])
+
+    def each(name):  # a run's results by rank (the two eager dropout runs: the first)
+        return [r[name][0] if name == "eager_dropout" else r[name] for r in ranks]
+
+    replicas = {name: all(r["digests"] == each(name)[0]["digests"] for r in each(name)) for name in runs}
+    held_steps = ref_rows[:DP_REFERENCE_STEPS]
+    vs_one = {name: worst_rel(each(name)[0]["rows"], held_steps) for name in ("eager", "pinned") if name in runs}
+    vs_one_all = {name: worst_rel(each(name)[0]["rows"], ref_rows) for name in vs_one}
+    # the eager ranks' ROI samples (a graphed run is held to its eager run bit for bit below)
+    flips = roi_sample_flips(np, [r["eager"]["roi_samples"] for r in ranks], ref_samples)
+    same_sample = [i for i, f in enumerate(flips) if not f]
+    by_step = {name: rel_by_step(each(name)[0]["rows"], ref_rows) for name in vs_one}
+    vs_one_same = {name: max((v[i] for i in same_sample), default=0.0) for name, v in by_step.items()}
+    line = {"run": what, "ranks": world, "backend": ranks[0]["backend"], "devices": [r["device"] for r in ranks],
+            "steps": steps, "global_batch": cfg.solver.ims_per_batch, "canvas": list(TRAIN_CANVAS),
+            "worst_metric_rel_err_vs_one_rank": {k: v[0] for k, v in vs_one.items()},
+            "at": {k: v[1] for k, v in vs_one.items()}, "rtol": TRAIN_LOSS_RTOL, "held_steps": len(held_steps),
+            "worst_metric_rel_err_vs_one_rank_every_step_reported": vs_one_all,
+            "roi_sample_flips_vs_one_process_by_step": flips,
+            "worst_metric_rel_err_vs_one_process_by_step": by_step,
+            "steps_with_equal_roi_samples": same_sample,
+            "worst_metric_rel_err_at_steps_with_equal_roi_samples": vs_one_same,
+            "one_process_per_rank_products_vs_one_process": {
+                "roi_sample_flips_by_step": roi_sample_flips(np, [per_rank_samples], ref_samples),
+                "worst_metric_rel_err_by_step": rel_by_step(per_rank_rows, ref_rows)},
+            "replicas_bit_identical_every_step": replicas,
+            "eager_step_ms_median_per_rank": [statistics.median(r["eager"]["step_ms"][1:]) for r in ranks],
+            "eager_step_ms_first": [r["eager"]["step_ms"][0] for r in ranks],
+            "allreduce_ms_median_per_rank": [statistics.median(r["allreduce_ms"]) for r in ranks],
+            "allreduce_bytes": 4 * ranks[0]["allreduce_numel"],
+            "total_loss": [r["eager"]["rows"][-1]["total_loss"] for r in ranks], "spawn_to_end_s": wall_s}
+    bad = [name for name, v in vs_one.items() if v[0] > TRAIN_LOSS_RTOL] + [n for n, ok in replicas.items() if not ok]
+    bad += [f"{name} vs one process at steps with equal ROI samples: {v}" for name, v in vs_one_same.items()
+            if v > TRAIN_LOSS_RTOL]
+    eager_runs = [r["eager"] for r in ranks] + [x for r in ranks for x in r.get("eager_dropout", [])]
+    bad += [f"eager counted {x['counted']}" for x in eager_runs if x["counted"] != per_step]
+    launches = {"eager": {k: sum(x["counted"][k] for x in eager_runs) for k in per_step},
+                "pinned": {"cgm": 0, "nms": 0}, "captured_per_replay": None, "replayed": {"cgm": 0, "nms": 0},
+                "captured_nms_shapes": None}
+    if mode == "gloo":
+        refused = [r.get("pinned_refused", "") for r in ranks]
+        line["pinned_refused"] = refused[0][:160]
+        bad += [f"rank {i} did not refuse the pinned step" for i, e in enumerate(refused) if "needs NCCL" not in e]
+    else:
+        # eager vs eager with dropout: bit for bit, or the spread the graph is held to
+        e1, e2 = ([r["eager_dropout"][j] for r in ranks] for j in (0, 1))
+        eager_same = all(a["rows"] == b["rows"] and a["digests"] == b["digests"] for a, b in zip(e1, e2))
+        spread = max(worst_rel(b["rows"], a["rows"])[0] for a, b in zip(e1, e2))
+        held = {}
+        for g_name, e_runs in (("pinned", each("eager")), ("pinned_dropout", e1)):
+            g_runs = each(g_name)
+            same = all(g["rows"] == e["rows"] and g["digests"] == e["digests"] for g, e in zip(g_runs, e_runs))
+            err = max(worst_rel(g["rows"], e["rows"])[0] for g, e in zip(g_runs, e_runs))
+            held[g_name] = {"bit_identical": same, "worst_loss_rel_err": err,
+                            "ok": same if eager_same else err <= DEFAULTS_FACTOR * spread}
+        dropout_moves = each("eager_dropout")[0]["rows"][0] != each("eager")[0]["rows"][0]
+        graph_runs = [r[name] for r in ranks for name in ("pinned", "pinned_dropout")]
+        pinned_launches = [g["launches"] for g in graph_runs]
+        captured_shapes = [g["captured_nms_shapes"] for g in graph_runs]
+        graphs = [g["graphs"] for g in graph_runs]
+        timed = [r["timed"] for r in ranks]  # the dropout run's step function, on to its timed steps
+        replay_ms = [statistics.median(r["pinned_dropout"]["step_ms"][WARMUP_STEPS + 1:]) for r in ranks]
+        on_card = [statistics.median(t["on_card_ms"]) for t in timed]
+        with_loader = [statistics.median(t["with_loader_ms"]) for t in timed]
+        eager_ms = line["eager_step_ms_median_per_rank"]
+        per_rank = cfg.solver.ims_per_batch // world
+        rate = {"graphed": world * per_rank * 1e3 / max(on_card),
+                "graphed_with_loader": world * per_rank * 1e3 / max(with_loader),
+                "eager": world * per_rank * 1e3 / max(eager_ms),
+                "one_process_graphed_yardstick": per_rank * 1e3 / yardstick}
+        line.update({
+            "eager_vs_eager_dropout_bit_identical": eager_same, "eager_vs_eager_dropout_worst_loss_rel_err": spread,
+            "graphed_vs_eager": held, "dropout_changes_the_losses": dropout_moves,
+            "graphed_step_ms_median_per_rank": on_card, "graphed_step_ms_median_with_loader_per_rank": with_loader,
+            "graphed_replay_ms_median_in_the_checked_run": replay_ms,
+            "loader_alone_batches_per_s": [t["loader_alone_batches_per_s"] for t in timed],
+            "images_per_s": rate, "images_per_s_over_one_process": rate["graphed"] / rate[
+                "one_process_graphed_yardstick"],
+            "one_process_graphed_yardstick_ms": yardstick, "graphed_over_yardstick": max(on_card) / yardstick,
+            "eager_over_graphed": max(eager_ms) / max(on_card), "pinned_launches_per_run": pinned_launches,
+            "pinned_graphs": graphs, "captured_nms_shapes": captured_shapes[0],
+            "timed_launches": [t["launches"] for t in timed],
+            "timed_graphs": [t["graphs"] for t in timed], "timed_steps": [t["steps"] for t in timed]})
+        bad += [f"{k} vs eager {v}" for k, v in held.items() if not v["ok"]]
+        bad += [] if dropout_moves else ["the dropout did not change the losses"]
+        bad += [f"pinned launches {x}" for x in pinned_launches if x != per_step]
+        bad += [f"graphs {g}" for g in graphs + [t["graphs"] for t in timed]
+                if [x["captured_launches"] for x in g] != [{"cgm": 0, "nms": 1}]]
+        bad += [f"captured NMS shapes {c}" for c in captured_shapes
+                if c != captured_shapes[0] or len(c) != graphs[0][0]["captured_launches"]["nms"]]
+        bad += [f"timed launches {t['launches']} over {t['steps']} steps" for t in timed
+                if t["launches"] != {"cgm": 0, "nms": t["steps"]}]
+        # the pinned runs' launches: the dropout-off run's, and the dropout run's to the end of its timed steps
+        replayed = [x for r in ranks for x in r["pinned"]["graphs"] + r["timed"]["graphs"]]
+        launches.update(pinned={k: sum(r["pinned"]["launches"][k] + r["timed"]["launches"][k] for r in ranks)
+                                for k in per_step},
+                        captured_per_replay=graphs[0][0]["captured_launches"],
+                        captured_nms_shapes=captured_shapes[0],
+                        replayed={k: sum(x["replays"] * x["captured_launches"][k] for x in replayed) for k in per_step})
+    emit(dp_train={**line, "launches": launches, "card": smi})
+    if bad:
+        raise AssertionError(f"{what}: {bad}")
     return launches
 
 
-def dp_reference(torch, cfg, params, batches):
+def per_rank_products(torch, world: int):
+    """A function mode under which each convolution and linear layer whose
+    input rows split evenly over `world` ranks (the global batch's images,
+    their support crops, their ROIs: rank-major, as ``shard_batch`` splits
+    them) runs on one rank's share at a time, the outputs concatenated: the
+    products that `world` ranks compute, in one process. Autograd's backward
+    follows the split."""
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    class PerRank(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            x = args[0] if args else None
+            if (func in (F.conv2d, F.linear) and world > 1 and isinstance(x, torch.Tensor) and x.dim() >= 2
+                    and x.shape[0] % world == 0):
+                return torch.cat([func(part, *args[1:], **kwargs) for part in x.chunk(world)])
+            return func(*args, **kwargs)
+
+    return PerRank()
+
+
+def dp_reference(torch, cfg, params, batches, per_rank: bool = False):
     """The one-process run over the global batches (TF32 off, cuDNN
-    deterministic as in the ranks, no dropout): its metrics rows."""
+    deterministic as in the ranks, no dropout): its metrics rows and ROI
+    samples. With `per_rank`, under ``per_rank_products`` over cfg's
+    ims_per_batch ranks."""
+    import contextlib
+
     from faster_orefsdet_tpu_torch.pipelines.train_step import build_train_state, build_train_step
 
     torch.backends.cudnn.allow_tf32 = False
     prev, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, True
+    split = per_rank_products(torch, cfg.solver.ims_per_batch) if per_rank else contextlib.nullcontext()
     try:
         state, step = build_train_state(cfg, params), build_train_step(cfg, deterministic=True)
-        rows = [{k: float(v) for k, v in step(state, b).items()} for b in batches]
+        rows = []
+        with split:
+            samples = record_roi_samples(torch, lambda: rows.extend(
+                {k: float(v) for k, v in step(state, b).items()} for b in batches))
     finally:
         torch.backends.cudnn.deterministic = prev
     del state
     torch.cuda.empty_cache()
-    return rows
+    return rows, samples
+
+
+def dp_world_one(torch, cfg, params, batches, smi) -> dict:
+    """The pinned DP step outside a process group on this card (TF32 off,
+    cuDNN deterministic, dropout on) against build_train_step_scan over
+    the same batches from the same state: every metric and the weights
+    after every step bit for bit, the generators equal, 1 NMS and 0 CGM
+    launches a step (warm-ups and captured x replays). Then a checkpoint
+    written after step DP_RESUME_STEP is resumed into the running state (in
+    place, between replays) and the later steps taken again: the same
+    metrics and weights. Then the one-process graphed step's time at these
+    settings (build_train_step_scan's replays, the batches on the card):
+    the yardstick of the ranks' graphed steps."""
+    import tempfile
+
+    from faster_orefsdet_tpu_torch.parallel.train_dp import build_pinned_dp_train_step
+    from faster_orefsdet_tpu_torch.pipelines.train_step import build_train_state, build_train_step_scan
+    from faster_orefsdet_tpu_torch.utils.checkpoint import resume_or_load, save_checkpoint
+
+    prev, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, True
+    torch.backends.cudnn.allow_tf32 = False
+    batches = [b.to("cuda") for b in batches]
+    scan_state, scan = build_train_state(cfg, params), build_train_step_scan(cfg)
+    state, pinned = build_train_state(cfg, params), build_pinned_dp_train_step(cfg)
+    rows = {"scan": [], "pinned": [], "resumed": []}
+    digests = {"scan": [], "pinned": [], "resumed": []}
+    captured = []  # the [B, K] of each NMS launch captured into the pinned step's graph
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for b in batches:
+                rows["scan"].append({k: float(v[0]) for k, v in scan(scan_state, [b]).items()})
+                digests["scan"].append(_digest(scan_state.model.state_dict().values()))
+                got = {}
+                captured += record_captured_nms_shapes(torch, lambda: got.update(pinned(state, b)))
+                rows["pinned"].append({k: float(v) for k, v in got.items()})
+                digests["pinned"].append(_digest(state.model.state_dict().values()))
+                if state.step == DP_RESUME_STEP:
+                    save_checkpoint(tmp, state)
+            generators_equal = torch.equal(scan_state.generator.get_state(), state.generator.get_state())
+            resume_or_load(tmp, state)
+            for b in batches[DP_RESUME_STEP:]:
+                rows["resumed"].append({k: float(v) for k, v in pinned(state, b).items()})
+                digests["resumed"].append(_digest(state.model.state_dict().values()))
+        times = []
+        for i in range(DP_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            scan(scan_state, [batches[i % len(batches)]])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    steps = len(batches)
+    taken = steps + steps - DP_RESUME_STEP
+    graphs = [{"captured_launches": g.launches, "replays": g.replays} for g in pinned.graphs.values()]
+    res = {"steps": steps, "bit_identical_to_scan": rows["pinned"] == rows["scan"]
+           and digests["pinned"] == digests["scan"], "generators_equal": generators_equal,
+           "resumed_at": DP_RESUME_STEP, "resumed_in_place_bit_identical": rows["resumed"] == rows["pinned"][
+               DP_RESUME_STEP:] and digests["resumed"] == digests["pinned"][DP_RESUME_STEP:],
+           "launches": pinned.kernel_launches(), "steps_taken": taken, "graphs": graphs,
+           "captured_nms_shapes": captured,
+           "yardstick_step_ms_median": statistics.median(times), "yardstick_step_ms_min": min(times),
+           "yardstick_step_ms_max": max(times)}
+    emit(dp_train={"run": "one_card_world1_graph", **res, "canvas": list(TRAIN_CANVAS), "card": smi})
+    if not (res["bit_identical_to_scan"] and generators_equal and res["resumed_in_place_bit_identical"]):
+        raise AssertionError(f"the pinned DP step at world 1 differs from build_train_step_scan: {res}")
+    if res["launches"] != {"cgm": 0, "nms": taken} or [g["captured_launches"] for g in graphs] != [
+            {"cgm": 0, "nms": 1}] or len(captured) != 1:
+        raise AssertionError(f"the pinned DP step at world 1 launched {res['launches']} over {taken} steps: {graphs}, "
+                             f"captured NMS shapes {captured}")
+    del scan_state, scan, state, pinned
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_dp_train(torch, np, smi, count: int, n: int) -> dict:
+    """Phase 18's training of finetune_vovnet at full width, TF32 off and
+    cuDNN deterministic: the pinned DP step at world 1 on this card
+    (``dp_world_one``, also the one-process graphed yardstick), two gloo
+    ranks on cuda:0 and, with two cards or more, one NCCL rank a card, each
+    against one process over the same global batches (``dp_train_run``).
+    Returns the launches: "train" counted on the eager runs, "graphed"
+    the pinned runs' (warm-ups and captured x replays) and "graph_site"
+    the DP step graph's captured launches, replayed launches and the
+    [B, K] of its captured NMS launch, as the world-1 graph recorded them
+    (the NCCL ranks' graphs must record the same)."""
+    from faster_orefsdet_tpu_torch.config import get_config
+    from faster_orefsdet_tpu_torch.data.loader import train_loader
+    from faster_orefsdet_tpu_torch.utils.params import init_params
+
+    tcfg = get_config(TRAIN_CONFIG)
+    tparams = init_params(tcfg, seed=0)
+    records, mapper = train_data(tcfg)
+    runs = [("one_card_gloo", 2, "cuda:0", "gloo")]
+    if count >= 2:
+        runs.append(("cards_nccl", n, "cuda", None))
+    else:
+        emit(dp_train={"run": "cards_nccl", "ran": False,
+                       "why": f"{count} card visible: NCCL across cards needs two or more", "card": smi})
+    out = {"train": {"cgm": 0, "nms": 0}, "graphed": {"cgm": 0, "nms": 0}}
+
+    def take(world):
+        loader = train_loader(records, mapper, world, seed=3)
+        try:
+            return [next(loader) for _ in range(DP_TRAIN_STEPS)]
+        finally:
+            loader.close()
+
+    one = dp_world_one(torch, tcfg, tparams, take(1), smi)
+    yardstick = one["yardstick_step_ms_median"]
+    out["graphed"] = dict(one["launches"])
+    site = out["graph_site"] = {
+        "captured_launches_per_replay": one["graphs"][0]["captured_launches"],
+        "replays": {k: sum(g["replays"] * g["captured_launches"][k] for g in one["graphs"]) for k in ("cgm", "nms")},
+        "shapes": one["captured_nms_shapes"]}
+    for what, world, device, backend in runs:
+        wcfg = tcfg.replace(solver=dataclasses.replace(tcfg.solver, ims_per_batch=world))
+        batches = take(world)
+        reference = dp_reference(torch, wcfg, tparams, batches)
+        per_rank = dp_reference(torch, wcfg, tparams, batches, per_rank=True)
+        got = dp_train_run(torch, np, wcfg, tparams, batches, world, device, backend, reference, per_rank, smi,
+                           what, yardstick)
+        if got["captured_per_replay"] is not None and (
+                got["captured_per_replay"] != site["captured_launches_per_replay"]
+                or got["captured_nms_shapes"] != site["shapes"]):
+            raise AssertionError(f"{what}: the ranks' graphs captured {got['captured_per_replay']} at "
+                                 f"{got['captured_nms_shapes']}, the world-1 graph {site}")
+        out["train"] = {k: out["train"][k] + got["eager"][k] for k in out["train"]}
+        out["graphed"] = {k: out["graphed"][k] + got["pinned"][k] for k in out["graphed"]}
+        site["replays"] = {k: site["replays"][k] + got["replayed"][k] for k in site["replays"]}
+    return out
 
 
 def phase_dp(torch, np, cfg, params, cache, frames_u8, smi):
@@ -2311,8 +2727,6 @@ def phase_dp(torch, np, cfg, params, cache, frames_u8, smi):
     a card, each against one process over the same global batches. Returns
     the replicas' replayed launches ("pinned") and the training ranks'
     counted ones ("train")."""
-    from faster_orefsdet_tpu_torch.config import get_config
-    from faster_orefsdet_tpu_torch.data.loader import train_loader
     from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
     from faster_orefsdet_tpu_torch.parallel import eval_dp, make_mesh, make_sharded_serving
     from faster_orefsdet_tpu_torch.parallel.eval_dp import evaluate_sharded
@@ -2323,7 +2737,6 @@ def phase_dp(torch, np, cfg, params, cache, frames_u8, smi):
         build_pinned_serving_fn, build_serving_fn, pack_detections, unpack_detections_np,
     )
     from faster_orefsdet_tpu_torch.pipelines.support_cache import build_support_cache
-    from faster_orefsdet_tpu_torch.utils.params import init_params
 
     t_phase = time.perf_counter()
     count = torch.cuda.device_count()
@@ -2440,30 +2853,11 @@ def phase_dp(torch, np, cfg, params, cache, frames_u8, smi):
         raise AssertionError(f"evaluate_sharded: {len(built)} replicas, replayed {eval_launches}, counted {counted}")
     pinned = {k: serve_launches[k] + eval_launches[k] for k in serve_launches}
 
-    # ---- (c) training, two gloo ranks on one card; (d) one NCCL rank a card
-    tcfg = get_config(TRAIN_CONFIG)
-    tparams = init_params(tcfg, seed=0)
-    records, mapper = train_data(tcfg)
-    launches = {"cgm": 0, "nms": 0}
-    runs = [("one_card_gloo", 2, "cuda:0", "gloo")]
-    if count >= 2:
-        runs.append(("cards_nccl", n, "cuda", None))
-    else:
-        emit(dp_train={"run": "cards_nccl", "ran": False,
-                       "why": f"{count} card visible: NCCL across cards needs two or more", "card": smi})
-    for what, world, device, backend in runs:
-        wcfg = tcfg.replace(solver=dataclasses.replace(tcfg.solver, ims_per_batch=world))
-        loader = train_loader(records, mapper, world, seed=3)
-        try:
-            batches = [next(loader) for _ in range(DP_TRAIN_STEPS)]
-        finally:
-            loader.close()
-        reference = dp_reference(torch, wcfg, tparams, batches)
-        got = dp_train_run(torch, np, wcfg, tparams, batches, world, device, backend, reference, smi, what)
-        launches = {k: launches[k] + got[k] for k in launches}
+    # ---- (c) training: world 1 on this card, two gloo ranks on it, one NCCL rank a card
+    train = phase_dp_train(torch, np, smi, count, n)
     torch.backends.cudnn.allow_tf32 = True
     emit(dp_phase_s=time.perf_counter() - t_phase)
-    return {"pinned": pinned, "train": launches}
+    return {"pinned": pinned, **train}
 
 
 # ------------------------------------------------------------------ phase 19
@@ -3463,11 +3857,23 @@ def main(argv=None) -> int:
     params = init_params(cfg, seed=0)
     rng = np.random.default_rng(1)
     sup_imgs, sup_boxes = support_inputs(torch, np, cfg, 25, rng)
-    cache = build_support_cache(cfg, params, sup_imgs, sup_boxes)
+    # the build's ms (host clock, ending in a sync): the first, then SUPPORT_BUILD_REPS more
+    build_ms, built = [], []
+    for _ in range(1 + SUPPORT_BUILD_REPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        built.append(build_support_cache(cfg, params, sup_imgs, sup_boxes))
+        torch.cuda.synchronize()
+        build_ms.append((time.perf_counter() - t) * 1e3)
+    cache = built[0]
     for name, t in cache._asdict().items():
         if not torch.isfinite(t.float()).all():
             raise AssertionError(f"support cache {name} is not finite")
-    emit(support_cache={k: [list(v.shape), str(v.dtype)[6:]] for k, v in cache._asdict().items()})
+    del built
+    emit(support_cache={k: [list(v.shape), str(v.dtype)[6:]] for k, v in cache._asdict().items()},
+         build={"shots": 25, "crops": list(sup_imgs.shape), "ms_first": build_ms[0],
+                "ms_median_after": statistics.median(build_ms[1:]), "ms_after": build_ms[1:]},
+         card=smi)
     serve1 = build_inference_fn(cfg, params)
     serve8 = build_batched_inference_fn(cfg, params)
     h, w = CANVAS_HW
@@ -3767,7 +4173,7 @@ def main(argv=None) -> int:
                "dla_eval_pinned_replays": dla["eval_launches"], "workflow_glob": workflow["glob_launches"],
                "workflow_dla_c160": workflow["dla_launches"], "quant": quant["launches"],
                "quant_pinned_replays": quant["pinned_replays"], "dp_pinned_replays": dp_launches["pinned"],
-               "dp_train": dp_launches["train"],
+               "dp_train": dp_launches["train"], "dp_train_graphed": dp_launches["graphed"],
                **{f"resnet_{k}": v for k, v in {**resnet["launches"], **resnet["graph_launches"]}.items()},
                **one["launches"], **entry_eager, **entry_graphs}
     resnet_paths = tuple(f"resnet_{k}" for k in resnet["launches"])
@@ -3775,6 +4181,9 @@ def main(argv=None) -> int:
                    "quant", "dp_train") + resnet_paths + tuple(one["launches"]) + tuple(entry_eager)
     graph_sites = {p: {"captured_launches_per_replay": row["graphs_captured_launches"][0],
                        "replays": entry["replayed"][p]} for p, row in entry["rows"].items()}
+    # phase 18's data-parallel train step, one graph a rank (and at world 1)
+    graph_sites["dp_train_step"] = dp_launches["graph_site"]
+    site_shapes = {**entry["sites"], "dp_train_step": dp_launches["graph_site"]["shapes"]}
     counted = {k: sum(by_path[p][k] for p in eager_paths) for k in ("cgm", "nms")}
     resnet_entry = {k: {"launches": sum(by_path[p][k] for p in resnet_paths),
                         "launches_by_path": {p: v[k] for p, v in by_path.items() if p.startswith("resnet_")}}
@@ -3816,7 +4225,7 @@ def main(argv=None) -> int:
                                               for n in ONESTAGE_CLASSES},
                       "max_abs_err": one["nms_err"], "mismatches": one["nms_mismatches"], "sites": one["k2"]},
          "graph_sites": {p: {"captured_launches_per_replay": v["captured_launches_per_replay"]["nms"],
-                             "replayed_launches": v["replays"]["nms"], "shapes": entry["sites"][p]}
+                             "replayed_launches": v["replays"]["nms"], "shapes": site_shapes[p]}
                          for p, v in graph_sites.items()}},
     ])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,10 +7,15 @@ needs, for a quick check on a machine with several cards:
 It prints the card's name and power limit, builds the kernels, runs
 phase 3 (each kernel against its plain twin) on every visible card with
 --kernels, makes phase 4's 25-shot serving_vovnet cache, then runs phase
-18 over min(cards, 4) cards: sharded serving and eval, two gloo ranks
-training on cuda:0 and, with two cards or more, one NCCL rank a card. Each
-result is a JSON line; any failed check exits non-zero. The whole run is
-`python3 chip_smoke.py`.
+18 over min(cards, 4) cards: sharded serving and eval; training with the
+pinned data-parallel step at world 1 on cuda:0 against
+build_train_step_scan (and that step's time, the yardstick), two gloo
+ranks on cuda:0 (the pinned step refused, the eager one run) and, with two
+cards or more, one NCCL rank a card, each replaying one CUDA graph of the
+step with NCCL's all-reduces captured, held against the eager ranks and
+one process, its step ms with the batches on the card and with the
+loader's pulls inside. Each result is a JSON line; any failed check exits
+non-zero. The whole run is `python3 chip_smoke.py`.
 """
 
 import argparse

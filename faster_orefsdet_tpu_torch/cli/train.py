@@ -33,11 +33,14 @@ first chunk end that crosses their period (period 1000 and K 8 save at
 --num-devices N > 1 trains data-parallel (``parallel.train_dp``, the
 reference's DDP launch): N processes, rank r on cuda:r over NCCL (or N
 ranks on the CPU over gloo with --device cpu), each taking its
-ims_per_batch / N rows of every batch of the same seeded loader; one eager
-step per batch (no --steps-per-dispatch); rank 0 logs, evaluates and
-checkpoints. Checkpoints move between a data-parallel run and a single-card
-one both ways. With --eval-only, N > 1 evaluates in one process over N
-cards (``parallel.eval_dp.evaluate_sharded``).
+ims_per_batch / N rows of every batch of the same seeded loader; one step
+per batch (no --steps-per-dispatch), on the cards after two eager warm-up
+steps a replay of one CUDA graph of the whole step, NCCL's all-reduces
+captured in it (``parallel.train_dp.build_pinned_dp_train_step``), on the
+CPU an eager step; rank 0 logs, evaluates and checkpoints. Checkpoints
+move between a data-parallel run and a single-card one both ways. With
+--eval-only, N > 1 evaluates in one process over N cards
+(``parallel.eval_dp.evaluate_sharded``).
 """
 
 from __future__ import annotations
@@ -191,10 +194,11 @@ def train(args: argparse.Namespace, cfg, device, rank: int = 0, world: int = 1) 
         resume_or_load(ckpt_dir, state)
     k = max(1, args.steps_per_dispatch)
     if world > 1:
-        from ..parallel import build_dp_train_step, replicate_state, shard_batch
+        from ..parallel import replicate_state, shard_batch
+        from ..parallel.train_dp import build_pinned_dp_train_step
 
         replicate_state(state)  # after the resume: every rank continues from rank 0's state
-        dp_step = build_dp_train_step(cfg)
+        dp_step = build_pinned_dp_train_step(cfg)  # graph replays on the cards, eager steps on the CPU
 
         def take(kk):
             return dp_step(state, shard_batch(next(loader), rank, world))

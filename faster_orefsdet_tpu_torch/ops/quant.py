@@ -95,7 +95,9 @@ def qconcat(parts: Sequence[QTensor]) -> QTensor:
         vec = np.concatenate([np.broadcast_to(np.asarray(p.scale, np.float32).reshape(-1), (p.channels,))
                               for p in parts])
         return QTensor(q, _scale_vector(tuple(vec.tolist()), device=q.device))
-    scales = [torch.as_tensor(p.scale, dtype=torch.float32, device=q.device).reshape(-1).expand(p.channels)
+    # a tensor scale lies on q's device already (it was computed from q's data)
+    scales = [(p.scale.float() if isinstance(p.scale, torch.Tensor)
+               else torch.as_tensor(p.scale, dtype=torch.float32, device=q.device)).reshape(-1).expand(p.channels)
               for p in parts]
     return QTensor(q, torch.cat(scales))
 

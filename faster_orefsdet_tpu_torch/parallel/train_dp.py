@@ -16,11 +16,16 @@ train state and its rows of the global batch. The reference's collectives
 The last three travel in one flat buffer, one all-reduce a step; the
 statistics are final after the forward pass and the update does not read
 them, so averaging them there equals averaging them after the step.
+
+``build_dp_train_step`` takes each step eagerly. ``build_pinned_dp_train_step``
+is the counterpart of the JAX package's one jitted ``shard_map`` step: on
+the card each rank replays one CUDA graph a step, NCCL's all-reduces
+captured in it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -28,8 +33,10 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..config import Config
-from ..pipelines.train_step import Replica, TrainBatch, TrainState, _check_trainable, loss_fn
-from ..solver import build_schedule, optimizer_step
+from ..pipelines.train_step import (
+    Replica, StepBody, TrainBatch, TrainState, TrainStepK, _check_trainable, loss_fn,
+)
+from ..solver import build_schedule, optimizer_step, sgd_update
 from ..utils.params import is_batch_stat
 from .mesh import rank_and_world
 
@@ -85,6 +92,18 @@ def all_reduce_mean(tensors: List[torch.Tensor], world: int) -> None:
         t.copy_(part.view_as(t))
 
 
+def _average_over_ranks(state: TrainState, metrics: Dict[str, torch.Tensor], world: int
+                        ) -> Dict[str, torch.Tensor]:
+    """The step's one all-reduce: the gradients, the running statistics and
+    the metrics, each replaced by its mean over the ranks (the metrics as
+    new 0-dim tensors)."""
+    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+    stats = [t for k, t in state.model.state_dict().items() if is_batch_stat(k)]
+    values = torch.stack(list(metrics.values()))
+    all_reduce_mean(grads + stats + [values], world)
+    return dict(zip(metrics, values.unbind()))
+
+
 def dropout_seed(seed: int, rank: int, step: int) -> int:
     """The seed of rank `rank`'s dropout draws at optimizer step `step`: its
     own stream per rank (the JAX package folds the replica index into the
@@ -125,14 +144,91 @@ def build_dp_train_step(cfg: Config, deterministic: bool = False
         metrics = {"total_loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
         if world > 1:
             with record_function("all_reduce"):
-                grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-                stats = [t for k, t in state.model.state_dict().items() if is_batch_stat(k)]
-                values = torch.stack(list(metrics.values()))
-                all_reduce_mean(grads + stats + [values], world)
-                metrics = dict(zip(metrics, values.unbind()))
+                metrics = _average_over_ranks(state, metrics, world)
         with record_function("optimizer"):
             optimizer_step(state.optimizer, cfg.solver, schedule, state.step)
         state.step += 1
         return metrics
 
     return train_step
+
+
+class _ReplicaBody(StepBody):
+    """``build_dp_train_step``'s update as a ``StepBody``: the loss of the
+    rank's rows with `dp` (the positive count all-reduced), backward, the
+    one flat all-reduce, clip and SGD. Before each step the host writes the
+    LR and re-seeds the rank's dropout generator at (cfg.seed, rank, step);
+    both generators are registered with a graph of `run`."""
+
+    def __init__(self, cfg: Config, deterministic: bool):
+        super().__init__(cfg)
+        self.deterministic = deterministic
+        self.dropout: Optional[torch.Generator] = None  # the rank's, on its state's device
+
+    def replica(self, state: TrainState) -> Replica:
+        rank, world = rank_and_world()
+        if world == 1:  # build_train_step's draws
+            return Replica(rank, world, state.generator)
+        if self.dropout is None:  # made once, before any capture (a capture cannot make a generator)
+            self.dropout = torch.Generator(device=state.device)
+        return Replica(rank, world, self.dropout)
+
+    def generators(self, state: TrainState) -> List[torch.Generator]:
+        dp = self.replica(state)
+        return [state.generator] + ([dp.dropout] if dp.world > 1 else [])
+
+    def prepare(self, state: TrainState) -> None:
+        super().prepare(state)
+        dp = self.replica(state)
+        if dp.world > 1:
+            dp.dropout.manual_seed(dropout_seed(self.cfg.seed, dp.rank, state.step))
+
+    def run(self, state: TrainState, batch: TrainBatch) -> Dict[str, torch.Tensor]:
+        dp = self.replica(state)
+        total, losses = loss_fn(state.model, batch, state.generator, deterministic=self.deterministic, dp=dp)
+        total.backward()
+        metrics = {"total_loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
+        if dp.world > 1:
+            metrics = _average_over_ranks(state, metrics, dp.world)
+        sgd_update(state.optimizer, self.cfg.solver)
+        return metrics
+
+
+class PinnedDPTrainStep(TrainStepK):
+    """step(state, batch) -> metrics: ``build_pinned_dp_train_step``'s step
+    function. Its graphs, `kernel_launches()` and warm-ups are
+    ``TrainStepK``'s."""
+
+    def __call__(self, state: TrainState, batch: TrainBatch) -> Dict[str, torch.Tensor]:
+        _, world = rank_and_world()
+        if state.device.type == "cuda" and world > 1 and dist.get_backend() != "nccl":
+            raise ValueError(
+                "build_pinned_dp_train_step: a captured step needs NCCL, and this group's backend is "
+                f"{dist.get_backend()!r} (gloo copies CUDA tensors through the host, which a CUDA graph cannot "
+                "hold). Use build_dp_train_step for gloo ranks on the card, or NCCL with one rank a card."
+            )
+        out = self.step(state, batch)
+        return dict(zip(self.names, out.unbind()))
+
+
+def build_pinned_dp_train_step(cfg: Config, deterministic: bool = False) -> PinnedDPTrainStep:
+    """(state, batch) -> metrics: ``build_dp_train_step``'s update, the same
+    from the same state, batches and generators, with every step of a
+    batch shape after the first WARMUP_STEPS one CUDA graph replay on the
+    card (the counterpart of the JAX package's jitted ``shard_map`` step).
+
+    On the card, in an NCCL group: WARMUP_STEPS eager steps per batch
+    shape on a side stream of the rank's card (real steps; they also create
+    NCCL's communicator, which a capture cannot), then one capture of the
+    whole step (the loss with its positive-count all-reduce, backward, the
+    flat all-reduce of gradients, running statistics and metrics, clip and
+    SGD with each group's LR read from its device tensor); each later step
+    copies the batch in, writes the LR, re-seeds the rank's dropout
+    generator and replays. Every rank must see the same batch shapes in the
+    same order, so that all warm up and capture at the same step. At world
+    1 it is the same graph without collectives (``build_train_step_scan``'s
+    step). On the CPU it takes eager steps. On the card in a gloo group it
+    raises: gloo copies CUDA tensors through the host. The graphs hold the
+    state's tensors: one step function per train state, as
+    ``build_train_step_scan``."""
+    return PinnedDPTrainStep(cfg, _ReplicaBody(cfg, deterministic))

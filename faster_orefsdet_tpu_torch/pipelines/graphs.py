@@ -102,7 +102,10 @@ class PinnedFn:
         current.wait_stream(side)
         before = (cgm_cuda.counter.launches, nms_cuda.counter.launches)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
+        # thread_local: other threads may call the CUDA runtime meanwhile (the
+        # async predictor's producer pins host memory, its readback workers
+        # wait on events), which a global-mode capture counts as its error
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
             out = self.run(*static)
         launches = {"cgm": cgm_cuda.counter.launches - before[0], "nms": nms_cuda.counter.launches - before[1]}
         return _Graph(graph, static, out, launches)

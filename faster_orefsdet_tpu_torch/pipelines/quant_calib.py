@@ -27,6 +27,17 @@ from .inference import make_detector
 _EPS = 1e-8
 
 
+def chunk_amax(model, chunk: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """{module key: abs-max} over one chunk of canvases (the backbone and FPN
+    under dynamic quantization). It neither waits for the host nor copies to
+    it, so a CUDA graph could hold it; the pass runs it eagerly, since its
+    callers calibrate on one chunk (<= 8 images), where two warm-ups and a
+    capture cost more than they save."""
+    with record_act_amax() as rec:
+        model.features(chunk)
+    return rec
+
+
 @torch.inference_mode()
 def calibrate_act_scales(cfg: Config, params: Mapping[str, torch.Tensor], images: torch.Tensor,
                          max_batch: int = 8, *, device="cuda") -> Dict[str, float]:
@@ -48,8 +59,7 @@ def calibrate_act_scales(cfg: Config, params: Mapping[str, torch.Tensor], images
         chunk = images[i:i + step]
         if chunk.shape[0] < step:
             chunk = torch.cat([chunk, chunk[:1].expand(step - chunk.shape[0], *chunk.shape[1:])])
-        with record_act_amax() as rec:
-            model.features(chunk.to(dev).contiguous())
+        rec = chunk_amax(model, chunk.to(dev).contiguous())
         amax = rec if not amax else {k: torch.maximum(amax[k], v) for k, v in rec.items()}
     values = torch.stack([amax[k] for k in amax]).cpu().tolist()  # one read-back
     return {k: max(v / 127.0, _EPS) for k, v in zip(amax, values)}

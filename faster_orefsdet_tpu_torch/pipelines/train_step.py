@@ -263,6 +263,33 @@ def build_train_step(cfg: Config, deterministic: bool = False
 WARMUP_STEPS = 2  # eager steps of each batch shape before its capture
 
 
+class StepBody:
+    """One train step in the two parts that a CUDA graph of it splits it
+    into: `prepare`, the host's work before the step (each group's
+    scheduled LR, written to its device tensor), and `run`, the device's
+    work (``build_train_step``'s loss, backward, clip and SGD update), which
+    waits for nothing on the host and copies nothing from it, so that a
+    graph can hold it. `run` draws from `generators(state)`, which a graph
+    registers. ``TrainStepK`` drops the gradients before `run`, so that its
+    backward allocates them."""
+
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+        self.schedule = build_schedule(cfg.solver)
+
+    def generators(self, state: TrainState) -> List[torch.Generator]:
+        return [state.generator]
+
+    def prepare(self, state: TrainState) -> None:
+        set_lr(state.optimizer, self.schedule(state.step))
+
+    def run(self, state: TrainState, batch: TrainBatch) -> Dict[str, torch.Tensor]:
+        total, losses = loss_fn(state.model, batch, state.generator)
+        total.backward()
+        sgd_update(state.optimizer, self.cfg.solver)
+        return {"total_loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
+
+
 class _StepGraph:
     """One captured train step: the graph, its static batch, its output (the
     metrics stacked), the kernel launches captured into it and its replays."""
@@ -274,75 +301,80 @@ class _StepGraph:
 
 class TrainStepK:
     """step_k(state, batches) -> {metric: [len(batches)] tensor}: one train
-    step per batch on `state`, in order (see ``build_train_step_scan``)."""
+    step of `body` (default ``StepBody``) per batch on `state`, in order
+    (see ``build_train_step_scan``)."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, body: Optional[StepBody] = None):
         _check_trainable(cfg)
-        self.cfg = cfg
-        self.schedule = build_schedule(cfg.solver)
-        self.eager = build_train_step(cfg)
+        self.body = body or StepBody(cfg)
         self.graphs: Dict[tuple, _StepGraph] = {}
         self._eager_steps: Dict[tuple, int] = {}
         self._eager_launches = {"cgm": 0, "nms": 0}
         self._state: Optional[TrainState] = None
         self._stream = None
-        self._names: Optional[List[str]] = None
+        self.names: Optional[List[str]] = None  # the metrics, in the order `step` stacks them
 
     def __call__(self, state: TrainState, batches: Sequence[TrainBatch]) -> Dict[str, torch.Tensor]:
+        out = torch.stack([self.step(state, b) for b in batches])
+        return {k: out[:, i] for i, k in enumerate(self.names)}
+
+    def step(self, state: TrainState, batch: TrainBatch) -> torch.Tensor:
+        """One step on `batch`; its metrics stacked in the order of `names`."""
+        batch = batch.to(state.device)
         if state.device.type != "cuda":
-            rows = [self._counted(lambda: self.eager(state, b)) for b in batches]
-            return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+            return self._eager(state, batch)
         if self._state is None:
             self._state, self._stream = state, torch.cuda.Stream(state.device)
         elif state is not self._state:
             raise ValueError("this step function's graphs belong to another train state: build one per state")
-        rows = [self._step(state, b.to(state.device)) for b in batches]
-        out = torch.stack(rows)
-        return {k: out[:, i] for i, k in enumerate(self._names)}
-
-    def _step(self, state: TrainState, batch: TrainBatch) -> torch.Tensor:
         key = tuple((tuple(t.shape), t.stride(), t.dtype) for t in batch)
-        g = self.graphs.get(key)
-        if g is None and self._eager_steps.get(key, 0) >= WARMUP_STEPS:
-            g = self.graphs[key] = self._capture(state, batch)
-        if g is None:
-            return self._warmup(state, batch, key)
-        for static, t in zip(g.batch, batch):
-            static.copy_(t, non_blocking=True)
-        set_lr(state.optimizer, self.schedule(state.step))
-        g.graph.replay()
-        g.replays += 1
-        state.step += 1
-        return g.out.clone()  # the next replay overwrites g.out
+        with torch.cuda.device(state.device):
+            g = self.graphs.get(key)
+            if g is None and self._eager_steps.get(key, 0) >= WARMUP_STEPS:
+                g = self.graphs[key] = self._capture(state, batch)
+            if g is None:
+                return self._warmup(state, batch, key)
+            for static, t in zip(g.batch, batch):
+                static.copy_(t, non_blocking=True)
+            self.body.prepare(state)
+            g.graph.replay()
+            g.replays += 1
+            state.step += 1
+            return g.out.clone()  # the next replay overwrites g.out
 
-    def _counted(self, run):
-        """run() with the kernel launches it makes added to the eager count."""
+    def _eager(self, state: TrainState, batch: TrainBatch) -> torch.Tensor:
+        """One eager step of the body (the CPU's steps and the card's
+        warm-ups), its kernel launches added to the eager count."""
+        self.body.prepare(state)
+        state.optimizer.zero_grad(set_to_none=True)
         before = (cgm_cuda.counter.launches, nms_cuda.counter.launches)
-        out = run()
+        metrics = self.body.run(state, batch)
         self._eager_launches["cgm"] += cgm_cuda.counter.launches - before[0]
         self._eager_launches["nms"] += nms_cuda.counter.launches - before[1]
-        return out
+        state.step += 1
+        self.names = list(metrics)
+        return torch.stack(list(metrics.values()))
 
     def _warmup(self, state: TrainState, batch: TrainBatch, key: tuple) -> torch.Tensor:
-        """A real eager step on the capture's stream (lazy state is made there)."""
+        """A real eager step on the capture's stream (lazy state is made
+        there: momentum buffers, LR tensors, a communicator's first use)."""
         cur = torch.cuda.current_stream(state.device)
         self._stream.wait_stream(cur)
         with torch.cuda.stream(self._stream):
-            metrics = self._counted(lambda: self.eager(state, batch))
-            out = torch.stack(list(metrics.values()))
+            out = self._eager(state, batch)
         cur.wait_stream(self._stream)
         for t in batch:  # made on the caller's stream, read on the capture's
             t.record_stream(self._stream)
         out.record_stream(cur)
         self._eager_steps[key] = self._eager_steps.get(key, 0) + 1
-        self._names = list(metrics)
         return out
 
     def _capture(self, state: TrainState, batch: TrainBatch) -> _StepGraph:
-        """Capture loss, backward, clip and SGD update on the static batch. The
-        gradients are dropped first, so that the backward in the capture
-        allocates them from the graph's pool; the generator is registered, so
-        that each replay draws anew. A capture that fails raises."""
+        """Capture the body's `run` on the static batch. The gradients are
+        dropped first, so that the backward in the capture allocates them
+        from the graph's pool; the body's generators are registered, so that
+        each replay draws at their seed and offset of the moment. A capture
+        that fails raises."""
         static = TrainBatch(*(torch.empty_like(t) for t in batch))
         for s, t in zip(static, batch):
             s.copy_(t)
@@ -350,13 +382,12 @@ class TrainStepK:
         state.optimizer.zero_grad(set_to_none=True)
         before = (cgm_cuda.counter.launches, nms_cuda.counter.launches)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(state.generator)
-        # thread_local: the loader's thread may copy to the card meanwhile
+        for gen in self.body.generators(state):
+            graph.register_generator_state(gen)
+        # thread_local: the loader's thread may copy to the card meanwhile,
+        # and a process group's watchdog thread queries its events
         with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
-            total, losses = loss_fn(state.model, static, state.generator)
-            total.backward()
-            sgd_update(state.optimizer, self.cfg.solver)
-            out = torch.stack([total.detach(), *(v.detach() for v in losses.values())])
+            out = torch.stack(list(self.body.run(state, static).values()))
         launches = {"cgm": cgm_cuda.counter.launches - before[0], "nms": nms_cuda.counter.launches - before[1]}
         return _StepGraph(graph, static, out, launches)
 
@@ -382,8 +413,9 @@ def build_train_step_scan(cfg: Config) -> TrainStepK:
     batch in, writes the scheduled LR and replays the graph, a few host
     calls instead of some 3000 launches. The graphs hold the state's
     parameters, optimizer buffers and generator: use one step function per
-    train state, and build it anew after replacing any of them (resuming
-    before its first step is fine). On the CPU it runs k eager steps."""
+    train state, and build it anew after replacing any of them
+    (``utils.checkpoint.resume_or_load`` restores into them in place, so a
+    resume between replays is fine). On the CPU it runs k eager steps."""
     return TrainStepK(cfg)
 
 

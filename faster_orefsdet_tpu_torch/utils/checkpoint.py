@@ -62,13 +62,26 @@ def latest_step(directory: str) -> Optional[int]:
 
 def resume_or_load(directory: str, state: TrainState) -> TrainState:
     """Restore the newest checkpoint of `directory` into `state` (in place,
-    onto the state's device); without one the state is left as it is."""
+    onto the state's device); without one the state is left as it is. The
+    weights, the momentum buffers the state already has and the generator
+    keep their tensors, which a captured train step reads (a buffer the
+    checkpoint lacks is zeroed, as an update treats a missing one)."""
     step = latest_step(directory)
     if step is None:
         return state
     ckpt = torch.load(_path(directory, step), map_location=state.device, weights_only=True)
     state.model.load_state_dict(ckpt["model"])
-    state.optimizer.load_state_dict(ckpt["optimizer"])
+    opt = state.optimizer
+    held = {p: opt.state[p].get("momentum_buffer") for g in opt.param_groups for p in g["params"]}
+    opt.load_state_dict(ckpt["optimizer"])
+    for p, buf in held.items():
+        if buf is not None:
+            new = opt.state[p].get("momentum_buffer")
+            if new is None:
+                buf.zero_()
+            else:
+                buf.copy_(new)
+            opt.state[p]["momentum_buffer"] = buf
     state.generator.set_state(ckpt["generator"].cpu())
     state.step = int(ckpt["step"])
     return state

@@ -105,6 +105,8 @@ def test_new_module_imports_alone(module):
         import importlib
         for name in "{module}".split():
             importlib.import_module(f"faster_orefsdet_tpu_torch.{{name}}")
+        if "{module}" == "parallel.train_dp":
+            from faster_orefsdet_tpu_torch.parallel.train_dp import build_pinned_dp_train_step
         if "{module}" == "pipelines.attention_rpn":
             assert {{"faster_orefsdet_tpu_torch.models.resnet", "faster_orefsdet_tpu_torch.models.mobilenet",
                      "faster_orefsdet_tpu_torch.models.attention_rpn"}} <= set(sys.modules)

@@ -17,7 +17,16 @@ package and against the port's single-process step:
   resume in the ranks (continuation metrics at the metric tolerances);
 - the running BatchNorm statistics of finetune_dla (tiny BiFPN) averaged
   over the ranks: bit for bit the mean of what each rank's rows give alone;
-- outside a group the DP step equals ``build_train_step`` bit for bit;
+- ``build_pinned_dp_train_step`` (the step a CUDA graph holds on the
+  card; eager steps here) over the same batches from the same state as
+  the eager DP step: metrics and weights bit for bit every step, dropout
+  off over the trajectory and on over two batches (generators equal too);
+  its captured body (loss with the positive-count all-reduce, backward,
+  the flat all-reduce, clip and SGD) run under ``test_torch_pinned``'s
+  ``CaptureSafety`` with no op refused; on the card in a gloo group it
+  refuses (the device stubbed);
+- outside a group the DP step and the pinned one equal ``build_train_step``
+  bit for bit;
 - the small pieces: ``make_mesh``'s refusal, ``shard_batch``, the
   dropout seeds, ``centernet_losses(reg_norm=)`` against the JAX
   package's."""
@@ -44,14 +53,16 @@ from faster_orefsdet_tpu_torch.models import centernet
 from faster_orefsdet_tpu_torch.ops.heatmap import render_targets
 from faster_orefsdet_tpu_torch.parallel import build_dp_train_step, make_mesh, replicate_state, shard_batch
 from faster_orefsdet_tpu_torch.parallel.mesh import spawn_ranks
-from faster_orefsdet_tpu_torch.parallel.train_dp import all_reduce_mean, dropout_seed
+from faster_orefsdet_tpu_torch.ops import nms_cuda
+from faster_orefsdet_tpu_torch.parallel.train_dp import all_reduce_mean, build_pinned_dp_train_step, dropout_seed
 from faster_orefsdet_tpu_torch.pipelines.train_step import (
-    Replica, build_train_state, build_train_step, loss_fn, make_train_model,
+    Replica, TrainState, build_train_state, build_train_step, loss_fn, make_train_model,
 )
 from faster_orefsdet_tpu_torch.utils import checkpoint
 from faster_orefsdet_tpu_torch.utils.params import from_jax_params, init_params, is_batch_stat
 from test_torch_dla import dla_cfg
 from test_torch_parity import make_torch_state_dict
+from test_torch_pinned import _opaque, refusals
 from test_torch_train_ops import CANVAS, STRIDES, close, t, targets_pair  # noqa: F401 (a fixture)
 from test_torch_train_step import GRAD_TOL, LOSS_RTOL, make_inputs, port_batch, small
 
@@ -116,6 +127,47 @@ def _rank_job(rank, world, device, job):
     if rank == 0:
         out["params"] = {k: v.numpy().copy() for k, v in state.model.state_dict().items()}
         checkpoint.save_checkpoint(job["dp_dir"], state)
+
+    # ---- the pinned step from the same state over the same batches
+    pinned = build_train_state(cfg, job["sd"], device=device)
+    replicate_state(pinned)
+    pstep = build_pinned_dp_train_step(cfg, deterministic=True)
+    out["pinned_traj"], out["pinned_digests"] = [], []
+    for seed in TRAJECTORY_SEEDS:
+        out["pinned_traj"].append(_metrics(pstep(pinned, shard_batch(port_batch(make_inputs(seed=seed)), rank, world))))
+        out["pinned_digests"].append(_digest(pinned.model.state_dict().values()))
+    # dropout on: each rank's own draws at (seed, rank, step)
+    out["dropout"] = {}
+    for name, build in (("eager", build_dp_train_step), ("pinned", build_pinned_dp_train_step)):
+        dstate = build_train_state(cfg, job["sd"], device=device)
+        replicate_state(dstate)
+        fn = build(cfg)
+        rows = [_metrics(fn(dstate, shard_batch(port_batch(make_inputs(seed=seed)), rank, world)))
+                for seed in TRAJECTORY_SEEDS[:2]]
+        out["dropout"][name] = (rows, _digest(dstate.model.state_dict().values()),
+                                dstate.generator.get_state().numpy().tobytes())
+    # the body the card captures, one step of it under CaptureSafety
+    body, rows = fn.body, shard_batch(port_batch(make_inputs(seed=CONTINUE_SEED)), rank, world)
+
+    def body_step():
+        body.prepare(dstate)
+        dstate.optimizer.zero_grad(set_to_none=True)
+        body.run(dstate, rows)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(nms_cuda, "nms_mask_plain", _opaque(nms_cuda.nms_mask_plain))  # one launch on the card
+    try:
+        out["refused"] = refusals(body_step)
+    finally:
+        mp.undo()
+    # a CUDA state in this gloo group: refused before any work
+    mp.setattr(TrainState, "device", property(lambda self: torch.device("cuda", rank)))
+    try:
+        build_pinned_dp_train_step(cfg)(dstate, rows)
+    except ValueError as e:
+        out["gloo_refusal"] = str(e)
+    finally:
+        mp.undo()
 
     # ---- a single-process checkpoint resumed by the ranks
     resumed = checkpoint.resume_or_load(job["sd_dir"], build_train_state(cfg, job["sd"], device=device, seed=99))
@@ -219,6 +271,33 @@ def test_two_ranks_follow_one_process(run):
     assert moved > 40
 
 
+def test_pinned_step_equals_the_eager_step(run):
+    """build_pinned_dp_train_step against build_dp_train_step from the same
+    state over the same batches on both ranks: dropout off over the
+    trajectory, on over two batches (it changes the losses), every metric
+    and the weights after every step bit for bit, the generators equal, the
+    replicas equal."""
+    r0, r1 = run["ranks"]
+    for r in (r0, r1):
+        assert r["pinned_traj"] == r["traj"]
+        assert r["pinned_digests"] == r["digests"]
+        assert r["dropout"]["pinned"] == r["dropout"]["eager"]
+        assert r["dropout"]["eager"][0][0] != r["traj"][0]
+    assert r0["pinned_digests"] == r1["pinned_digests"]
+    assert r0["dropout"]["pinned"][1:] == r1["dropout"]["pinned"][1:]
+
+
+def test_pinned_body_is_capture_safe(run):
+    """The step body a CUDA graph holds on the card, with its collectives,
+    has no host sync, no data-sized op and no host copy on either rank."""
+    assert [r["refused"] for r in run["ranks"]] == [[], []]
+
+
+def test_pinned_step_refuses_gloo_on_the_card(run):
+    for r in run["ranks"]:
+        assert "needs NCCL" in r["gloo_refusal"] and "'gloo'" in r["gloo_refusal"], r["gloo_refusal"]
+
+
 def test_checkpoints_cross_topologies(run):
     """A checkpoint of the ranks resumes in one process with their weights;
     the one process's resumes in the ranks; both continue alike on the same
@@ -263,6 +342,23 @@ def test_world_one_equals_build_train_step():
     for (k, va), vb in zip(a.model.state_dict().items(), b.model.state_dict().values()):
         assert torch.equal(va, vb), k
     assert torch.equal(a.generator.get_state(), b.generator.get_state()) and a.step == b.step == 2
+
+
+def test_pinned_world_one_equals_build_train_step():
+    """Outside a process group the pinned DP step (eager steps on the CPU)
+    is build_train_step, bit for bit, dropout and ROI sampling on."""
+    cfg = small(get_config("finetune_vovnet"))
+    sd = init_params(cfg, seed=1)
+    a, b = build_train_state(cfg, sd, device="cpu"), build_train_state(cfg, sd, device="cpu")
+    step_a, step_b = build_train_step(cfg), build_pinned_dp_train_step(cfg)
+    for seed in (1, 2):
+        batch = port_batch(make_inputs(seed=seed))
+        ma, mb = step_a(a, batch), step_b(b, batch)
+        assert ma.keys() == mb.keys() and all(torch.equal(ma[k], mb[k]) for k in ma)
+    for (k, va), vb in zip(a.model.state_dict().items(), b.model.state_dict().values()):
+        assert torch.equal(va, vb), k
+    assert torch.equal(a.generator.get_state(), b.generator.get_state()) and a.step == b.step == 2
+    assert not step_b.graphs and step_b.kernel_launches() == {"cgm": 0, "nms": 0}
 
 
 def test_make_mesh(monkeypatch):

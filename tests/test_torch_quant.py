@@ -50,9 +50,11 @@ from faster_orefsdet_tpu_torch.models import layers
 from faster_orefsdet_tpu_torch.models.detector import CenterNet2Detector
 from faster_orefsdet_tpu_torch.ops import quant
 from faster_orefsdet_tpu_torch.pipelines import inference as tinf
+from faster_orefsdet_tpu_torch.pipelines import quant_calib
 from faster_orefsdet_tpu_torch.pipelines.quant_calib import calibrate_act_scales, load_act_scales, save_act_scales
 from faster_orefsdet_tpu_torch.utils.params import from_jax_params
 from test_torch_parity import make_torch_state_dict
+from test_torch_pinned import refusals
 
 DEQUANT_RTOL = 1e-6  # the same f32 products of the same int32 and scales
 LEVEL_TOL = 1e-3  # of each FPN level's largest |value|: a rare int8 rounding flip upstream
@@ -419,6 +421,24 @@ def test_calibration_matches_jax(weights, name, tmp_path):
     jcalib.save_act_scales(str(tmp_path / "jax.json"), ref)
     assert load_act_scales(str(tmp_path / "jax.json")) == ref
     assert (tmp_path / "port.json").read_text() == (tmp_path / "jax_of_port.json").read_text()
+
+
+def test_calibration_chunk_is_capture_safe(weights):
+    """The calibration pass's chunk body (the backbone and FPN under
+    record_act_amax): no host sync, no data-sized op, no host copy
+    (``test_torch_pinned``'s CaptureSafety), so a CUDA graph could hold it;
+    its abs-maxes are the pass's scales on that chunk."""
+    _, sd = weights
+    x = _nchw(_x(21, (3, 64, 96, 3)))
+    for name in STATIC_PRESETS:
+        cfg = get_config(name).replace(compute_dtype="float32")
+        model = tinf.make_detector(cfg, sd, device="cpu")
+        with torch.inference_mode():
+            assert refusals(lambda c: torch.stack(list(quant_calib.chunk_amax(model, c).values())), x[:2]) == [], name
+            amax = quant_calib.chunk_amax(model, x[:2])
+        scales = calibrate_act_scales(cfg, sd, x[:2], max_batch=2, device="cpu")
+        assert list(amax) == list(scales), name
+        assert all(scales[k] == max(float(v) / 127.0, 1e-8) for k, v in amax.items()), name
 
 
 def test_calibration_refusals_match_jax(weights):

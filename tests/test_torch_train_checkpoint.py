@@ -51,6 +51,28 @@ def test_resume_equals_uninterrupted(tmp_path):
     assert torch.equal(full.generator.get_state(), resumed.generator.get_state())
 
 
+def test_resume_restores_in_place(tmp_path):
+    """A checkpoint restored into a state that has taken steps (as between
+    the replays of a captured step): the weights, the momentum buffers and
+    the generator keep their tensors and take the checkpoint's values; the
+    next step equals the one taken after the save."""
+    cfg = small(get_config("finetune_vovnet"))
+    state = build_train_state(cfg, init_params(cfg, seed=0), device="cpu")
+    step, batches = build_train_step(cfg), [port_batch(make_inputs(seed=s)) for s in (1, 2)]
+    step(state, batches[0])
+    checkpoint.save_checkpoint(str(tmp_path), state)
+    after_save = {k: float(v) for k, v in step(state, batches[1]).items()}
+    opt = state.optimizer
+    held = [*state.model.state_dict().values(), *(opt.state[p]["momentum_buffer"] for g in opt.param_groups
+                                                   for p in g["params"])]
+    checkpoint.resume_or_load(str(tmp_path), state)
+    now = [*state.model.state_dict().values(), *(opt.state[p]["momentum_buffer"] for g in opt.param_groups
+                                                  for p in g["params"])]
+    assert len(now) == len(held) and all(a.data_ptr() == b.data_ptr() for a, b in zip(held, now))
+    assert state.step == 1
+    assert {k: float(v) for k, v in step(state, batches[1]).items()} == after_save
+
+
 def test_keeps_the_last_five(tmp_path):
     cfg = small(get_config("finetune_vovnet"))
     state = build_train_state(cfg, device="cpu")
