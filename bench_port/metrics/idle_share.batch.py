@@ -1,0 +1,9 @@
+"""Share of the traced window in which no operation ran on the device, in
+percent: 1 - the union of the device operations' intervals over the window,
+both from the same trace."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
