@@ -17,6 +17,8 @@ from faster_orefsdet_tpu_torch.pipelines.preprocess import ceil_to, preprocess_h
 from faster_orefsdet_tpu_torch.pipelines.support_cache import SupportCache
 from faster_orefsdet_tpu_torch.utils.params import init_params
 
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
+
 
 @pytest.fixture(scope="module")
 def setup():

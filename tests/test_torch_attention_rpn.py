@@ -50,6 +50,7 @@ from faster_orefsdet_tpu_torch.utils.params import from_jax_params, init_baselin
 from test_torch_dla import assert_close_of_largest
 from test_torch_resnet import perturb_norms
 from test_torch_slice import _assert_detections_match, _np
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 OUT_TOL = 1e-4
 RTOL = 1e-5

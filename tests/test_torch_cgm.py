@@ -17,6 +17,8 @@ from faster_orefsdet_tpu.ops.pallas_cgm import cgm_correlate_fused as jax_fused
 from faster_orefsdet_tpu_torch.ops import cgm_cuda
 from faster_orefsdet_tpu_torch.ops.correlation import cgm_correlate
 
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
+
 C = 128
 
 

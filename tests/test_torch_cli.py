@@ -38,6 +38,7 @@ from faster_orefsdet_tpu_torch.utils.torch_convert import convert_torch_checkpoi
 from test_torch_eval import _assert_fed_match
 from test_torch_parity import make_torch_state_dict
 from test_torch_preprocess import HOST_U8_ATOL
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 SEED = 3  # the weights of test_torch_eval's parity
 JAX_RESIZE = jax_preprocess.resize_image_host  # the JAX package's own (cv2), before the module's swap

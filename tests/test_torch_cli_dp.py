@@ -12,33 +12,27 @@
   frame by frame by test_torch_cli.py's criteria, and the demo's
   refusals."""
 
+import functools
 import json
 import os
 
 import cv2
 import numpy as np
 import pytest
-import torch
 
 from faster_orefsdet_tpu_torch.cli import demo
 from faster_orefsdet_tpu_torch.cli import train as cli
 from faster_orefsdet_tpu_torch.cli.build_support import build_support, cv2_resize
 from faster_orefsdet_tpu_torch.data.synthetic import make_synthetic_setup
+from faster_orefsdet_tpu_torch.parallel import mesh
 from faster_orefsdet_tpu_torch.utils import checkpoint
 from test_torch_cli import TINY, _assert_match, _run_demo, workflow  # noqa: F401 (a fixture)
 from test_torch_cli_video import FRAMES, _frames, clip  # noqa: F401 (a fixture)
 from test_torch_train_checkpoint import TINY as TRAIN_TINY
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
+RANKS_TIMEOUT_S = 300  # each two-rank run of the CLI (the whole test takes 15-23 s under the suite's load)
 
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The suite's workers share the machine's cores, and the ranks this
-    module spawns run on one thread each: one torch thread here too (as
-    test_torch_quant_serving.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 @pytest.fixture(scope="module")
 def train_data(tmp_path_factory):
@@ -53,7 +47,9 @@ def _rows(out):
     return [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
 
 
-def test_train_dp_resume_and_eval(train_data, tmp_path, capfd):
+def test_train_dp_resume_and_eval(train_data, tmp_path, capfd, monkeypatch):
+    # the CLI's ranks under a limit: a rank that hangs fails this test, not the suite's run
+    monkeypatch.setattr(mesh, "spawn_ranks", functools.partial(mesh.spawn_ranks, timeout=RANKS_TIMEOUT_S))
     data, root = train_data
     out = tmp_path / "run"
     test = ["--test-json", str(root / "instances.json"), "--test-images", str(root / "images")]

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from test_torch_cli import TINY, _assert_match, _run_demo, workflow  # noqa: F401 (a fixture)
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 FRAMES, FRAME_BATCH, FRAME_WH = 6, 4, (128, 96)
 

@@ -10,6 +10,8 @@ from faster_orefsdet_tpu.config import _NAMED_CONFIGS as JAX_NAMED_CONFIGS
 from faster_orefsdet_tpu.config import get_config as jax_get_config
 from faster_orefsdet_tpu_torch.config import PRESETS, get_config
 
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
+
 
 def test_presets_are_jax_presets():
     assert set(PRESETS) == set(JAX_NAMED_CONFIGS)

@@ -16,6 +16,8 @@ from faster_orefsdet_tpu import config_yaml as jax_config_yaml
 from faster_orefsdet_tpu_torch import config_yaml
 from faster_orefsdet_tpu_torch.config import get_config
 
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
+
 CONFIGS = Path(__file__).resolve().parent.parent / "configs" / "fsod"
 FILES = sorted(p.name for p in CONFIGS.glob("*.yaml"))
 LIVE = ["finetune_vovnet.yaml", "finetune_dla.yaml", "finetune_R_50_C4_1x.yaml"]

@@ -16,6 +16,7 @@ from faster_orefsdet_tpu_torch.utils import torch_convert
 from faster_orefsdet_tpu_torch.utils.params import from_jax_params
 from test_dla_converter import build_state_dict as build_dla_state_dict
 from test_torch_parity import make_torch_state_dict
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 
 def _np_tree(tree):

@@ -12,9 +12,16 @@ Tolerances: outputs within 1e-4 of each map's largest |value|; running
 statistics rtol 1e-5 with a floor of 1e-5 of each tensor's largest |value|
 (a deep layer's batch mean near 0 inherits its input's 1e-6 differences);
 losses rtol 1e-4; gradients within 1e-3 of each tensor's largest |grad|,
-the port in f64 (see `port_loss`). Measured worst: outputs 3.4e-5 (train) /
-3.7e-6 (eval) of the largest, statistics 2.5e-6 of the largest, losses
-6.0e-6 (f32) / 1.2e-7 (f64) relative, gradients 2.3e-6 of the largest."""
+the port in f64 (see `port_loss`). Measured worst: outputs 3.4e-5 (train;
+the backbone's dla5, at the module's 8 torch threads) / 3.7e-6 (eval) of the
+largest, statistics 2.5e-6 of the largest, losses 6.0e-6 (f32) / 1.2e-7
+(f64) relative, gradients 2.3e-6 of the largest.
+
+The module runs at 8 torch threads (`calibrated_threads`), the count its
+train-mode tolerance was set at: torch's CPU ``batch_norm(training=True)``
+on a channels-last map (every conv output here) sums each thread's rows in
+sequence, so the backbone's train-mode dla5 reads 1.4e-4 of its largest
+at one thread, 6.9e-5 at two and 3.4e-5 at eight."""
 
 import dataclasses
 
@@ -42,6 +49,7 @@ from faster_orefsdet_tpu_torch.utils.params import (
     from_jax_params, init_params, is_batch_stat, to_jax_batch_stats, to_jax_params,
 )
 from test_torch_train_step import from_jax_params_labels, make_inputs, port_batch, small
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 OUT_TOL = 1e-4  # of each map's largest |value|
 STAT_RTOL = 1e-5
@@ -66,6 +74,19 @@ def assert_close_of_largest(got, ref, tol, what):
 
 def assert_stats_close(got, ref, what):
     np.testing.assert_allclose(got, ref, rtol=STAT_RTOL, atol=STAT_RTOL * float(np.abs(ref).max()), err_msg=what)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def calibrated_threads():
+    """This module's one exception to the suite's thread budget
+    (tests/torch_budget.py): 8 torch threads, whatever the machine, so that
+    the train-mode BatchNorm statistics are summed as when OUT_TOL was set
+    (the module docstring has the errors at 1, 2 and 8 threads; ROADMAP.md's
+    Queue C has what would let it go)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(8)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

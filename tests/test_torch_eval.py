@@ -33,6 +33,7 @@ from faster_orefsdet_tpu_torch.pipelines import evaluate, preprocess
 from faster_orefsdet_tpu_torch.utils.params import from_jax_params
 from test_torch_parity import make_torch_state_dict
 from test_torch_slice import SCORE_ATOL
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 AP_ATOL = 1e-9
 EVAL_AP_POINTS = 0.5

@@ -14,6 +14,8 @@ import pytest
 from faster_orefsdet_tpu.utils.events import EventLogger as JaxEventLogger
 from faster_orefsdet_tpu_torch.utils.events import EventLogger
 
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
+
 STEPS = [(1, {"loss_cls": 0.5, "total_loss": 1.5}, 1), (2, {"loss_cls": 0.25, "total_loss": 1.0}, 4),
          (3, {"ap": 12.5}, 0)]
 

@@ -18,6 +18,8 @@ from faster_orefsdet_tpu.ops import correlation as jax_corr
 import faster_orefsdet_tpu_torch.models as models
 import faster_orefsdet_tpu_torch.ops as ops
 
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
+
 REPO = Path(__file__).resolve().parent.parent
 
 

@@ -35,6 +35,8 @@ from faster_orefsdet_tpu_torch.data import coco, samplers
 from faster_orefsdet_tpu_torch.ops import fed_loss
 from faster_orefsdet_tpu_torch.utils import profiling
 
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
+
 LOSS_RTOL = 1e-6
 
 

@@ -24,6 +24,8 @@ from faster_orefsdet_tpu_torch.parallel.eval_dp import evaluate_sharded
 from faster_orefsdet_tpu_torch.parallel.mesh import Mesh
 from faster_orefsdet_tpu_torch.utils import profiling
 
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
+
 REPO = Path(__file__).resolve().parent.parent
 
 

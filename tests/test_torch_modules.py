@@ -20,6 +20,7 @@ from faster_orefsdet_tpu_torch.ops.roi_align import assign_levels, multilevel_ro
 from faster_orefsdet_tpu_torch.pipelines.inference import make_detector
 from faster_orefsdet_tpu_torch.utils.params import from_jax_params
 from test_torch_parity import make_torch_state_dict
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 LEVELS = ("p3", "p4", "p5")

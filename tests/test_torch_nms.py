@@ -12,6 +12,8 @@ from faster_orefsdet_tpu.ops import nms as jnms
 from faster_orefsdet_tpu_torch.ops import nms as tnms
 from faster_orefsdet_tpu_torch.ops import nms_cuda
 
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
+
 
 def _scene(rng, k, n_valid, spread=200.0, size=40.0):
     centers = rng.uniform(0, spread, (k, 2)).astype(np.float32)

@@ -37,6 +37,7 @@ from faster_orefsdet_tpu_torch.utils.params import from_jax_params, init_onestag
 from test_composed_parity_full import greedy_match
 from test_torch_dla import assert_close_of_largest, nhwc
 from test_torch_zoo import jax_shapes
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 P7_LEVELS, P7_STRIDES = ("p3", "p4", "p5", "p6", "p7"), (8, 16, 32, 64, 128)
 CANVAS, IMAGE_HW = (256, 384), (256.0, 360.0)

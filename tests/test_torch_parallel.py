@@ -65,6 +65,7 @@ from test_torch_parity import make_torch_state_dict
 from test_torch_pinned import _opaque, refusals
 from test_torch_train_ops import CANVAS, STRIDES, close, t, targets_pair  # noqa: F401 (a fixture)
 from test_torch_train_step import GRAD_TOL, LOSS_RTOL, make_inputs, port_batch, small
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 WORLD = 2
 METRIC_RTOL, METRIC_ATOL = 5e-4, 1e-5  # tests/test_parallel_dp.py's
@@ -73,16 +74,6 @@ TRAJECTORY_SEEDS = (11, 12, 13)  # a global batch of 2 a step
 CONTINUE_SEED, BN_SEED = 14, 21
 RANKS_TIMEOUT_S = 600
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The suite's workers share the machine's cores, and the ranks this
-    module spawns run on one thread each: one torch thread here too (as
-    test_torch_quant_serving.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def _digest(tensors) -> str:
     h = hashlib.sha256()

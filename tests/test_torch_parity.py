@@ -23,6 +23,8 @@ from faster_orefsdet_tpu.pipelines.inference import make_detector
 from faster_orefsdet_tpu.utils.params import init_params, param_count
 from faster_orefsdet_tpu.utils.torch_convert import convert_torch_checkpoint
 
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
+
 
 # ---------------------------------------------------------- synthetic ckpt
 def _rand(shape, g, std=None):

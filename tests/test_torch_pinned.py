@@ -39,6 +39,7 @@ from faster_orefsdet_tpu_torch.pipelines import onestage
 from faster_orefsdet_tpu_torch.pipelines.support_cache import SupportCache, stack_support_caches
 from faster_orefsdet_tpu_torch.utils.params import init_baseline_params, init_onestage_params, init_params
 from test_torch_onestage import p3_p7
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 FRAME_HW, CANVAS, IMAGE_HW = (120, 160), (96, 128), (96.0, 120.0)
 ONESTAGE_CANVAS, ONESTAGE_HW = (256, 384), (256.0, 360.0)

@@ -14,6 +14,8 @@ import torch
 from faster_orefsdet_tpu.pipelines import preprocess as jp
 from faster_orefsdet_tpu_torch.pipelines import preprocess as tp
 
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
+
 DEVICE_ATOL = 2e-3  # f32 sums in another order (JAX's CPU einsum is ~9e-4 off the exact value)
 HOST_U8_ATOL = 1  # cv2 rounds its weights to fixed point
 HOST_F32_ATOL = 0.02  # cv2 holds f32 weights in a fixed-point table too

@@ -55,21 +55,10 @@ from faster_orefsdet_tpu_torch.pipelines.quant_calib import calibrate_act_scales
 from faster_orefsdet_tpu_torch.utils.params import from_jax_params
 from test_torch_parity import make_torch_state_dict
 from test_torch_pinned import refusals
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 DEQUANT_RTOL = 1e-6  # the same f32 products of the same int32 and scales
 LEVEL_TOL = 1e-3  # of each FPN level's largest |value|: a rare int8 rounding flip upstream
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """This module's tensors are small, and the suite's workers share the
-    machine's cores: one torch thread each runs them fastest, where a full
-    thread pool per worker oversubscribes the cores (measured 10-100x slower
-    requests under load)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _nchw(a):

@@ -56,23 +56,12 @@ from test_torch_eval import _assert_tables_close
 from test_torch_parity import make_torch_state_dict
 from test_torch_serving import _cache_arrays, _small
 from test_torch_slice import _assert_detections_match, _np
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 PRESETS = ("serving_vovnet_int8", "serving_vovnet_int8_static", "serving_vovnet_int8_resident")
 STATIC_PRESETS = PRESETS[1:]
 HW = (96.0, 120.0)  # true size on the 96x128 canvas
 BATCH_SCORE_ATOL = 1e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """This module's tensors are small, and the suite's workers share the
-    machine's cores: one torch thread each runs them fastest, where a full
-    thread pool per worker oversubscribes the cores (measured 10-100x slower
-    requests under load)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _assert_match(got, ref, score_atol):

@@ -45,6 +45,7 @@ from faster_orefsdet_tpu_torch.utils.torch_convert import convert_torchvision_re
 from test_torch_dla import assert_close_of_largest, nhwc
 from test_torch_slice import _assert_detections_match, _np
 from test_torch_train_step import make_inputs, port_batch, small
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 OUT_TOL = 1e-4
 LOSS_RTOL, GRAD_TOL = 1e-4, 1e-3

@@ -33,20 +33,11 @@ from faster_orefsdet_tpu_torch.pipelines.quant_calib import calibrate_act_scales
 from test_torch_eval import AP_KEYS, _assert_fed_match, _record_fed_detections
 from test_torch_serving import FRAME_HW, _frames, pair  # noqa: F401 (a fixture)
 from test_torch_slice import _assert_detections_match, _np
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 BOX_ATOL, SCORE_ATOL = 1e-3, 1e-5  # tests/test_serve_dp.py's
 MESH = 2
 BATCH = 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Small tensors, and the suite's workers share the machine's cores: one
-    torch thread each (as test_torch_quant_serving.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _nchw(frames):

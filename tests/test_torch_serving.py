@@ -27,6 +27,7 @@ from faster_orefsdet_tpu_torch.utils.params import from_jax_params
 from test_composed_parity_full import greedy_match
 from test_torch_parity import make_torch_state_dict
 from test_torch_slice import _assert_detections_match, _np
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 FRAME_HW = (120, 160)
 BOX_RTOL, BOX_ATOL, SCORE_RTOL, SCORE_ATOL = 1e-4, 1e-3, 1e-4, 1e-5  # test_multiclass.py's

@@ -26,6 +26,7 @@ from faster_orefsdet_tpu_torch.pipelines.support_cache import (
 from faster_orefsdet_tpu_torch.utils.params import from_jax_params
 from test_composed_parity_full import greedy_match
 from test_torch_parity import make_torch_state_dict
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 CACHE_TOL = dict(rtol=1e-3, atol=2e-4)
 SCORE_ATOL = 2e-4

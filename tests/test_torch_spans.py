@@ -25,6 +25,8 @@ from faster_orefsdet_tpu_torch.pipelines.support_cache import SupportCache
 from faster_orefsdet_tpu_torch.structures.instances import Detections
 from faster_orefsdet_tpu_torch.utils import profiling
 
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
+
 QUERY_STAGES = {"features", "correlate", "proposal_head", "decode_proposals", "roi_stage", "roi_inference"}
 K = 6  # proposals a row in the stub
 

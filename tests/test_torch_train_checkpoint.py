@@ -24,6 +24,7 @@ from faster_orefsdet_tpu_torch.utils import checkpoint
 from faster_orefsdet_tpu_torch.utils.params import from_jax_params, init_params
 from test_torch_parity import make_torch_state_dict
 from test_torch_train_step import make_inputs, port_batch, small
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 
 def test_resume_equals_uninterrupted(tmp_path):

@@ -26,6 +26,8 @@ from faster_orefsdet_tpu_torch.data.loader import collate, train_canvas, train_l
 from faster_orefsdet_tpu_torch.data.mapper import EpisodicMapper, SupportSampler
 from faster_orefsdet_tpu_torch.data.synthetic import make_synthetic_setup
 
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
+
 
 def small(cfg, crop=240):
     return cfg.replace(fs=dataclasses.replace(cfg.fs, support_shot=3, support_crop_size=crop),

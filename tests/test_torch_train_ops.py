@@ -24,6 +24,8 @@ from faster_orefsdet_tpu_torch.ops import heatmap, losses
 from faster_orefsdet_tpu_torch.structures import boxes
 from faster_orefsdet_tpu_torch.structures.instances import GroundTruth
 
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 CANVAS = (96, 128)
 STRIDES = (8, 16, 32)

@@ -26,6 +26,7 @@ from faster_orefsdet_tpu_torch.utils import checkpoint
 from faster_orefsdet_tpu_torch.utils.params import init_params, is_batch_stat
 from test_torch_train_checkpoint import TINY
 from test_torch_train_step import make_inputs, port_batch, small
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 CONFIGS = Path(__file__).resolve().parent.parent / "configs" / "fsod"
 

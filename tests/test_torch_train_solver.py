@@ -17,6 +17,8 @@ from faster_orefsdet_tpu.config import SolverConfig as JaxSolverConfig
 from faster_orefsdet_tpu_torch import solver
 from faster_orefsdet_tpu_torch.config import SolverConfig
 
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
+
 COUNTS = (0, 250, 499, 500, 10000, 10999, 11000, 11999)
 
 

@@ -34,6 +34,7 @@ from faster_orefsdet_tpu_torch.pipelines.train_step import (
 from faster_orefsdet_tpu_torch.solver import param_labels
 from faster_orefsdet_tpu_torch.utils.params import from_jax_params
 from test_torch_parity import make_torch_state_dict
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 LOSS_RTOL = 1e-4
 GRAD_TOL = 1e-3  # of each tensor's largest |grad|

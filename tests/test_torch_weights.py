@@ -13,6 +13,7 @@ from faster_orefsdet_tpu_torch.config import get_config
 from faster_orefsdet_tpu_torch.models.detector import CenterNet2Detector
 from faster_orefsdet_tpu_torch.utils.params import from_jax_params, init_params
 from test_torch_parity import make_torch_state_dict
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,7 @@ from faster_orefsdet_tpu_torch.models.vovnet import VOVNET_STAGE_SPECS, DWConvNo
 from faster_orefsdet_tpu_torch.utils.params import from_jax_params
 from test_torch_dla import assert_close_of_largest, nhwc
 from test_torch_resnet import images, jax_module, port_module
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 OUT_TOL = 1e-4
 STAGES = ("stage2", "stage3", "stage4", "stage5")

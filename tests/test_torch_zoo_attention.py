@@ -33,6 +33,7 @@ from faster_orefsdet_tpu_torch.utils.params import from_jax_params
 from test_deform_conv import _ref_dcn
 from test_torch_dla import STAT_RTOL, assert_close_of_largest, nhwc
 from test_torch_resnet import perturb_norms
+import torch_budget  # noqa: F401 (the suite's torch thread budget)
 
 DCN_TOL, UP_TOL, OUT_TOL = 1e-5, 1e-6, 1e-4
 
