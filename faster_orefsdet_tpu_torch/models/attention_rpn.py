@@ -10,8 +10,8 @@ channel-last, as the JAX package and the support cache keep them:
   features              images [B, 3, H, W] -> res4 [B, 1024, h, w]
   enhance_support_rpn   tokens [S, 196, 1024] -> map [1, 14, 14, 1024]
   enhance_support_rcnn  tokens [S, 49, 2048] -> map [1, 7, 7, 2048]
-  rpn_attention         res4 [1, 1024, h, w], map [1, 14, 14, 1024] -> [1, 1024, h, w]
-  rpn_head              [1, 1024, h, w] -> logits [h*w*A], deltas [h*w*A, 4]
+  rpn_attention         res4 [B, 1024, h, w], map [1, 14, 14, 1024] -> [B, 1024, h, w]
+  rpn_head              [B, 1024, h, w] -> logits [B, h*w*A], deltas [B, h*w*A, 4]
   res5_transform        pooled ROIs [R, 14, 14, 1024] -> [R, 7, 7, 2048]
   relation              [R, 7, 7, 2048], [1, 7, 7, 2048] -> StagePred
 
@@ -226,11 +226,11 @@ class PolarizedChannelAttention(nn.Module):
         self.ln = LayerNorm(channel)
 
     def forward(self, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-        """x: pooled query [1, H, W, C]; q: support map [1, H, W, C], both
-        channel-last, flattened in their own (H, W) order -> weight [1, C]."""
+        """x: pooled queries [B, H, W, C]; q: support map [1, H, W, C], both
+        channel-last, flattened in their own (H, W) order -> weight [B, C]."""
         b = x.shape[0]
-        wv = self.ch_wv(x).reshape(b, -1, x.shape[-1] // 2)  # [1, HW, C/2]
-        wq = torch.softmax(self.ch_wq(q).reshape(b, -1, 1), dim=1)  # [1, HW, 1]
+        wv = self.ch_wv(x).reshape(b, -1, x.shape[-1] // 2)  # [B, HW, C/2]
+        wq = torch.softmax(self.ch_wq(q).reshape(q.shape[0], -1, 1), dim=1).expand(b, -1, -1)  # [B, HW, 1]
         wz = torch.einsum("bnc,bno->bc", wv, wq)
         return torch.sigmoid(self.ln(self.ch_wz(wz)))
 
@@ -313,14 +313,15 @@ class FsodRCNN(nn.Module):
         """channel attention (PSA on the 14x14-pooled query, queried by the
         support) times the query, plus the query scaled by the support's
         mean vector (a 1x1 depthwise correlation)."""
-        pooled_q = adaptive_avg_pool2d(query_res4, (14, 14)).permute(0, 2, 3, 1)  # [1, 14, 14, C]
+        pooled_q = adaptive_avg_pool2d(query_res4, (14, 14)).permute(0, 2, 3, 1)  # [B, 14, 14, C]
         cw = self.channel_attention(pooled_q, support_map)[:, :, None, None]
         sup_vec = support_map.mean(dim=(1, 2))[:, :, None, None]
         return cw * query_res4 + query_res4 * sup_vec
 
     def rpn_head(self, pos_features: torch.Tensor):
-        logits, deltas = self.rpn_head_mod(pos_features)  # [1, A, h, w], [1, 4A, h, w]
-        return logits.permute(0, 2, 3, 1).reshape(-1), deltas.permute(0, 2, 3, 1).reshape(-1, 4)
+        logits, deltas = self.rpn_head_mod(pos_features)  # [B, A, h, w], [B, 4A, h, w]
+        b = logits.shape[0]
+        return logits.permute(0, 2, 3, 1).reshape(b, -1), deltas.permute(0, 2, 3, 1).reshape(b, -1, 4)
 
     def res5_transform(self, pooled: torch.Tensor) -> torch.Tensor:
         x = pooled.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)

@@ -4,10 +4,13 @@ and the episodic training loss (counterpart of
 
   cache      res4 of each shot, its box pooled to 14x14, res5 on that; the
              dense-relation enhancement of both, shot-averaged, per class
-  inference  per class: attention RPN -> proposals (the NMS kernel on the
-             card, one launch for every class) -> 14x14 ROI pooling ->
-             res5 -> relation head; then the class-aware NMS across classes
-             (the NMS kernel again) and the top detections
+  inference  a batch of canvases, per class: attention RPN -> proposals
+             (the NMS kernel on the card, one launch for every image and
+             class) -> 14x14 ROI pooling -> res5 -> relation head; then the
+             class-aware NMS across classes (the NMS kernel again, one
+             launch for the batch) and the top detections
+             (``baseline_query_path``); raw camera frames resized, normalized
+             and padded on the card first (``build_pinned_baseline_serving_fn``)
   training   the same per image with the RPN's anchor losses, the ROI
              sampler and the relation head's hard-negative CE; on the card a
              step is ``baseline_loss_fn`` + ``backward`` + ``solver.sgd_update``
@@ -24,7 +27,7 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..config import ROIConfig
+from ..config import InputConfig, ROIConfig
 from ..models.attention_rpn import (
     FsodRCNN, generate_anchors, rpn_label_anchors, rpn_losses, rpn_predict_proposals,
 )
@@ -35,8 +38,10 @@ from ..ops.losses import smooth_l1_loss
 from ..ops.roi_align import roi_align
 from ..structures.boxes import apply_deltas, clip_boxes, encode_deltas
 from ..structures.instances import Detections, GroundTruth
+from ..utils import profiling
 from ..utils.device import resolve_device
 from .graphs import PinnedFn
+from .preprocess import ceil_to, preprocess_device, resize_shortest_edge_size
 from .train_step import TrainBatch
 
 
@@ -123,33 +128,63 @@ def build_baseline_cache(cfg: BaselineConfig, params: Mapping[str, torch.Tensor]
 
 
 @torch.inference_mode()
+def baseline_query_path(model: FsodRCNN, cache: BaselineSupportCache, images: torch.Tensor,
+                        image_hw: torch.Tensor, cfg: BaselineConfig,
+                        box_scale: Optional[torch.Tensor] = None) -> Detections:
+    """Canvases [B, 3, H, W] normalized and their image_hw [B, 2] (h, w)
+    before padding, through the per-class protocol -> Detections
+    [B, min(detections_per_image, N x rpn_post_nms_topk_test)] (classes
+    index the cache's N classes). The batch runs through every phase, the
+    NMS kernel included: one launch for the B x N proposal rows, one for
+    the B class-aware rows. `box_scale` [4] (x, y, x, y), when given,
+    multiplies the boxes (back to frame coordinates). Each phase is a
+    ``utils.profiling.stage``."""
+    b = images.shape[0]
+    n_cls = cache.res4_avg.shape[0]
+    with profiling.stage("features"):
+        res4 = model.features(images)  # [B, 1024, h, w]
+    with profiling.stage("attention_rpn"):
+        heads = [model.rpn_head(model.rpn_attention(res4, cache.res4_avg[c])) for c in range(n_cls)]
+        logits = torch.stack([h[0] for h in heads], 1)  # [B, N, K]: row b*N + c once flattened
+        deltas = torch.stack([h[1] for h in heads], 1)
+    with profiling.stage("proposals"):
+        anchors = generate_anchors(tuple(res4.shape[-2:]), cfg.stride, device=res4.device)
+        props = rpn_predict_proposals(anchors, logits.flatten(0, 1), deltas.flatten(0, 1),
+                                      image_hw.repeat_interleave(n_cls, dim=0),
+                                      pre_nms_topk=cfg.rpn_pre_nms_topk_test,
+                                      post_nms_topk=cfg.rpn_post_nms_topk_test, nms_thresh=cfg.rpn_nms_thresh)
+    r = props.boxes.shape[1]
+    proposals = props.boxes.reshape(b, n_cls * r, 4)
+    with profiling.stage("roi_pool"):
+        pooled = roi_align(res4, proposals, 1.0 / cfg.stride, cfg.pooler_resolution,
+                           cfg.sampling_ratio)  # [B, N*R, 14, 14, 1024]
+    with profiling.stage("res5"):
+        box_feats = model.res5_transform(pooled.flatten(0, 1)).reshape(b, n_cls, r, 7, 7, -1)
+    with profiling.stage("relation"):
+        preds = [model.relation(box_feats[:, c].flatten(0, 1), cache.res5_avg[c]) for c in range(n_cls)]
+    with profiling.stage("detections"):
+        # fg probability and boxes [B, N*R], class-major within an image
+        probs = torch.stack([torch.softmax(p.scores, dim=-1)[:, 0].reshape(b, r) for p in preds], 1).flatten(1)
+        deltas = torch.stack([p.deltas.reshape(b, r, 4) for p in preds], 1).flatten(1, 2)
+        boxes = clip_boxes(apply_deltas(deltas, proposals, cfg.bbox_reg_weights), image_hw)
+        classes = torch.arange(n_cls, device=res4.device, dtype=torch.int32).repeat_interleave(r).expand(b, -1)
+        valid = props.valid.reshape(b, n_cls * r) & (probs > cfg.test_score_thresh)
+        keep = nms_cuda.batched_nms_mask(boxes, probs, classes, valid, cfg.test_nms_thresh)
+        sel_scores, sel_idx = stable_topk(torch.where(keep, probs, torch.full_like(probs, -1.0)),
+                                          cfg.detections_per_image)
+        sel_boxes = torch.gather(boxes, 1, sel_idx[..., None].expand(-1, -1, 4))
+        if box_scale is not None:
+            sel_boxes = sel_boxes * box_scale
+        return Detections(boxes=sel_boxes, scores=sel_scores.clamp(min=0.0),
+                          classes=torch.gather(classes, 1, sel_idx), valid=sel_scores > 0.0)
+
+
 def baseline_inference_single(model: FsodRCNN, cache: BaselineSupportCache, image: torch.Tensor,
                               image_hw: torch.Tensor, cfg: BaselineConfig) -> Detections:
-    """One canvas [3, H, W] through the per-class protocol -> Detections
-    [detections_per_image] (classes index the cache's classes)."""
-    res4 = model.features(image[None])  # [1, 1024, h, w]
-    feat_hw = tuple(res4.shape[-2:])
-    anchors = generate_anchors(feat_hw, cfg.stride, device=res4.device)
-    n_cls = cache.res4_avg.shape[0]
-    heads = [model.rpn_head(model.rpn_attention(res4, cache.res4_avg[c])) for c in range(n_cls)]
-    props = rpn_predict_proposals(anchors, torch.stack([h[0] for h in heads]), torch.stack([h[1] for h in heads]),
-                                  image_hw, pre_nms_topk=cfg.rpn_pre_nms_topk_test,
-                                  post_nms_topk=cfg.rpn_post_nms_topk_test, nms_thresh=cfg.rpn_nms_thresh)
-    r = props.boxes.shape[1]
-    pooled = roi_align(res4.expand(n_cls, -1, -1, -1), props.boxes, 1.0 / cfg.stride, cfg.pooler_resolution,
-                       cfg.sampling_ratio)  # [N, R, 14, 14, 1024]
-    box_feats = model.res5_transform(pooled.reshape(n_cls * r, *pooled.shape[2:])).reshape(n_cls, r, 7, 7, -1)
-    preds = [model.relation(box_feats[c], cache.res5_avg[c]) for c in range(n_cls)]
-    probs = torch.stack([torch.softmax(p.scores, dim=-1)[:, 0] for p in preds]).reshape(-1)  # fg probability
-    deltas = torch.stack([p.deltas for p in preds])
-    boxes = clip_boxes(apply_deltas(deltas, props.boxes, cfg.bbox_reg_weights), image_hw).reshape(-1, 4)
-    classes = torch.arange(n_cls, device=res4.device, dtype=torch.int32).repeat_interleave(r)
-    valid = props.valid.reshape(-1) & (probs > cfg.test_score_thresh)
-    keep = nms_cuda.batched_nms_mask(boxes[None], probs[None], classes[None], valid[None], cfg.test_nms_thresh)[0]
-    sel_scores, sel_idx = stable_topk(torch.where(keep, probs, torch.full_like(probs, -1.0)),
-                                      cfg.detections_per_image)
-    return Detections(boxes=boxes[sel_idx], scores=sel_scores.clamp(min=0.0), classes=classes[sel_idx],
-                      valid=sel_scores > 0.0)
+    """One canvas [3, H, W] and its image_hw [2]: ``baseline_query_path`` at
+    batch 1 -> Detections [detections_per_image]."""
+    det = baseline_query_path(model, cache, image[None], image_hw[None], cfg)
+    return Detections(*(t[0] for t in det))
 
 
 def _check_baseline_cache(cache: BaselineSupportCache, dev: torch.device) -> BaselineSupportCache:
@@ -197,6 +232,48 @@ def build_pinned_baseline_inference_fn(cfg: BaselineConfig, params: Mapping[str,
     function after changing the weights or the cache. On the CPU it runs the
     eager path."""
     return _PinnedBaselineFn(cfg, params, cache, device=device)
+
+
+def build_pinned_baseline_serving_fn(cfg: BaselineConfig, params: Mapping[str, torch.Tensor],
+                                     cache: BaselineSupportCache, input_hw: Tuple[int, int], input_cfg: InputConfig,
+                                     *, device="cuda") -> Tuple[PinnedFn, Tuple[int, int]]:
+    """Raw frames [B, 3, H0, W0] (uint8 or float) of a camera of fixed size
+    input_hw -> Detections [B, ...] in frame coordinates, with the weights
+    and the cache fixed at build time: the frames resized to `input_cfg`'s
+    test size (the shorter side to min_size_test, the longer capped at
+    max_size_test), normalized by its pixel statistics and padded to its
+    size divisibility on the device (``preprocess.preprocess_device``),
+    then ``baseline_query_path`` with the boxes scaled back to the frame,
+    in one CUDA graph per (batch, dtype) on the card (``PinnedFn``).
+    ``BaselineConfig`` holds no input settings (it is the JAX package's
+    field for field), so they come in as `input_cfg`: Base-FSOD-C4.yaml's
+    INPUT is min 600, max 1000. Returns (fn, canvas_hw). Rebuild the
+    function after changing the weights or the cache. On the CPU it runs
+    the eager path."""
+    model = make_fsod_rcnn(cfg, params, device=device)
+    dev = next(model.parameters()).device
+    cache = _check_baseline_cache(cache, dev)
+    h0, w0 = input_hw
+    rh, rw = resize_shortest_edge_size(h0, w0, input_cfg.min_size_test, input_cfg.max_size_test)
+    d = input_cfg.size_divisibility
+    canvas_hw = (ceil_to(rh, d), ceil_to(rw, d))
+    # what the graph reads besides the frames, made here and held by the
+    # function: the resized size and the scale back to the frame (x by the
+    # width ratio, y by the height ratio)
+    resized_hw = torch.tensor([float(rh), float(rw)], device=dev)
+    scale = torch.tensor([w0 / rw, h0 / rh] * 2, dtype=torch.float32, device=dev)
+    mean, std = tuple(input_cfg.pixel_mean), tuple(input_cfg.pixel_std)
+
+    @torch.inference_mode()
+    def run(frames: torch.Tensor) -> Detections:
+        if tuple(frames.shape[-2:]) != (h0, w0):
+            raise ValueError(f"frames of {tuple(frames.shape[-2:])}: this function serves {h0}x{w0}")
+        with profiling.stage("preprocess"):
+            canvases = preprocess_device(frames, (rh, rw), canvas_hw, mean, std)
+        return baseline_query_path(model, cache, canvases, resized_hw.expand(frames.shape[0], 2), cfg,
+                                   box_scale=scale)
+
+    return PinnedFn(run, dev), canvas_hw
 
 
 # ------------------------------------------------------------------ training
@@ -258,7 +335,7 @@ def baseline_loss_fn(model: FsodRCNN, batch: TrainBatch, cfg: BaselineConfig,
     per_image, logits_all, deltas_all, res5_avgs = [], [], [], []
     for i in range(b):
         res4_avg, res5_avg = _enhanced(model, pooled14[i * s:(i + 1) * s], sup_res5[i * s:(i + 1) * s])
-        logits, deltas = model.rpn_head(model.rpn_attention(res4[i:i + 1], res4_avg))
+        logits, deltas = (t[0] for t in model.rpn_head(model.rpn_attention(res4[i:i + 1], res4_avg)))
         labels, matched = rpn_label_anchors(anchors, GroundTruth(*(t[i] for t in gt)), generator,
                                             cfg.rpn_batch_size, cfg.rpn_positive_fraction)
         per_image.append(rpn_losses(anchors, logits, deltas, labels, matched, cfg.rpn_batch_size,

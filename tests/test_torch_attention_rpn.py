@@ -151,9 +151,9 @@ def test_rpn_attention_and_head_match_jax(base, query_hw):
     jpos = japply(base, "rpn_attention", q, sup)
     jlogits, jdeltas = japply(base, "rpn_head", jpos)
     assert_close_of_largest(pos.permute(0, 2, 3, 1).numpy(), np.asarray(jpos), OUT_TOL, "attention")
-    assert logits.shape == (query_hw[0] * query_hw[1] * 15,) and deltas.shape == (logits.shape[0], 4)
-    assert_close_of_largest(logits.numpy(), np.asarray(jlogits), OUT_TOL, "logits")
-    assert_close_of_largest(deltas.numpy(), np.asarray(jdeltas), OUT_TOL, "deltas")
+    assert logits.shape == (1, query_hw[0] * query_hw[1] * 15) and deltas.shape == (*logits.shape, 4)
+    assert_close_of_largest(logits[0].numpy(), np.asarray(jlogits), OUT_TOL, "logits")
+    assert_close_of_largest(deltas[0].numpy(), np.asarray(jdeltas), OUT_TOL, "deltas")
 
 
 def test_res5_and_relation_match_jax(base):
@@ -264,7 +264,7 @@ def train_inputs(seed, model, cfg):
         pooled = roi_align(model.features(nchw(sup)), t(sup_boxes)[:, None], 1.0 / cfg.stride,
                                  cfg.pooler_resolution, cfg.sampling_ratio)[:, 0]
         logits, deltas = model.rpn_head(model.rpn_attention(res4, model.enhance_support_rpn(pooled.reshape(2, 196, -1))))
-        props = tarpn.rpn_predict_proposals(tarpn.generate_anchors((6, 8), cfg.stride), logits, deltas,
+        props = tarpn.rpn_predict_proposals(tarpn.generate_anchors((6, 8), cfg.stride), logits[0], deltas[0],
                                             t(QUERY_HW), pre_nms_topk=cfg.rpn_pre_nms_topk_train,
                                             post_nms_topk=cfg.rpn_post_nms_topk_train, nms_thresh=cfg.rpn_nms_thresh)
     assert props.valid.all()
