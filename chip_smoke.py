@@ -69,7 +69,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    K2 at the fast presets' ROI site ([8, 64] at IoU 0.9, random scenes),
    K1 at 160 channels (f32 q, batch 1 and 8), K1 at the nine-class
    request's site on phase 8's inputs (one launch a level against nine, one
-   a class) and K2 at [1, 16384] on a random scene; then end to end in bf16
+   a class) and K2 at [1, 16384] on a random scene; K3 (the ROIAlign gather)
+   at the three serving shapes ("timing": "roi_align" lines: VoVNet [8, 256]
+   x 8x8 x 128 bf16 over p3-p5, DLA [8, 256] x 7x7 x 160 f32, the baseline
+   [8, 100] x 14x14 x 1024 f32; proposal-like boxes on NCHW maps), each
+   result first held against the plain version run on the CPU (the card
+   test's limits), its bound the output, the maps once and their copy to
+   channel-last (read and write) at the memory rate; then end to end in bf16
    with the library's default TF32 settings: the eager and the pinned path
    at batch 1 and 8, and the nine-class request;
 12. profile: the same batch-1 and batch-8 requests, eager and pinned, under
@@ -80,6 +86,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    count of each own kernel per replay must equal the graph's captured
    launches (a profile that missed kernel records is taken again, three
    attempts at most);
+   (Launch counts everywhere are K1's, K2's and K3's, `kernels(cgm, nms,
+   roi)`: K3 once a request on every CenterNet2 and baseline serving path,
+   twice a support-cache build; the training steps pool through the dense
+   composition and count none);
 13. train: finetune_vovnet at full width (f32, 24 shots at 256x256, 128
    ROIs) on 16 synthetic 480x640 frames made in memory, through the mapper
    and train_loader onto the 448x608 canvas: 3 + 20 train steps from
@@ -132,7 +142,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    vs CPU by phase 5's criteria; visualize_features on one frame in f32,
    every map finite and within 1e-3 of its largest card vs CPU; and
    finetune_dla with use_pallas_cgm (the CGM kernel at 160 channels) on 2
-   frames: 3 CGM launches an image, card vs CPU by phase 5's criteria;
+   frames: 3 CGM launches an image, card vs CPU by phase 5's criteria, and
+   each K3 call's result against the plain version on its own inputs (the
+   card test's limits);
 17. quantized serving: serving_vovnet_int8, _int8_static and
    _int8_resident at full width (one float tree from init_params, each
    preset's own 25-shot cache), the static two calibrated on 8 synthetic
@@ -241,11 +253,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    request, build_pinned_onestage_inference_fn at 1 and 9 classes in f32
    and bf16 on two of phase 20's 384x512 canvases, and
    build_pinned_baseline_inference_fn on phase 19's 608x800 canvas: each
-   by phase 5's criteria at |dscore| <= 1e-5; each graph's captured K1 and
-   K2 launches equal to an eager request's (3 and 2, 3 and 2, 0 and 1, 0
-   and 2); K2 bit for bit and K1 within phase 19's bound on the eager
-   requests' own inputs; request ms at the median, eager and pinned, a
-   line each (`"pinned_entry_ms"`).
+   by phase 5's criteria at |dscore| <= 1e-5; each graph's captured K1, K2
+   and K3 launches equal to an eager request's (3, 2 and 1 on the raw-frame
+   and nine-class paths, 0, 1 and 0 one-stage, 0, 2 and 1 the baseline),
+   and no pooler call routed to the dense composition; K2 bit for bit, K1
+   within phase 19's bound and K3 against its plain version run on the CPU
+   (the card test's limits) on the eager requests' own inputs; request ms
+   at the median, eager and pinned, a line each (`"pinned_entry_ms"`).
 
 With --ab-baseline DIR, after phase 21 an "ab" line per kernel row against
 an earlier build's cgm.cu and nms.cu in DIR, timed in turns (earlier, this,
@@ -380,7 +394,7 @@ ZOO_TOL = 1e-4  # card vs CPU in f32, of each output's largest |value| (or DLA_F
 REGNET_Y_400MF = dict(w_a=27.89, w_0=48, w_m=2.09, depth=16, group_width=8, se_ratio=0.25)
 FED_CLASSES, FED_LOSS_RTOL = 100, 1e-5  # the loss: a sum of 6400 f32 terms in another order
 STAGES = ("features", "correlate", "proposal_head", "decode_proposals", "roi_stage", "roi_inference")
-OWN_KERNELS = ("cgm_kernel", "nms_rank_kernel", "nms_mask_kernel", "nms_sweep_kernel")
+OWN_KERNELS = ("cgm_kernel", "nms_rank_kernel", "nms_mask_kernel", "nms_sweep_kernel", "roi_align_kernel")
 
 
 def emit(**obj) -> None:
@@ -698,16 +712,25 @@ def support_inputs(torch, np, cfg, shots, rng):
     return torch.from_numpy(imgs), torch.from_numpy(boxes)
 
 
+def kernels(cgm: int = 0, nms: int = 0, roi: int = 0) -> dict:
+    """Launches of K1, K2 and K3, as `count_launches` and the pinned
+    functions' graphs give them."""
+    return {"cgm": cgm, "nms": nms, "roi": roi}
+
+
 def count_launches(cgm_cuda, nms_cuda, run) -> dict:
-    """The kernel launches that run() makes, by the wrappers' counters set to
-    0 just before it and read just after."""
+    """The kernel launches that run() makes (K1, K2 and K3), by the wrappers'
+    counters set to 0 just before it and read just after."""
     import torch
+
+    from faster_orefsdet_tpu_torch.ops import roi_align_cuda
 
     cgm_cuda.counter.launches = 0
     nms_cuda.counter.launches = 0
+    roi_align_cuda.counter.launches = 0
     run()
     torch.cuda.synchronize()
-    return {"cgm": cgm_cuda.counter.launches, "nms": nms_cuda.counter.launches}
+    return kernels(cgm_cuda.counter.launches, nms_cuda.counter.launches, roi_align_cuda.counter.launches)
 
 
 def synthetic_frames(np, n, seed):
@@ -764,7 +787,7 @@ def phase_raw_frames(torch, np, cfg, params, cache, frames_u8):
     if (tuple(canvas_hw) != CANVAS_HW or tuple(p.shape) != (len(frames), 100, 7) or not torch.isfinite(p).all()
             or not inside or (valid.sum(-1) < 1).any()):
         raise AssertionError("raw-frame serving gave a wrong result")
-    if launches != {"cgm": 3, "nms": 2}:
+    if launches != kernels(3, 2, 1):
         raise AssertionError(f"kernel launch counts {launches} on the raw-frame path")
     return launches
 
@@ -803,7 +826,7 @@ def phase_pinned(torch, np, cfg, params, cache, serve1, serve8, singles, u8, hw8
         raise AssertionError(f"pinned and eager detections do not match: {checks}")
     if not no_alias:
         raise AssertionError("two held pinned results alias or changed")
-    if any(g.launches != {"cgm": 3, "nms": 2} for g in pinned.graphs.values()):
+    if any(g.launches != kernels(3, 2, 1) for g in pinned.graphs.values()):
         raise AssertionError(f"pinned graphs captured {graphs}")
     return pinned.kernel_launches()
 
@@ -855,7 +878,7 @@ def phase_multiclass(torch, np, cfg, params, serve1, singles, img32):
         raise AssertionError(f"multiclass detections are not finite [100, 7] with classes 0..{len(caches) - 1}")
     # one K1 launch a level over the classes' stacked taps, as the JAX
     # package's vmapped Pallas call
-    if launches != {"cgm": 3, "nms": 2} or [c["classes"] for c in cgm_checks] != [len(caches)] * 3 or cgm_bad:
+    if launches != kernels(3, 2, 1) or [c["classes"] for c in cgm_checks] != [len(caches)] * 3 or cgm_bad:
         raise AssertionError(f"kernel launch counts {launches} on the multiclass path, K1 calls {cgm_checks}")
     if not (card_vs_cpu["ok"] and one_class["ok"]):
         raise AssertionError("multiclass detections do not match")
@@ -1121,9 +1144,9 @@ def phase_eval(torch, np, cfg, params, smi):
                    "note": "random weights: the AP values check the loop, not the detector"})
         if not all(np.isfinite(res[k]) for k in AP_KEYS):
             raise AssertionError(f"eval at batch {bs}: an AP value is not finite")
-        if (len(built) != 1 or graphs != [{"cgm": 3, "nms": 2}]
-                or replayed != {"cgm": 3 * requests, "nms": 2 * requests}
-                or counted != {"cgm": 3 * (WARMUP_CALLS + CAPTURES), "nms": 2 * (WARMUP_CALLS + CAPTURES)}):
+        if (len(built) != 1 or graphs != [kernels(3, 2, 1)] or replayed != kernels(3 * requests, 2 * requests, requests)
+                or counted != kernels(3 * (WARMUP_CALLS + CAPTURES), 2 * (WARMUP_CALLS + CAPTURES),
+                                      WARMUP_CALLS + CAPTURES)):
             raise AssertionError(f"eval at batch {bs}: not one graph replayed a request ({graphs}, counted {counted}, "
                                  f"replayed {replayed})")
 
@@ -1239,7 +1262,7 @@ def phase_train(torch, np, smi):
                 "data_setup_s": setup_s, "card": smi})
     if not finite:
         raise AssertionError(f"a train step gave a non-finite loss: {rows}")
-    if launches != {"cgm": 0, "nms": n_steps}:
+    if launches != kernels(0, n_steps):
         raise AssertionError(f"kernel launches {launches} over {n_steps} train steps (expected 0 CGM, 1 NMS a step)")
     out.update(launches=launches, steps=n_steps, step_ms=med)
 
@@ -1643,7 +1666,7 @@ def phase_dla(torch, np, smi):
                     "card": smi})
     if not finite or moved != len(stats) or not stats_finite or not stats:
         raise AssertionError(f"finetune_dla steps: finite {finite}, statistics moved {moved}/{len(stats)}")
-    if launches != {"cgm": 0, "nms": n_steps}:
+    if launches != kernels(0, n_steps):
         raise AssertionError(f"finetune_dla launches {launches} over {n_steps} steps (expected 0 CGM, 1 NMS a step)")
     batch = batches[0]
 
@@ -1694,8 +1717,8 @@ def phase_dla(torch, np, smi):
     sites = [(c["shape"], c["thr"]) for c in serve_checks if c["site"] == "kernel"]
     if not all(np.isfinite(res[k]) for k in AP_KEYS):
         raise AssertionError("finetune_dla eval: an AP value is not finite")
-    if (eval_launches != {"cgm": 0, "nms": 2 * len(erecords)}
-            or counted != {"cgm": 0, "nms": 2 * (WARMUP_CALLS + CAPTURES)}):
+    if (eval_launches != kernels(0, 2 * len(erecords), len(erecords))
+            or counted != kernels(0, 2 * (WARMUP_CALLS + CAPTURES), WARMUP_CALLS + CAPTURES)):
         raise AssertionError(f"finetune_dla eval launches {eval_launches}, counted {counted} (expected 0 CGM, "
                              "2 NMS an image replayed from one graph)")
     if sites != [([1, k_dec], thr_dec), ([1, cfg.centernet.post_nms_topk_test], cfg.roi.nms_thresh_test)] \
@@ -1941,16 +1964,18 @@ def phase_workflow(torch, np, smi):
             "video_frames_written": len(vid16.written.get(os.path.join(tmp, "out", "clip_out.mp4"), [])),
             "video_launches": vid_launches, "debug_overlays": len(dbg.debugs), "debug_launches": dbg_launches,
             "debug_finite": dbg_ok, "card": smi})
-        if per_image != {"cgm": 3, "nms": 2} or not finite or len(g16.draws) != WORKFLOW_GLOB:
+        # each run builds its support cache on the card: K3's 8x8 and 4x4 pools, 2 launches
+        if launches != kernels(3 * WORKFLOW_GLOB, 2 * WORKFLOW_GLOB, WORKFLOW_GLOB + 2) or not finite \
+                or len(g16.draws) != WORKFLOW_GLOB:
             raise AssertionError(f"demo by glob: launches {launches}, finite {finite}")
         if not pinned_vs_eager["all_matched"]:
             raise AssertionError(f"demo --parallel against the glob run: {pinned_vs_eager}")
         # the video's frame batches go through the pinned serving function:
         # one signature captured (its warm-ups and both captures counted), then replays
-        if len(vid16.draws) != WORKFLOW_VIDEO or vid_launches != {"cgm": 3 * (WARMUP_CALLS + CAPTURES),
-                                                                   "nms": 2 * (WARMUP_CALLS + CAPTURES)}:
+        if len(vid16.draws) != WORKFLOW_VIDEO or vid_launches != kernels(
+                3 * (WARMUP_CALLS + CAPTURES), 2 * (WARMUP_CALLS + CAPTURES), WARMUP_CALLS + CAPTURES + 2):
             raise AssertionError(f"demo by video: {len(vid16.draws)} frames, launches {vid_launches}")
-        if not dbg_ok or dbg_launches != {"cgm": 3 * 2, "nms": 2 * 2}:  # one forward pass an image
+        if not dbg_ok or dbg_launches != kernels(3 * 2, 2 * 2, 2 + 2):  # one forward pass an image
             raise AssertionError(f"demo --debug: overlays {len(dbg.debugs)}, launches {dbg_launches}")
 
         # ---- card vs CPU in f32, by phase 5's criteria
@@ -1974,24 +1999,31 @@ def phase_workflow(torch, np, smi):
             max(worst.values()) <= WORKFLOW_MAP_TOL
 
         # ---- finetune_dla with the fused CGM at 160 channels (random weights from seed 0 on both sides)
-        dla = {}
+        dla, dla_roi = {}, []
         for d in ("cuda", "cpu"):
             media = MemoryMedia(np, store)
             args = demo.parse_args(["--input", "frames/frame[01].png", "--support-index", index, "--config",
                                     "finetune_dla", "--confidence", "0.0", "--device", d, "--output",
                                     os.path.join(tmp, "dla"), "use_pallas_cgm=true"])
-            dla[d] = (media, count_launches(cgm_cuda, nms_cuda, lambda: demo.run(args, media.media())))
+            # K3's calls recorded (on the card; the CPU run launches none)
+            dla[d] = (media, count_launches(cgm_cuda, nms_cuda, lambda: dla_roi.extend(record_roi_calls(
+                torch, lambda: demo.run(args, media.media())))))
         dla_match = match_frames(np, dla["cuda"][0].draws, dla["cpu"][0].draws, MATCH_DSCORE)
+        dla_roi_checks, dla_roi_bad = check_roi_calls(torch, dla_roi)
+        dla_roi.clear()
         emit(workflow_card_vs_cpu={"f32": card_vs_cpu, "feature_maps_worst_of_largest": worst,
                                    "finetune_dla_use_pallas_cgm": {"channels": get_config("finetune_dla").fpn.out_channels,
-                                                                   "launches": dla["cuda"][1], **dla_match},
+                                                                   "launches": dla["cuda"][1], **dla_match,
+                                                                   "roi_checks": dla_roi_checks},
                                    "card": smi})
         if not all(c["all_matched"] for c in card_vs_cpu.values()):
             raise AssertionError(f"demo card vs CPU: {card_vs_cpu}")
         if not maps_ok:
             raise AssertionError(f"visualize_features card vs CPU: {worst}")
-        if dla["cuda"][1] != {"cgm": 3 * 2, "nms": 2 * 2} or not dla_match["all_matched"]:
+        if dla["cuda"][1] != kernels(3 * 2, 2 * 2, 2 + 2) or not dla_match["all_matched"]:
             raise AssertionError(f"finetune_dla with use_pallas_cgm: launches {dla['cuda'][1]}, {dla_match}")
+        if dla_roi_bad or len(dla_roi_checks) != 2 + 2:
+            raise AssertionError(f"finetune_dla with use_pallas_cgm: K3 on the request's own inputs {dla_roi_checks}")
         out.update(glob_launches=launches, dla_launches=dla["cuda"][1])
     emit(workflow_phase_s=time.perf_counter() - t_phase)
     return out
@@ -2175,7 +2207,7 @@ def phase_quant(torch, np, smi):
     f32, u8 = quant_inputs(torch, np, get_config(QUANT_YARDSTICK), 8, seed=21)
     calib, _ = quant_inputs(torch, np, get_config(QUANT_YARDSTICK), QUANT_CALIB_FRAMES, seed=22)
     hw8 = torch.tensor([IMAGE_HW] * 8, device="cuda")
-    launches, replayed = {"cgm": 0, "nms": 0}, {"cgm": 0, "nms": 0}
+    launches, replayed = kernels(), kernels()
     roi_site = {"launches": 0, "mismatches": 0, "max_abs_err": 0.0}
     timed = {}
     for name in QUANT_PRESETS + (QUANT_YARDSTICK,):
@@ -2230,14 +2262,14 @@ def phase_quant(torch, np, smi):
                                         "values": got1.numel() + got8.numel(), "graphs": graphs},
                        card_vs_cpu_f32=card_vs_cpu)
             emit(quant_check=row, card=smi)
-            if counted != {"cgm": 6, "nms": 4} or gemms != 2 * QUANT_GEMMS:
+            if counted != kernels(6, 4, 2) or gemms != 2 * QUANT_GEMMS:
                 raise AssertionError(f"{name}: launches {counted}, int8 GEMMs {gemms} for 2 requests")
             if sites != [[1, 1024], [1, FAST_ROI_K], [8, 1024], [8, FAST_ROI_K]] or any(
                     c["mismatches"] for c in nms_checks):
                 raise AssertionError(f"{name}: the NMS kernel on the request's own inputs: {nms_checks}")
             if len(products) != QUANT_GEMMS or any(c["mismatches"] for c in product_checks):
                 raise AssertionError(f"{name}: int8 products card vs CPU {product_checks}")
-            if not all(c["ok"] for c in pin) or any(g != {"cgm": 3, "nms": 2} for g in graphs):
+            if not all(c["ok"] for c in pin) or any(g != kernels(3, 2, 1) for g in graphs):
                 raise AssertionError(f"{name}: pinned and eager differ: {pin} {graphs}")
             if not card_vs_cpu["on_the_cards_int8_grids"]["ok"] or card_vs_cpu["weight_int8_mismatches"]:
                 raise AssertionError(f"{name}: card and CPU detections do not match: {card_vs_cpu}")
@@ -2752,7 +2784,8 @@ def phase_dp(torch, np, cfg, params, cache, frames_u8, smi):
     mesh = make_mesh(n)
     torch.backends.cudnn.allow_tf32 = False  # the comparisons, as phases 3-10
     torch.backends.cuda.matmul.allow_tf32 = False
-    once = {"cgm": 3 * (WARMUP_CALLS + CAPTURES), "nms": 2 * (WARMUP_CALLS + CAPTURES)}  # warm-ups and captures
+    once = kernels(3 * (WARMUP_CALLS + CAPTURES), 2 * (WARMUP_CALLS + CAPTURES),
+                   WARMUP_CALLS + CAPTURES)  # warm-ups and captures
 
     # ---- (a) sharded serving through a pinned replica a card against card
     # 0's pinned replay of the same frames, bit for bit (at n = 1 the whole batch)
@@ -2820,7 +2853,7 @@ def phase_dp(torch, np, cfg, params, cache, frames_u8, smi):
                                                   "needs two or more; the figure stays open", "card": smi})
     if not ok:
         raise AssertionError(f"sharded serving over {n} card(s) differs from card 0's pinned replay: {check}")
-    if (serve_launches != {"cgm": 3 * n, "nms": 2 * n} or graphs != [[{"cgm": 3, "nms": 2}]] * n
+    if (serve_launches != kernels(3 * n, 2 * n, n) or graphs != [[kernels(3, 2, 1)]] * n
             or counted != {k: v * n for k, v in once.items()}):
         raise AssertionError(f"sharded serving: replayed {serve_launches}, graphs {graphs}, counted {counted} "
                              f"over {n} card(s)")
@@ -2838,7 +2871,7 @@ def phase_dp(torch, np, cfg, params, cache, frames_u8, smi):
     counted = count_launches(cgm_cuda, nms_cuda, lambda: built.extend(pinned_built(
         eval_dp, "build_pinned_inference_fn", lambda: res.update(
             evaluate_sharded(cfg, params, ecache, records, mesh, per_device_batch=per_device, imread=store.get)))))
-    eval_launches = {k: sum(fn.kernel_launches()[k] for fn in built) for k in ("cgm", "nms")}
+    eval_launches = {k: sum(fn.kernel_launches()[k] for fn in built) for k in kernels()}
     diff = max(abs(res[k] - ref_ap[k]) for k in AP_KEYS if not np.isnan(ref_ap[k])) if any(
         not np.isnan(ref_ap[k]) for k in AP_KEYS) else 0.0
     same_nan = all(np.isnan(res[k]) == np.isnan(ref_ap[k]) for k in AP_KEYS)
@@ -2850,7 +2883,7 @@ def phase_dp(torch, np, cfg, params, cache, frames_u8, smi):
                   "note": "random weights: the values check the loop, not the detector"})
     if not same_nan or diff > 0.0:
         raise AssertionError(f"evaluate_sharded over {n} card(s) vs evaluate: {res} vs {ref_ap}")
-    if (len(built) != n or eval_launches != {"cgm": 3 * n * requests, "nms": 2 * n * requests}
+    if (len(built) != n or eval_launches != kernels(3 * n * requests, 2 * n * requests, n * requests)
             or counted != {k: v * n for k, v in once.items()}):
         raise AssertionError(f"evaluate_sharded: {len(built)} replicas, replayed {eval_launches}, counted {counted}")
     pinned = {k: serve_launches[k] + eval_launches[k] for k in serve_launches}
@@ -2882,6 +2915,60 @@ def record_cgm_calls(torch, request):
     finally:
         cgm_cuda._launch = launch
     return seen
+
+
+def record_roi_calls(torch, request):
+    """Runs request() once with K3's launch entry recording copies of its
+    arguments and of its result (launches made while a CUDA graph is being
+    captured are not recorded); returns [(maps, boxes, levels, scales, P,
+    sampling_ratio, out)]. The recording launches nothing, so request() may
+    be a counted run."""
+    from faster_orefsdet_tpu_torch.ops import roi_align_cuda
+
+    launch, seen = roi_align_cuda._launch, []
+
+    def wrapped(features, boxes, levels, scales, p, ratio):
+        out = launch(features, boxes, levels, scales, p, ratio)
+        if not torch.cuda.is_current_stream_capturing():
+            seen.append(([f.clone() for f in features], boxes.clone(), None if levels is None else levels.clone(),
+                         list(scales), p, ratio, out.clone()))
+        return out
+
+    roi_align_cuda._launch = wrapped
+    try:
+        request()
+        torch.cuda.synchronize()
+    finally:
+        roi_align_cuda._launch = launch
+    return seen
+
+
+def roi_check(torch, got, maps, boxes, levels, scales, p, ratio) -> dict:
+    """K3's result `got` against its plain version run on the CPU, by the
+    card test's limits (tests/test_torch_roi_align_cuda.py): f32 within
+    1e-5 + 1e-5 |ref|; bf16 no further from the f64 result than the dense
+    bf16 path plus one bf16 ulp plus that f32 tolerance."""
+    from faster_orefsdet_tpu_torch.ops import roi_align_cuda
+
+    maps, boxes = [m.cpu() for m in maps], boxes.cpu()
+    levels = None if levels is None else levels.cpu()
+    ref = roi_align_cuda.roi_align_plain(maps, boxes, levels, scales, p, ratio).double()
+    if got.dtype == torch.float32:
+        ref64, allowed = ref, 0.0
+    else:
+        ref64 = roi_align_cuda.roi_align_plain([m.double() for m in maps], boxes, levels, scales, p, ratio)
+        ulp = torch.where(ref64 == 0, torch.zeros_like(ref64), torch.exp2(torch.floor(torch.log2(ref64.abs())) - 7))
+        allowed = (ref - ref64).abs() + ulp
+    err = (got.cpu().double() - ref64).abs()
+    return {"shape": list(got.shape), "dtype": str(got.dtype)[6:], "levels": len(maps),
+            "max_abs_err": float(err.max()), "out_of_bound": int((err > allowed + 1e-5 + 1e-5 * ref64.abs()).sum())}
+
+
+def check_roi_calls(torch, seen):
+    """Each recorded K3 call's result held by `roi_check`. Returns (checks,
+    values out of the bound)."""
+    checks = [roi_check(torch, out, *args) for *args, out in seen]
+    return checks, sum(c["out_of_bound"] for c in checks)
 
 
 def cgm_f64(torch, q, k1, k13, k31, w3, b3):
@@ -3040,7 +3127,7 @@ def phase_resnet(torch, np, smi):
     emit(resnet_r50_serve={"config": R50_CONFIG, "canvas": list(CANVAS_HW), "shots": cfg.fs.support_shot,
                            "launches": launches, "cgm_checks": cgm_checks, "nms_checks": nms_checks,
                            "valid_per_image": n_valid, "all_finite": finite})
-    if launches != {"cgm": 3 + 3, "nms": 2 + 2} or cgm_bad or not finite or min(n_valid) < 1:
+    if launches != kernels(3 + 3, 2 + 2, 1 + 1) or cgm_bad or not finite or min(n_valid) < 1:
         raise AssertionError(f"{R50_CONFIG} serving: launches {launches}, CGM out of its bound {cgm_bad}, "
                              f"finite {finite}, valid {n_valid}")
     for (site, _, thr), args in zip(r50_sites, nms_seen["kernel"]):
@@ -3060,7 +3147,7 @@ def phase_resnet(torch, np, smi):
     emit(resnet_r50_pinned={"images_checked": len(checks), "all_matched": all(c["ok"] for c in checks),
                             "max_dscore": max(c["max_dscore"] for c in checks), "bit_identical_values": identical,
                             "values": sum(a.numel() for a in got), "graphs_captured_launches": graph_launches})
-    if not all(c["ok"] for c in checks) or any(g != {"cgm": 3, "nms": 2} for g in graph_launches):
+    if not all(c["ok"] for c in checks) or any(g != kernels(3, 2, 1) for g in graph_launches):
         raise AssertionError(f"{R50_CONFIG} pinned vs eager: {checks}, graphs {graph_launches}")
     out["graph_launches"]["r50_pinned_replays"] = pinned.kernel_launches()
 
@@ -3098,7 +3185,7 @@ def phase_resnet(torch, np, smi):
     state, _, times, rows, batches, launches, peak = eager_steps(torch, np, tcfg, params, records, mapper,
                                                                  R50_WARMUP, R50_STEPS)
     finite = all(np.isfinite(v) for m in rows for v in m.values())
-    if not finite or launches != {"cgm": 0, "nms": len(rows)}:
+    if not finite or launches != kernels(0, len(rows)):
         raise AssertionError(f"{R50_CONFIG} train steps: finite {finite}, launches {launches}")
     out["launches"]["r50_train"] = launches
     batch = batches[0]
@@ -3162,7 +3249,7 @@ def phase_resnet(torch, np, smi):
     mdet["cpu"] = mserve["cpu"](mcaches["cpu"], single.cpu(), IMAGE_HW)
     mnv3_vs_cpu = match(np, *(unpack_detections_np(pack_detections(mdet[d])) for d in ("cuda", "cpu")), MATCH_DSCORE)
     emit(resnet_mnv3_serve={"backbone": "mnv3_fpn", "launches": launches, "card_vs_cpu": mnv3_vs_cpu})
-    if launches != {"cgm": 3, "nms": 2} or not mnv3_vs_cpu["ok"]:
+    if launches != kernels(3, 2, 1) or not mnv3_vs_cpu["ok"]:
         raise AssertionError(f"mnv3_fpn serving: launches {launches}, card vs CPU {mnv3_vs_cpu}")
     out["launches"]["mnv3_serve"] = launches
 
@@ -3193,7 +3280,7 @@ def phase_resnet(torch, np, smi):
     emit(resnet_baseline_serve={"yaml": BASELINE_YAML, "shots": bcfg.support_shot, "support_canvas": list(bsup.shape[-2:]),
                                 "canvas": list(canvas_hw), "resized": list(out_hw), "launches": launches,
                                 "nms_checks": nms_checks, "card_vs_cpu": base_vs_cpu})
-    if launches != {"cgm": 0, "nms": 2} or not base_vs_cpu["ok"]:
+    if launches != kernels(0, 2, 1) or not base_vs_cpu["ok"]:
         raise AssertionError(f"the baseline's request: launches {launches}, card vs CPU {base_vs_cpu}")
     out["launches"]["baseline_serve"] = launches
     for (shape, thr), args, site in zip(base_sites, bseen["kernel"], ("baseline_rpn_test", "baseline_final")):
@@ -3254,7 +3341,7 @@ def phase_resnet(torch, np, smi):
     launches = count_launches(cgm_cuda, nms_cuda, steps)
     bpeak = torch.cuda.max_memory_allocated() / 1e9
     trace = torch.stack(trace).tolist()
-    if launches != {"cgm": 0, "nms": len(trace)} or not all(np.isfinite(trace)):
+    if launches != kernels(0, len(trace)) or not all(np.isfinite(trace)):
         raise AssertionError(f"the baseline's train steps: launches {launches}, losses {trace}")
     out["launches"]["baseline_train"] = launches
     with torch.no_grad():
@@ -3383,7 +3470,7 @@ def phase_onestage(torch, np, smi):
                        "nms_sites": sites, "nms_mismatches": sum(c["mismatches"] for c in checks),
                        "nms_checks": len(checks), "card_vs_cpu": matches, "all_finite": finite,
                        "valid_per_frame": [int(p[:, 6].sum()) for p in dets]})
-        if launches != {"cgm": 0, "nms": ONESTAGE_FRAMES} or sites != [[1, k]] * ONESTAGE_FRAMES:
+        if launches != kernels(0, ONESTAGE_FRAMES) or sites != [[1, k]] * ONESTAGE_FRAMES:
             raise AssertionError(f"one-stage {n} classes: launches {launches}, K2 sites {sites} (K = {k})")
         if any(c["mismatches"] for c in checks) or not finite or not all(m["ok"] for m in matches):
             raise AssertionError(f"one-stage {n} classes: K2 checks {checks}, card vs CPU {matches}")
@@ -3543,24 +3630,102 @@ def phase_onestage(torch, np, smi):
     return out
 
 
+# ------------------------------------------------------------------ phase 11, K3
+# K3's rows: (name, maps' dtype, batch, ROIs an image, channels, P, canvas, strides), the three serving shapes
+K3_SHAPES = (("vovnet", "bfloat16", 8, POST_NMS_TOPK, C, 8, CANVAS_HW, (8, 16, 32)),
+             ("dla", "float32", 8, POST_NMS_TOPK, DLA_CHANNELS, 7, CANVAS_HW, (8, 16, 32)),
+             ("baseline", "float32", 8, 100, 1024, 14, (608, 800), (16,)))
+
+
+def roi_inputs(torch, np, rng, b, r, c, canvas, strides, dtype):
+    """Random maps [B, C, H_l, W_l] (NCHW, as the baseline's res4 arrives;
+    the gather copies them channel-last) and proposal-like boxes inside the
+    canvas, 16 px to its short side, aspect 1:2 to 2:1, log-uniform; their
+    levels (indices into the maps) and scales."""
+    from faster_orefsdet_tpu_torch.ops.roi_align import assign_levels
+
+    h, w = canvas
+    maps = [torch.randn(b, c, h // s, w // s, device="cuda").to(getattr(torch, dtype)) for s in strides]
+    size = np.exp(rng.uniform(np.log(16), np.log(min(h, w)), (b, r)))
+    aspect = np.exp(rng.uniform(np.log(0.5), np.log(2.0), (b, r)))
+    bw, bh = size * np.sqrt(aspect), size / np.sqrt(aspect)
+    x1, y1 = rng.uniform(0, w - np.minimum(bw, w)), rng.uniform(0, h - np.minimum(bh, h))
+    boxes = np.stack([x1, y1, np.minimum(x1 + bw, w), np.minimum(y1 + bh, h)], -1)
+    boxes = torch.tensor(boxes, dtype=torch.float32, device="cuda")
+    levels = None
+    if len(strides) > 1:
+        lo = int(np.log2(strides[0]))
+        levels = (assign_levels(boxes, lo, int(np.log2(strides[-1]))) - lo).contiguous()
+    return maps, boxes, levels, [1.0 / s for s in strides]
+
+
+def phase_k3_timing(torch, np, smi) -> dict:
+    """K3 at the three serving shapes, as phase 11 times K1 and K2, after
+    its result is held against the plain version by `roi_check` (the phase
+    fails on a value out of the bound): device-only ms (50 calls in a CUDA
+    graph, 6 at the baseline's shape), event ms (50 wrapper calls), the
+    bound and the plain version's event ms; {name: row}. The maps arrive in
+    NCHW, so each call's time holds their copy to channel-last, and the
+    bound counts the copy's read and write beside the output and the maps
+    read once."""
+    from faster_orefsdet_tpu_torch.ops import roi_align_cuda
+
+    rng = np.random.default_rng(31)
+    rows = {}
+    for name, dtype, b, r, c, p, canvas, strides in K3_SHAPES:
+        maps, boxes, levels, scales = roi_inputs(torch, np, rng, b, r, c, canvas, strides, dtype)
+
+        def gather():
+            return roi_align_cuda.roi_align_gather(maps, boxes, levels, scales, p, 0)
+
+        def plain():
+            return roi_align_cuda.roi_align_plain(maps, boxes, levels, scales, p, 0)
+
+        check = roi_check(torch, gather(), maps, boxes, levels, scales, p, 0)
+        if check["out_of_bound"]:
+            raise AssertionError(f"phase 11: K3 against the plain version at the {name} shape: {check}")
+        elem = maps[0].element_size()
+        out_bytes = b * r * p * p * c * elem
+        copied = sum(m.numel() for m in maps if not m.is_contiguous(memory_format=torch.channels_last))
+        nbytes = out_bytes + (sum(m.numel() for m in maps) + 2 * copied) * elem + boxes.numel() * 4
+        # a graph holds every call's output: at most 4 GB of them (6 calls at the baseline's 642 MB)
+        ms = graph_ms(torch, gather, iters=max(1, min(50, int(4e9 // out_bytes))))
+        row = {"shape": [b, r, p, p, c], "dtype": dtype, "levels": len(maps), "max_abs_err": check["max_abs_err"],
+               "copied_bytes": 2 * copied * elem, "ms": ms,
+               "enqueue_ms": enqueue_ms(torch, gather, 50), "plain_ms": enqueue_ms(torch, plain, 5),
+               **bound(nbytes, 0.0)}
+        row["share_of_bound"] = row["bound_ms"] / ms
+        rows[name] = row
+        emit(timing="roi_align", site=name, **row, card=smi)
+    torch.cuda.empty_cache()  # phase 18's ranks share this card
+    return rows
+
+
 # ------------------------------------------------------------------ phase 21
 def entry_point(torch, np, smi, path, eager, pinned, inputs, by_class, iters=(10, 20)):
     """An eager request and its pinned counterpart on the same inputs (a
     list of argument tuples, one request each): the eager requests counted
-    with K1's and K2's inputs recorded and held (K2 bit for bit against its
-    plain twin, K1 within phase 19's dot-product bound); the pinned requests
+    with K1's, K2's and K3's inputs recorded and held (K2 bit for bit against
+    its plain twin, K1 within phase 19's dot-product bound, K3 by
+    `roi_check`); the pinned requests
     against them by phase 5's criteria at |dscore| <= PINNED_DSCORE; each
     graph's captured launches equal to an eager request's; then request ms
     at the median, eager and pinned, each on its own line."""
-    from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda, roi_align_cuda
     from faster_orefsdet_tpu_torch.pipelines.inference import pack_detections, unpack_detections_np
 
-    ref, cgm_seen, nms_seen = [], [], {}
+    ref, cgm_seen, nms_seen, roi_seen = [], [], {}, []
+    dense_before = roi_align_cuda.counter.dense_calls
+
+    def requests():
+        roi_seen.extend(record_roi_calls(torch, lambda: ref.extend(eager(*x) for x in inputs)))
+
     launches = count_launches(cgm_cuda, nms_cuda, lambda: cgm_seen.extend(record_cgm_calls(
-        torch, lambda: nms_seen.update(record_nms_calls(torch, lambda: ref.extend(eager(*x) for x in inputs))))))
+        torch, lambda: nms_seen.update(record_nms_calls(torch, requests)))))
     per_request = {k: v // len(inputs) for k, v in launches.items()}
     got = [pinned(*x) for x in inputs]
     torch.cuda.synchronize()
+    dense_calls = roi_align_cuda.counter.dense_calls - dense_before
     checks = []
     for a, b in zip(got, ref):
         pa, pb = pack_detections(a), pack_detections(b)
@@ -3571,6 +3736,8 @@ def entry_point(torch, np, smi, path, eager, pinned, inputs, by_class, iters=(10
     graphs = [g.launches for g in pinned.graphs.values()]
     nms_checks, nms_err = check_nms_calls(torch, nms_seen)
     cgm_checks, cgm_err, cgm_bad = check_cgm_calls(torch, cgm_seen)
+    roi_checks, roi_bad = check_roi_calls(torch, roi_seen)
+    roi_seen.clear()
     row = {"path": path, "requests": len(inputs), "eager_launches_per_request": per_request,
            "graphs_captured_launches": graphs, "images_checked": len(checks),
            "all_matched": all(c["ok"] for c in checks), "max_dscore": max(c["max_dscore"] for c in checks),
@@ -3578,13 +3745,16 @@ def entry_point(torch, np, smi, path, eager, pinned, inputs, by_class, iters=(10
            "nms_sites": [c["shape"] for c in nms_checks if c["site"] == "kernel"],
            "nms_mismatches": sum(c["mismatches"] for c in nms_checks), "nms_max_abs_err": nms_err,
            "cgm_calls": [[c["shape"], c["classes"]] for c in cgm_checks], "cgm_max_abs_err": cgm_err,
-           "cgm_out_of_bound": cgm_bad}
+           "cgm_out_of_bound": cgm_bad, "roi_dense_calls": dense_calls,
+           "roi_calls": [[c["shape"], c["dtype"], c["levels"]] for c in roi_checks],
+           "roi_max_abs_err": max((c["max_abs_err"] for c in roi_checks), default=0.0), "roi_out_of_bound": roi_bad}
     emit(pinned_entry=row)
-    if not row["all_matched"] or any(g != per_request for g in graphs) or not graphs:
+    if not row["all_matched"] or any(g != per_request for g in graphs) or not graphs or dense_calls:
         raise AssertionError(f"pinned {path}: detections {checks}, graphs {graphs} against {per_request} an eager "
                              "request")
-    if row["nms_mismatches"] or cgm_bad:
-        raise AssertionError(f"pinned {path}: the kernels on the request's own inputs: {nms_checks} {cgm_checks}")
+    if row["nms_mismatches"] or cgm_bad or roi_bad or len(roi_checks) != launches["roi"]:
+        raise AssertionError(f"pinned {path}: the kernels on the request's own inputs: {nms_checks} {cgm_checks} "
+                             f"{roi_checks}")
     x = inputs[0]
     for side, fn, n in (("eager", eager, iters[0]), ("pinned", pinned, iters[1])):
         med, lo, hi = request_times(torch, lambda: fn(*x), n)
@@ -3639,9 +3809,9 @@ def phase_pinned_entry_points(torch, np, smi, cfg, params, cache, frames_u8, mul
     run("baseline", lambda *x: bserve(base["cache"], *x),
         arpn.build_pinned_baseline_inference_fn(base["cfg"], base["params"], base["cache"]),
         [(base["canvas"], base["image_hw"])], True, iters=(5, 10))
-    expected = {"raw_frames_b1": {"cgm": 3, "nms": 2}, "raw_frames_b8": {"cgm": 3, "nms": 2},
-                f"multiclass{MULTICLASS_CLASSES}": {"cgm": 3, "nms": 2}, "baseline": {"cgm": 0, "nms": 2},
-                **{f"onestage{n}_{d}": {"cgm": 0, "nms": 1} for n in ONESTAGE_CLASSES for d in ("float32", "bfloat16")}}
+    expected = {"raw_frames_b1": kernels(3, 2, 1), "raw_frames_b8": kernels(3, 2, 1),
+                f"multiclass{MULTICLASS_CLASSES}": kernels(3, 2, 1), "baseline": kernels(0, 2, 1),
+                **{f"onestage{n}_{d}": kernels(0, 1) for n in ONESTAGE_CLASSES for d in ("float32", "bfloat16")}}
     got = {path: row["eager_launches_per_request"] for path, row in rows.items()}
     slower = [path for path, row in rows.items() if row["pinned_ms_median"] > row["eager_ms_median"]]
     emit(pinned_entry_points={"canvas": list(canvas), "launches_per_request": got, "pinned_slower_than_eager": slower,
@@ -3890,8 +4060,8 @@ def main(argv=None) -> int:
         + [pack_detections(serve8(cache, u8[i], hw8)) for i in range(2)]))
     requests = 3 + 2
     emit(main_path={"requests": requests, "images": 3 + 16, "launches": launches,
-                    "launches_per_request": {"cgm": 3, "nms": 2}})
-    if launches != {"cgm": 3 * requests, "nms": 2 * requests}:
+                    "launches_per_request": kernels(3, 2, 1)})
+    if launches != kernels(3 * requests, 2 * requests, requests):
         raise AssertionError(f"kernel launch counts {launches} on the main path")
     for p in packed:
         p = p.reshape(-1, 100, 7)
@@ -3979,6 +4149,9 @@ def main(argv=None) -> int:
             if b == 8:
                 nms_ms, nms_enq_ms, nms_plain_ms = nms_ms + ms, nms_enq_ms + enq, nms_plain_ms + plain
                 nms_bytes, nms_flops = nms_bytes + nbytes, nms_flops + flops
+
+    # K3 at the three serving shapes (the VoVNet request's own row; DLA's and the baseline's beside it)
+    k3_rows = phase_k3_timing(torch, np, smi)
 
     # K2 at the training decode's site, [1, 2048] at the train threshold (not in the request's row)
     boxes, scores, _ = nms_scenes(np, TRAIN_NMS_K, nms_rng)
@@ -4114,7 +4287,7 @@ def main(argv=None) -> int:
         # profiler has dropped part of a replay's kernel records (one run of
         # ten batch-8 replays saw 2.7 CGM launches per replay), so a profile
         # is taken again, PROFILE_ATTEMPTS times at most, until it is whole.
-        expected = {"cgm_kernel": captured.launches["cgm"],
+        expected = {"cgm_kernel": captured.launches["cgm"], "roi_align_kernel": captured.launches["roi"],
                     **{f"nms_{k}_kernel": captured.launches["nms"] for k in ("rank", "mask", "sweep")}}
         for attempt in range(1, PROFILE_ATTEMPTS + 1):
             prof = profile_requests(torch, pin_at[b], wall)
@@ -4179,6 +4352,8 @@ def main(argv=None) -> int:
                **{f"resnet_{k}": v for k, v in {**resnet["launches"], **resnet["graph_launches"]}.items()},
                **one["launches"], **entry_eager, **entry_graphs}
     resnet_paths = tuple(f"resnet_{k}" for k in resnet["launches"])
+    # K3's: the graphed train steps count K1 and K2 only (training pools through the dense composition)
+    k3_by_path = {p: v.get("roi", 0) for p, v in by_path.items()}
     eager_paths = ("main", "raw_frames", "multiclass", "train", "dla_train", "workflow_glob", "workflow_dla_c160",
                    "quant", "dp_train") + resnet_paths + tuple(one["launches"]) + tuple(entry_eager)
     graph_sites = {p: {"captured_launches_per_replay": row["graphs_captured_launches"][0],
@@ -4229,6 +4404,14 @@ def main(argv=None) -> int:
          "graph_sites": {p: {"captured_launches_per_replay": v["captured_launches_per_replay"]["nms"],
                              "replayed_launches": v["replays"]["nms"], "shapes": site_shapes[p]}
                          for p, v in graph_sites.items()}},
+        {"name": "roi_align_gather", **common,
+         "source": "faster_orefsdet_tpu_torch/csrc/roi_align.cu",
+         "replaces": None, "why": "the dense ROIAlign einsums took most of the ROI stage on the card",
+         "launches": sum(k3_by_path[p] for p in eager_paths), "launches_by_path": k3_by_path,
+         "rows": k3_rows,
+         "graph_sites": {p: {"captured_launches_per_replay": v["captured_launches_per_replay"]["roi"],
+                             "replayed_launches": v["replays"]["roi"]} for p, v in graph_sites.items()
+                         if "roi" in v["replays"]}},
     ])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -18,7 +18,7 @@ import torch.nn as nn
 from ..config import ROIConfig
 from ..ops.losses import smooth_l1_loss, softmax_cross_entropy
 from ..ops.nms_cuda import nms_mask
-from ..ops.roi_align import multilevel_roi_align
+from ..ops.roi_align_cuda import multilevel_roi_pool
 from ..structures.boxes import clip_boxes, encode_deltas, pairwise_iou
 from ..structures.instances import Detections, GroundTruth
 from .centernet import stable_topk
@@ -51,9 +51,11 @@ class DSACascadeHead(nn.Module):
         """features: [B, C, H_l, W_l] per level; boxes [B, K, 4]; support_8
         the shot-mean support ROI features, [P, P, C] for every row or
         [B, P, P, C] one per row (the multiclass path's classes). support_4
-        feeds only the reference's discarded 4x4 branch and is not used."""
+        feeds only the reference's discarded 4x4 branch and is not used.
+        The boxes are pooled by ``multilevel_roi_pool``: the gather kernel on
+        the card, the dense composition where the features need a gradient."""
         cfg = self.cfg
-        q8 = multilevel_roi_align(
+        q8 = multilevel_roi_pool(
             features, boxes, ROI_STRIDES, cfg.pooler_resolution, cfg.pooler_sampling_ratio,
             cfg.canonical_box_size, cfg.canonical_level,
         )  # [B, K, P, P, C]

@@ -1,7 +1,8 @@
-"""Tensor operations; ``nms_cuda`` and ``cgm_cuda`` wrap the CUDA kernels.
+"""Tensor operations; ``nms_cuda``, ``cgm_cuda`` and ``roi_align_cuda`` wrap
+the CUDA kernels.
 
 The package re-exports the JAX package's ``ops`` names, each the plain
-PyTorch function; importing it loads neither kernel wrapper and builds
+PyTorch function; importing it loads no kernel wrapper and builds
 nothing."""
 
 from .adaptive_pool import adaptive_avg_pool2d, adaptive_pool_matrix

@@ -25,7 +25,7 @@ from typing import Dict
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
-SOURCES = ("cgm", "nms", "stamp")
+SOURCES = ("cgm", "nms", "stamp", "roi_align")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +43,9 @@ _SIGNATURES = {
         "nms_workspace_bytes": ([_I, _I], ctypes.c_longlong),
     },
     "stamp": {"stamp_forward": ([_VP, _I, _VP], _I)},
+    "roi_align": {"roi_align_forward": ([ctypes.POINTER(_VP), ctypes.POINTER(_I), ctypes.POINTER(_I),
+                                         ctypes.POINTER(ctypes.c_float), _I, _I, _VP, _VP, _VP, _I, _I, _I, _I,
+                                         _I, _VP], _I)},
 }
 
 

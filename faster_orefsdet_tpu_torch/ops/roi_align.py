@@ -6,6 +6,10 @@ the mean of S bilinear hat rows) give out = A_y . feat . A_x^T per channel.
 ``sampling_ratio=0`` is ROIAlignV2's adaptive mode, ceil(roi_size/out_size)
 samples per bin, laid out on a masked static grid of ADAPTIVE_S_MAX samples:
 ratios above the cap clamp to it (unlike torchvision's uncapped count).
+
+This composition is the plain version of the gather kernel in
+``roi_align_cuda``, which the serving paths take on the card, and the
+differentiable route that training takes.
 """
 
 from __future__ import annotations
@@ -104,9 +108,24 @@ def multilevel_roi_align(
     min_level = int(math.log2(strides[0]))
     max_level = int(math.log2(strides[-1]))
     lvl = assign_levels(boxes, min_level, max_level, canonical_box_size, canonical_level)
+    return pool_at_levels(features, boxes, lvl - min_level, [1.0 / s for s in strides], output_size,
+                          sampling_ratio)
+
+
+def pool_at_levels(
+    features: Sequence[torch.Tensor],
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    scales: Sequence[float],
+    output_size: int,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """Pool every box at every level (scale `scales[i]` for features[i]) and
+    keep each box's own: levels [B, R] indices into `features` (a box whose
+    index matches no level pools to zeros) -> [B, R, P, P, C]."""
     out = None
-    for i, (feat, stride) in enumerate(zip(features, strides)):
-        pooled = roi_align(feat, boxes, 1.0 / stride, output_size, sampling_ratio)
-        mask = (lvl == (min_level + i)).to(pooled.dtype)[..., None, None, None]
+    for i, (feat, scale) in enumerate(zip(features, scales)):
+        pooled = roi_align(feat, boxes, scale, output_size, sampling_ratio)
+        mask = (levels == i).to(pooled.dtype)[..., None, None, None]
         out = pooled * mask if out is None else out + pooled * mask
     return out

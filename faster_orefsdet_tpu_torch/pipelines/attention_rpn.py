@@ -6,7 +6,8 @@ and the episodic training loss (counterpart of
              dense-relation enhancement of both, shot-averaged, per class
   inference  a batch of canvases, per class: attention RPN -> proposals
              (the NMS kernel on the card, one launch for every image and
-             class) -> 14x14 ROI pooling -> res5 -> relation head; then the
+             class) -> 14x14 ROI pooling (the ROIAlign gather kernel on the
+             card, one launch) -> res5 -> relation head; then the
              class-aware NMS across classes (the NMS kernel again, one
              launch for the batch) and the top detections
              (``baseline_query_path``); raw camera frames resized, normalized
@@ -35,7 +36,7 @@ from ..models.cascade_roi import label_proposals, subsample_proposals
 from ..models.centernet import stable_topk
 from ..ops import nms_cuda
 from ..ops.losses import smooth_l1_loss
-from ..ops.roi_align import roi_align
+from ..ops.roi_align_cuda import roi_pool
 from ..structures.boxes import apply_deltas, clip_boxes, encode_deltas
 from ..structures.instances import Detections, GroundTruth
 from ..utils import profiling
@@ -98,8 +99,8 @@ def _pool_supports(model: FsodRCNN, support_images: torch.Tensor, support_boxes:
     """Each shot's box pooled from its res4 [S, 14, 14, 1024], and res5 on
     that [S, 7, 7, 2048] (channel-last)."""
     res4 = model.features(support_images)
-    pooled14 = roi_align(res4, support_boxes.reshape(-1, 1, 4), 1.0 / cfg.stride, cfg.pooler_resolution,
-                         cfg.sampling_ratio)[:, 0]
+    pooled14 = roi_pool(res4, support_boxes.reshape(-1, 1, 4), 1.0 / cfg.stride, cfg.pooler_resolution,
+                        cfg.sampling_ratio)[:, 0]
     return pooled14, model.res5_transform(pooled14)
 
 
@@ -156,8 +157,8 @@ def baseline_query_path(model: FsodRCNN, cache: BaselineSupportCache, images: to
     r = props.boxes.shape[1]
     proposals = props.boxes.reshape(b, n_cls * r, 4)
     with profiling.stage("roi_pool"):
-        pooled = roi_align(res4, proposals, 1.0 / cfg.stride, cfg.pooler_resolution,
-                           cfg.sampling_ratio)  # [B, N*R, 14, 14, 1024]
+        pooled = roi_pool(res4, proposals, 1.0 / cfg.stride, cfg.pooler_resolution,
+                          cfg.sampling_ratio)  # [B, N*R, 14, 14, 1024]
     with profiling.stage("res5"):
         box_feats = model.res5_transform(pooled.flatten(0, 1)).reshape(b, n_cls, r, 7, 7, -1)
     with profiling.stage("relation"):
@@ -355,7 +356,7 @@ def baseline_loss_fn(model: FsodRCNN, batch: TrainBatch, cfg: BaselineConfig,
         boxes, slot_valid = injected_rois
         gt_cls, gt_boxes = label_proposals(boxes, slot_valid, gt, cfg.roi_iou_threshold, cfg.num_classes)
     r = boxes.shape[1]
-    pooled = roi_align(res4, boxes, 1.0 / cfg.stride, cfg.pooler_resolution, cfg.sampling_ratio)
+    pooled = roi_pool(res4, boxes, 1.0 / cfg.stride, cfg.pooler_resolution, cfg.sampling_ratio)
     box_feats = model.res5_transform(pooled.reshape(b * r, *pooled.shape[2:]))
     fg = slot_valid & (gt_cls == 0)
     tgt = encode_deltas(boxes, gt_boxes, cfg.bbox_reg_weights)

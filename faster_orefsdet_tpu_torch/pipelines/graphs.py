@@ -36,12 +36,13 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from ..ops import cgm_cuda, nms_cuda, stamp_cuda
+from ..ops import cgm_cuda, nms_cuda, roi_align_cuda, stamp_cuda
 from ..utils import profiling
 
 MAX_GRAPHS = 4  # captured signatures kept by one pinned function (least recently used goes)
 WARMUP_CALLS = 2
 CAPTURES = 2  # of each signature: the graph and its timed twin
+KERNELS = ("cgm", "nms", "roi")  # the launch counters of K1, K2 and K3 (ops/*_cuda.py)
 
 
 class _Graph:
@@ -55,6 +56,11 @@ class _Graph:
         self.launches = launches
         self.spans = spans
         self.replays = 0
+
+
+def _launch_counts() -> Dict[str, int]:
+    return {"cgm": cgm_cuda.counter.launches, "nms": nms_cuda.counter.launches,
+            "roi": roi_align_cuda.counter.launches}
 
 
 def _signature(key: tuple) -> str:
@@ -145,14 +151,14 @@ class PinnedFn:
             spans = profiling.GraphSpans(f"cuda:{torch.cuda.current_device()}", _signature(key),
                                          stamp_cuda.StampClock(self.device))
         current.wait_stream(side)
-        before = (cgm_cuda.counter.launches, nms_cuda.counter.launches)
+        before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
         # thread_local: other threads may call the CUDA runtime meanwhile (the
         # async predictor's producer pins host memory, its readback workers
         # wait on events), which a global-mode capture counts as its error
         with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
             out = self.run(*static)
-        launches = {"cgm": cgm_cuda.counter.launches - before[0], "nms": nms_cuda.counter.launches - before[1]}
+        launches = {k: n - before[k] for k, n in _launch_counts().items()}
         # the timed twin, in the graph's pool: the two replay in turn on one
         # stream and each call clones its outputs before the next replay
         timed = torch.cuda.CUDAGraph()
@@ -164,4 +170,4 @@ class PinnedFn:
     def kernel_launches(self) -> Dict[str, int]:
         """The kernel launches made by replays: each signature's captured
         launches times its replays."""
-        return {name: sum(g.launches[name] * g.replays for g in self.graphs.values()) for name in ("cgm", "nms")}
+        return {name: sum(g.launches[name] * g.replays for g in self.graphs.values()) for name in KERNELS}

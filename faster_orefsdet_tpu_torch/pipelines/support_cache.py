@@ -17,7 +17,7 @@ import torch
 from ..config import Config
 from ..models.cascade_roi import ROI_STRIDES
 from ..models.detector import CenterNet2Detector
-from ..ops.roi_align import multilevel_roi_align
+from ..ops.roi_align_cuda import multilevel_roi_pool
 from ..utils.device import resolve_device
 
 
@@ -44,7 +44,7 @@ def support_cache_from_model(model: CenterNet2Detector, support_images: torch.Te
     boxes = support_boxes.float()[:, None, :]  # one box per shot image
 
     def pool(size):
-        return multilevel_roi_align(
+        return multilevel_roi_pool(
             levels, boxes, ROI_STRIDES, size, cfg.roi.pooler_sampling_ratio,
             cfg.roi.canonical_box_size, cfg.roi.canonical_level,
         )[:, 0].mean(dim=0)

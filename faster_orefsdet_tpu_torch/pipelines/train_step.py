@@ -41,7 +41,7 @@ from ..models.cascade_roi import ROI_STRIDES, label_proposals, stage_losses, sub
 from ..models.centernet import _level_valid_mask, centernet_losses, decode_proposals
 from ..models.detector import CenterNet2Detector, support_kernels
 from ..ops.heatmap import more_pos_inds, render_targets
-from ..ops.roi_align import multilevel_roi_align
+from ..ops.roi_align_cuda import multilevel_roi_pool
 from ..ops import cgm_cuda, nms_cuda
 from ..solver import build_optimizer, build_schedule, optimizer_step, set_lr, sgd_update
 from ..structures.boxes import apply_deltas
@@ -130,7 +130,7 @@ def loss_fn(
     sup_levels = [sfeats[level] for level in ("p3", "p4", "p5")]
 
     def pool(size):
-        pooled = multilevel_roi_align(
+        pooled = multilevel_roi_pool(
             sup_levels, batch.support_boxes.reshape(b * s, 1, 4), ROI_STRIDES, size,
             roi.pooler_sampling_ratio, roi.canonical_box_size, roi.canonical_level,
         )[:, 0]

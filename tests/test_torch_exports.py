@@ -45,7 +45,7 @@ def test_ops_import_loads_no_kernel_wrapper():
     assert proc.returncode == 0, proc.stderr
     loaded = proc.stdout.strip().split(",")
     assert "faster_orefsdet_tpu_torch.ops.nms" in loaded
-    for wrapper in ("cgm_cuda", "nms_cuda", "_native"):
+    for wrapper in ("cgm_cuda", "nms_cuda", "roi_align_cuda", "_native"):
         assert f"faster_orefsdet_tpu_torch.ops.{wrapper}" not in loaded
 
 

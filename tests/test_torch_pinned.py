@@ -227,7 +227,7 @@ def test_pinned_serving_equals_eager(serving):
     eager, eager_canvas = tinf.build_serving_fn(s["cfg"], s["sd"], FRAME_HW, device="cpu")
     assert canvas == eager_canvas == CANVAS
     _assert_equal(fn(s["frames"]), eager(s["caches"][0], s["frames"]))
-    assert not fn.graphs and fn.kernel_launches() == {"cgm": 0, "nms": 0}
+    assert not fn.graphs and fn.kernel_launches() == {"cgm": 0, "nms": 0, "roi": 0}
     with pytest.raises(ValueError, match="serves 120x160"):
         fn(torch.zeros(1, 3, *CANVAS))
 
