@@ -1468,7 +1468,7 @@ def graphed_vs_eager(torch, cfg, params, batches, chunks, deterministic: bool) -
         within = all(v <= DEFAULTS_FACTOR for v in res["graphed_share_of_eager_spread"].values())
     finite = all(bool(torch.isfinite(v).all()) for v in g_m.values())
     res["ok"] = bool(res["generator_equal"] and res["steps_taken"][0] == res["steps_taken"][1] == len(batches)
-                     and finite and within and res["launches"] == {"cgm": 0, "nms": len(batches)})
+                     and finite and within and res["launches"] == kernels(0, len(batches)))
     return res
 
 
@@ -1553,7 +1553,7 @@ def phase_train_graphed(torch, np, smi, eager_ms: float):
                                    for k, g in step_k.graphs.items()},
                         "profile_per_step": per_step, "top_kernels_ms_per_chunk": prof["top_kernels_ms"][:6],
                         "card": smi})
-    if launches != {"cgm": 0, "nms": n}:
+    if launches != kernels(0, n):
         raise AssertionError(f"graphed steps launched {launches} over {n} steps (expected 0 CGM, 1 NMS a step)")
     emit(train_graphed_phase_s=time.perf_counter() - t_phase)
     return {"launches": {k: checks[0]["launches"][k] + checks[1]["launches"][k] + launches[k] for k in launches},
@@ -1740,7 +1740,7 @@ def phase_dla(torch, np, smi):
     emit(dla_timing={"eager_step_ms_median": eager_ms, "graphed_step_ms_median": g_med,
                      "graphed_step_ms_min": min(graphed_ms), "graphed_step_ms_max": max(graphed_ms),
                      "speedup": eager_ms / g_med, "graphed_launches": g_launches, "card": smi})
-    if g_launches != {"cgm": 0, "nms": DLA_TIMED_CHUNKS * GRAPH_K * 2}:
+    if g_launches != kernels(0, DLA_TIMED_CHUNKS * GRAPH_K * 2):
         raise AssertionError(f"finetune_dla graphed launches {g_launches}")
     emit(dla_phase_s=time.perf_counter() - t_phase)
     out.update(train_launches=launches, graphed_launches={k: eq["launches"][k] + g_launches[k] for k in g_launches},
@@ -2331,7 +2331,7 @@ def dp_train_rank(rank, world, device, cfg, params, batches, mode):
     import torch.distributed as dist
 
     from faster_orefsdet_tpu_torch.data.loader import train_loader
-    from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda, roi_align_cuda
     from faster_orefsdet_tpu_torch.parallel import build_dp_train_step, replicate_state, shard_batch
     from faster_orefsdet_tpu_torch.parallel.train_dp import build_pinned_dp_train_step
     from faster_orefsdet_tpu_torch.pipelines.train_step import build_train_state
@@ -2363,13 +2363,13 @@ def dp_train_rank(rank, world, device, cfg, params, batches, mode):
                 res["rows"].append({k: float(v) for k, v in out.items()})
                 res["digests"].append(_digest(state.model.state_dict().values()))
 
-        cgm_cuda.counter.launches = nms_cuda.counter.launches = 0
+        cgm_cuda.counter.launches = nms_cuda.counter.launches = roi_align_cuda.counter.launches = 0
         if samples:
             res["roi_samples"] = record_roi_samples(torch, steps)
         else:
             res["captured_nms_shapes"] = record_captured_nms_shapes(torch, steps)
         torch.cuda.synchronize(device)
-        res["counted"] = {"cgm": cgm_cuda.counter.launches, "nms": nms_cuda.counter.launches}
+        res["counted"] = kernels(cgm_cuda.counter.launches, nms_cuda.counter.launches, roi_align_cuda.counter.launches)
         if hasattr(step, "kernel_launches"):
             res["launches"] = step.kernel_launches()
             res["graphs"] = [{"captured_launches": g.launches, "replays": g.replays} for g in step.graphs.values()]
@@ -2468,7 +2468,7 @@ def dp_train_run(torch, np, cfg, params, batches, world, device, backend, refere
     wall_s = time.perf_counter() - t0
     (ref_rows, ref_samples), (per_rank_rows, per_rank_samples) = reference, per_rank
     steps = len(ref_rows)
-    per_step = {"cgm": 0, "nms": steps}
+    per_step = kernels(0, steps)
     runs = ["eager"] + (["pinned", "eager_dropout", "pinned_dropout"] if mode == "nccl" else [])
 
     def each(name):  # a run's results by rank (the two eager dropout runs: the first)
@@ -2507,7 +2507,7 @@ def dp_train_run(torch, np, cfg, params, batches, world, device, backend, refere
     eager_runs = [r["eager"] for r in ranks] + [x for r in ranks for x in r.get("eager_dropout", [])]
     bad += [f"eager counted {x['counted']}" for x in eager_runs if x["counted"] != per_step]
     launches = {"eager": {k: sum(x["counted"][k] for x in eager_runs) for k in per_step},
-                "pinned": {"cgm": 0, "nms": 0}, "captured_per_replay": None, "replayed": {"cgm": 0, "nms": 0},
+                "pinned": kernels(), "captured_per_replay": None, "replayed": kernels(),
                 "captured_nms_shapes": None}
     if mode == "gloo":
         refused = [r.get("pinned_refused", "") for r in ranks]
@@ -2557,11 +2557,11 @@ def dp_train_run(torch, np, cfg, params, batches, world, device, backend, refere
         bad += [] if dropout_moves else ["the dropout did not change the losses"]
         bad += [f"pinned launches {x}" for x in pinned_launches if x != per_step]
         bad += [f"graphs {g}" for g in graphs + [t["graphs"] for t in timed]
-                if [x["captured_launches"] for x in g] != [{"cgm": 0, "nms": 1}]]
+                if [x["captured_launches"] for x in g] != [kernels(0, 1)]]
         bad += [f"captured NMS shapes {c}" for c in captured_shapes
                 if c != captured_shapes[0] or len(c) != graphs[0][0]["captured_launches"]["nms"]]
         bad += [f"timed launches {t['launches']} over {t['steps']} steps" for t in timed
-                if t["launches"] != {"cgm": 0, "nms": t["steps"]}]
+                if t["launches"] != kernels(0, t["steps"])]
         # the pinned runs' launches: the dropout-off run's, and the dropout run's to the end of its timed steps
         replayed = [x for r in ranks for x in r["pinned"]["graphs"] + r["timed"]["graphs"]]
         launches.update(pinned={k: sum(r["pinned"]["launches"][k] + r["timed"]["launches"][k] for r in ranks)
@@ -2686,8 +2686,8 @@ def dp_world_one(torch, cfg, params, batches, smi) -> dict:
     emit(dp_train={"run": "one_card_world1_graph", **res, "canvas": list(TRAIN_CANVAS), "card": smi})
     if not (res["bit_identical_to_scan"] and generators_equal and res["resumed_in_place_bit_identical"]):
         raise AssertionError(f"the pinned DP step at world 1 differs from build_train_step_scan: {res}")
-    if res["launches"] != {"cgm": 0, "nms": taken} or [g["captured_launches"] for g in graphs] != [
-            {"cgm": 0, "nms": 1}] or len(captured) != 1:
+    if res["launches"] != kernels(0, taken) or [g["captured_launches"] for g in graphs] != [kernels(0, 1)] \
+            or len(captured) != 1:
         raise AssertionError(f"the pinned DP step at world 1 launched {res['launches']} over {taken} steps: {graphs}, "
                              f"captured NMS shapes {captured}")
     del scan_state, scan, state, pinned
@@ -2719,7 +2719,7 @@ def phase_dp_train(torch, np, smi, count: int, n: int) -> dict:
     else:
         emit(dp_train={"run": "cards_nccl", "ran": False,
                        "why": f"{count} card visible: NCCL across cards needs two or more", "card": smi})
-    out = {"train": {"cgm": 0, "nms": 0}, "graphed": {"cgm": 0, "nms": 0}}
+    out = {"train": kernels(), "graphed": kernels()}
 
     def take(world):
         loader = train_loader(records, mapper, world, seed=3)
@@ -2733,7 +2733,7 @@ def phase_dp_train(torch, np, smi, count: int, n: int) -> dict:
     out["graphed"] = dict(one["launches"])
     site = out["graph_site"] = {
         "captured_launches_per_replay": one["graphs"][0]["captured_launches"],
-        "replays": {k: sum(g["replays"] * g["captured_launches"][k] for g in one["graphs"]) for k in ("cgm", "nms")},
+        "replays": {k: sum(g["replays"] * g["captured_launches"][k] for g in one["graphs"]) for k in kernels()},
         "shapes": one["captured_nms_shapes"]}
     for what, world, device, backend in runs:
         wcfg = tcfg.replace(solver=dataclasses.replace(tcfg.solver, ims_per_batch=world))
@@ -4352,7 +4352,7 @@ def main(argv=None) -> int:
                **{f"resnet_{k}": v for k, v in {**resnet["launches"], **resnet["graph_launches"]}.items()},
                **one["launches"], **entry_eager, **entry_graphs}
     resnet_paths = tuple(f"resnet_{k}" for k in resnet["launches"])
-    # K3's: the graphed train steps count K1 and K2 only (training pools through the dense composition)
+    # K3's: 0 in the graphed train steps (training pools through the dense composition)
     k3_by_path = {p: v.get("roi", 0) for p, v in by_path.items()}
     eager_paths = ("main", "raw_frames", "multiclass", "train", "dla_train", "workflow_glob", "workflow_dla_c160",
                    "quant", "dp_train") + resnet_paths + tuple(one["launches"]) + tuple(entry_eager)

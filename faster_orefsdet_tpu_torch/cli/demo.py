@@ -177,7 +177,7 @@ def run(args: argparse.Namespace, media: Media) -> int:
     from ..data.coco import load_support_index
     from ..pipelines.evaluate import encode_support_set
     from ..pipelines.inference import build_inference_fn
-    from ..pipelines.preprocess import ceil_to, preprocess_host, resize_shortest_edge_size
+    from ..pipelines.preprocess import frame_geometry, preprocess_host
     from ..utils.checkpoint import load_params_npz
     from ..utils.device import resolve_device
     from ..utils.params import init_params
@@ -198,10 +198,6 @@ def run(args: argparse.Namespace, media: Media) -> int:
     print(f"support cache built in {time.perf_counter() - t0:.2f}s")
     inp = cfg.input
 
-    def canvas_of(h: int, w: int) -> Tuple[int, int]:
-        rh, rw = resize_shortest_edge_size(h, w, inp.min_size_test, inp.max_size_test)
-        return ceil_to(rh, inp.size_divisibility), ceil_to(rw, inp.size_divisibility)
-
     act_scales = None
     if calib_paths:
         # the static presets: activation scales measured once on a few
@@ -211,7 +207,7 @@ def run(args: argparse.Namespace, media: Media) -> int:
         imgs = [img for img in (media.imread(path) for path in calib_paths[:8]) if img is not None]
         if not imgs:
             raise SystemExit("no readable calibration images")
-        sizes = [canvas_of(*img.shape[:2]) for img in imgs]
+        sizes = [frame_geometry(*img.shape[:2], inp).canvas_hw for img in imgs]
         chw = (max(h for h, _ in sizes), max(w for _, w in sizes))
         canvases = torch.stack([preprocess_host(img, inp.min_size_test, inp.max_size_test, chw, inp.pixel_mean,
                                                 inp.pixel_std)[0] for img in imgs])
@@ -228,7 +224,8 @@ def run(args: argparse.Namespace, media: Media) -> int:
         nonlocal infer
         infer = infer or build_inference_fn(cfg, params, device=dev, act_scales=act_scales)
         canvas, (newh, neww), (sy, sx) = preprocess_host(img, inp.min_size_test, inp.max_size_test,
-                                                         canvas_of(*img.shape[:2]), inp.pixel_mean, inp.pixel_std)
+                                                         frame_geometry(*img.shape[:2], inp).canvas_hw,
+                                                         inp.pixel_mean, inp.pixel_std)
         det = infer(cache, canvas, (float(newh), float(neww)), taps=taps)
         valid = det.valid.cpu().numpy()
         boxes = det.boxes.float().cpu().numpy()[valid] * np.asarray([sx, sy, sx, sy])

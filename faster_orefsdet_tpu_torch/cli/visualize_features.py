@@ -49,13 +49,11 @@ def feature_maps(cfg, params, cache, img: np.ndarray, *, device="cuda") -> Dict[
     import torch
 
     from ..pipelines.inference import cache_kernels, make_detector
-    from ..pipelines.preprocess import ceil_to, preprocess_host, resize_shortest_edge_size
+    from ..pipelines.preprocess import frame_geometry, preprocess_host
 
     inp = cfg.input
-    rh, rw = resize_shortest_edge_size(img.shape[0], img.shape[1], inp.min_size_test, inp.max_size_test)
-    canvas_hw = (ceil_to(rh, inp.size_divisibility), ceil_to(rw, inp.size_divisibility))
-    canvas, _, _ = preprocess_host(img, inp.min_size_test, inp.max_size_test, canvas_hw, inp.pixel_mean,
-                                   inp.pixel_std)
+    canvas, _, _ = preprocess_host(img, inp.min_size_test, inp.max_size_test,
+                                   frame_geometry(*img.shape[:2], inp).canvas_hw, inp.pixel_mean, inp.pixel_std)
     model = make_detector(cfg, params, device=device)
     dev = next(model.parameters()).device
     with torch.inference_mode():
@@ -89,7 +87,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from ..config import apply_overrides, get_config
     from ..data.coco import load_support_index
     from ..pipelines.evaluate import encode_support_set
-    from ..pipelines.preprocess import resize_shortest_edge_size
+    from ..pipelines.preprocess import frame_geometry
     from ..utils.checkpoint import load_params_npz
     from ..utils.device import resolve_device
     from ..utils.params import init_params
@@ -105,7 +103,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if img is None:
         raise SystemExit(f"cannot read {args.input}")
     maps = feature_maps(cfg, params, cache, img, device=device)
-    rh, rw = resize_shortest_edge_size(img.shape[0], img.shape[1], cfg.input.min_size_test, cfg.input.max_size_test)
+    rh, rw = frame_geometry(*img.shape[:2], cfg.input).resized_hw
     base = cv2.resize(img, (rw, rh))
     os.makedirs(args.out, exist_ok=True)
     for name, arr in maps.items():

@@ -24,6 +24,7 @@ import torch
 from ..config import Config
 from ..pipelines.preprocess import (
     ceil_to,
+    frame_geometry,
     pad_to_canvas,
     preprocess_host,
     resize_image_host,
@@ -62,13 +63,12 @@ def eval_loader(records: Sequence[ImageRecord], cfg: Config, canvas_hw: Optional
         img = imread(rec.file_name)
         if img is None:
             continue
-        h, w = img.shape[:2]
-        newh, neww = resize_shortest_edge_size(h, w, inp.min_size_test, inp.max_size_test)
-        chw = canvas_hw or (ceil_to(newh, inp.size_divisibility), ceil_to(neww, inp.size_divisibility))
+        geo = frame_geometry(*img.shape[:2], inp)
+        chw = canvas_hw or geo.canvas_hw
         if raw_uint8:
-            resized = resize_image_host(np.ascontiguousarray(img, np.uint8), newh, neww)
+            resized = resize_image_host(np.ascontiguousarray(img, np.uint8), *geo.resized_hw)
             canvas = torch.from_numpy(pad_to_canvas(resized, chw)).permute(2, 0, 1)
-            yield rec, canvas, (newh, neww), (h / newh, w / neww)
+            yield rec, canvas, geo.resized_hw, geo.scale_hw
             continue
         canvas, hw, scale = preprocess_host(img, inp.min_size_test, inp.max_size_test, chw,
                                             inp.pixel_mean, inp.pixel_std)

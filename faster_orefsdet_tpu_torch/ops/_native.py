@@ -7,7 +7,8 @@ with ``ctypes``. The hash covers the sources and the flags, so an edited
 source builds anew; all sources compile in parallel, once per process, at the
 first kernel launch. ``csrc/cocoeval.cc`` (the COCO matcher) builds the same
 way with the host's ``g++`` (``host_library``), at its first use. Nothing
-here runs at import time.
+here runs at import time. ``launch_counts`` reads the kernels' launch
+counters, the one map of them being ``LAUNCH_COUNTERS``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import ctypes
 import fcntl
 import functools
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -26,6 +28,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 SOURCES = ("cgm", "nms", "stamp", "roi_align")
+# {kernel: the wrapper module (ops/<module>.py) whose `counter.launches` counts its launches}
+LAUNCH_COUNTERS = {"cgm": "cgm_cuda", "nms": "nms_cuda", "roi": "roi_align_cuda"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -55,6 +59,18 @@ _HOST_SIGNATURES = {
     "cocoeval": {"evaluate_image": ([_D, _I64, _D, _I64, _U8, _U8, _D, _I64, ctypes.c_double, ctypes.c_double,
                                      _U8, _U8], None)},
 }
+
+
+def launch_counts() -> Dict[str, int]:
+    """{kernel: its launches so far}, from each wrapper's counter (imported
+    here, at the call: the wrappers import this module)."""
+    return {name: importlib.import_module(f"{__package__}.{module}").counter.launches
+            for name, module in LAUNCH_COUNTERS.items()}
+
+
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """{kernel: launches made since ``before = launch_counts()``}."""
+    return {name: n - before[name] for name, n in launch_counts().items()}
 
 
 def _nvcc() -> str:

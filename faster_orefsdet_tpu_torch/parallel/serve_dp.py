@@ -19,7 +19,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from ..config import Config
-from ..pipelines.graphs import KERNELS
+from ..ops import _native
 from ..pipelines.inference import build_pinned_serving_fn
 from ..pipelines.support_cache import SupportCache
 from ..structures.instances import Detections
@@ -63,7 +63,7 @@ class ShardedServing:
     def kernel_launches(self) -> Dict[str, int]:
         """The replicas' replayed kernel launches, summed over the cards."""
         per_card = [fn.kernel_launches() for fn in self.replicas]
-        return {k: sum(c[k] for c in per_card) for k in KERNELS}
+        return {k: sum(c[k] for c in per_card) for k in _native.LAUNCH_COUNTERS}
 
 
 def make_sharded_serving(cfg: Config, params: Mapping[str, torch.Tensor], input_hw: Tuple[int, int], mesh: Mesh,

@@ -23,7 +23,7 @@ import torch
 
 from ..config import Config
 from .inference import build_pinned_inference_fn
-from .preprocess import ceil_to, preprocess_host, resize_shortest_edge_size
+from .preprocess import frame_geometry, preprocess_host
 from .support_cache import SupportCache
 
 _POLL_S = 0.1
@@ -49,10 +49,7 @@ class AsyncPredictor:
 
     def _prep(self, img: np.ndarray):
         inp = self.cfg.input
-        canvas_hw = self.canvas_hw
-        if canvas_hw is None:
-            rh, rw = resize_shortest_edge_size(img.shape[0], img.shape[1], inp.min_size_test, inp.max_size_test)
-            canvas_hw = (ceil_to(rh, inp.size_divisibility), ceil_to(rw, inp.size_divisibility))
+        canvas_hw = self.canvas_hw or frame_geometry(*img.shape[:2], inp).canvas_hw
         canvas, (nh, nw), scale = preprocess_host(img, inp.min_size_test, inp.max_size_test, canvas_hw,
                                                   inp.pixel_mean, inp.pixel_std)
         hw = torch.tensor([float(nh), float(nw)])

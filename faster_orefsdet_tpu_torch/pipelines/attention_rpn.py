@@ -11,7 +11,9 @@ and the episodic training loss (counterpart of
              class-aware NMS across classes (the NMS kernel again, one
              launch for the batch) and the top detections
              (``baseline_query_path``); raw camera frames resized, normalized
-             and padded on the card first (``build_pinned_baseline_serving_fn``)
+             and padded on the card first, the boxes scaled back to the
+             frame after (``build_pinned_baseline_serving_fn``, through
+             ``inference.raw_frame_body``)
   training   the same per image with the RPN's anchor losses, the ROI
              sampler and the relation head's hard-negative CE; on the card a
              step is ``baseline_loss_fn`` + ``backward`` + ``solver.sgd_update``
@@ -24,7 +26,7 @@ Builders run on the card unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,7 +44,7 @@ from ..structures.instances import Detections, GroundTruth
 from ..utils import profiling
 from ..utils.device import resolve_device
 from .graphs import PinnedFn
-from .preprocess import ceil_to, preprocess_device, resize_shortest_edge_size
+from .inference import PinnedImagesFn, raw_frame_body
 from .train_step import TrainBatch
 
 
@@ -130,16 +132,13 @@ def build_baseline_cache(cfg: BaselineConfig, params: Mapping[str, torch.Tensor]
 
 @torch.inference_mode()
 def baseline_query_path(model: FsodRCNN, cache: BaselineSupportCache, images: torch.Tensor,
-                        image_hw: torch.Tensor, cfg: BaselineConfig,
-                        box_scale: Optional[torch.Tensor] = None) -> Detections:
+                        image_hw: torch.Tensor, cfg: BaselineConfig) -> Detections:
     """Canvases [B, 3, H, W] normalized and their image_hw [B, 2] (h, w)
     before padding, through the per-class protocol -> Detections
     [B, min(detections_per_image, N x rpn_post_nms_topk_test)] (classes
     index the cache's N classes). The batch runs through every phase, the
     NMS kernel included: one launch for the B x N proposal rows, one for
-    the B class-aware rows. `box_scale` [4] (x, y, x, y), when given,
-    multiplies the boxes (back to frame coordinates). Each phase is a
-    ``utils.profiling.stage``."""
+    the B class-aware rows. Each phase is a ``utils.profiling.stage``."""
     b = images.shape[0]
     n_cls = cache.res4_avg.shape[0]
     with profiling.stage("features"):
@@ -173,10 +172,8 @@ def baseline_query_path(model: FsodRCNN, cache: BaselineSupportCache, images: to
         keep = nms_cuda.batched_nms_mask(boxes, probs, classes, valid, cfg.test_nms_thresh)
         sel_scores, sel_idx = stable_topk(torch.where(keep, probs, torch.full_like(probs, -1.0)),
                                           cfg.detections_per_image)
-        sel_boxes = torch.gather(boxes, 1, sel_idx[..., None].expand(-1, -1, 4))
-        if box_scale is not None:
-            sel_boxes = sel_boxes * box_scale
-        return Detections(boxes=sel_boxes, scores=sel_scores.clamp(min=0.0),
+        return Detections(boxes=torch.gather(boxes, 1, sel_idx[..., None].expand(-1, -1, 4)),
+                          scores=sel_scores.clamp(min=0.0),
                           classes=torch.gather(classes, 1, sel_idx), valid=sel_scores > 0.0)
 
 
@@ -209,30 +206,27 @@ def build_baseline_inference_fn(cfg: BaselineConfig, params: Mapping[str, torch.
     return fn
 
 
-class _PinnedBaselineFn(PinnedFn):
-    """fn(image, image_hw) -> Detections (see
-    ``build_pinned_baseline_inference_fn``)."""
-
-    def __init__(self, cfg: BaselineConfig, params: Mapping[str, torch.Tensor], cache: BaselineSupportCache, *,
-                 device="cuda"):
-        model = make_fsod_rcnn(cfg, params, device=device)
-        dev = next(model.parameters()).device
-        cache = _check_baseline_cache(cache, dev)
-        super().__init__(lambda image, hw: baseline_inference_single(model, cache, image, hw, cfg), dev)
-
-    def __call__(self, image: torch.Tensor, image_hw) -> Detections:
-        # (h, w) goes to the graph's static buffer from a host tensor
-        return super().__call__(image, torch.as_tensor(image_hw, dtype=torch.float32))
+def _baseline_query(cfg: BaselineConfig, params: Mapping[str, torch.Tensor], cache: BaselineSupportCache,
+                    device) -> Tuple[torch.device, Callable[..., Detections]]:
+    """The baseline of `cfg` on its card `dev` -> (dev, query): query(images
+    [B, 3, H, W], image_hw [B, 2]) -> ``baseline_query_path`` over `cache`,
+    refused here unless it lives on `dev`."""
+    model = make_fsod_rcnn(cfg, params, device=device)
+    dev = next(model.parameters()).device
+    cache = _check_baseline_cache(cache, dev)
+    return dev, lambda images, image_hw: baseline_query_path(model, cache, images, image_hw, cfg)
 
 
 def build_pinned_baseline_inference_fn(cfg: BaselineConfig, params: Mapping[str, torch.Tensor],
-                                       cache: BaselineSupportCache, *, device="cuda"):
+                                       cache: BaselineSupportCache, *, device="cuda") -> PinnedImagesFn:
     """``build_baseline_inference_fn`` with the weights and the cache fixed
-    at build time: fn(image [3, H, W], image_hw (h, w)) -> Detections, one
-    CUDA graph per (canvas, dtype) on the card (``PinnedFn``). Rebuild the
-    function after changing the weights or the cache. On the CPU it runs the
-    eager path."""
-    return _PinnedBaselineFn(cfg, params, cache, device=device)
+    at build time: fn(image [3, H, W], image_hw (h, w)) -> Detections, or a
+    batch [B, 3, H, W] with image_hw [B, 2] -> [B, ...]
+    (``baseline_query_path`` at batch B), one CUDA graph per (batch, canvas,
+    dtype) on the card (``PinnedFn``). Rebuild the function after changing
+    the weights or the cache. On the CPU it runs the eager path."""
+    dev, query = _baseline_query(cfg, params, cache, device)
+    return PinnedImagesFn(query, dev)
 
 
 def build_pinned_baseline_serving_fn(cfg: BaselineConfig, params: Mapping[str, torch.Tensor],
@@ -243,37 +237,16 @@ def build_pinned_baseline_serving_fn(cfg: BaselineConfig, params: Mapping[str, t
     and the cache fixed at build time: the frames resized to `input_cfg`'s
     test size (the shorter side to min_size_test, the longer capped at
     max_size_test), normalized by its pixel statistics and padded to its
-    size divisibility on the device (``preprocess.preprocess_device``),
-    then ``baseline_query_path`` with the boxes scaled back to the frame,
-    in one CUDA graph per (batch, dtype) on the card (``PinnedFn``).
+    size divisibility on the device, then ``baseline_query_path``, then the
+    boxes scaled back to the frame (``inference.raw_frame_body``), in one
+    CUDA graph per (batch, dtype) on the card (``PinnedFn``).
     ``BaselineConfig`` holds no input settings (it is the JAX package's
     field for field), so they come in as `input_cfg`: Base-FSOD-C4.yaml's
     INPUT is min 600, max 1000. Returns (fn, canvas_hw). Rebuild the
     function after changing the weights or the cache. On the CPU it runs
     the eager path."""
-    model = make_fsod_rcnn(cfg, params, device=device)
-    dev = next(model.parameters()).device
-    cache = _check_baseline_cache(cache, dev)
-    h0, w0 = input_hw
-    rh, rw = resize_shortest_edge_size(h0, w0, input_cfg.min_size_test, input_cfg.max_size_test)
-    d = input_cfg.size_divisibility
-    canvas_hw = (ceil_to(rh, d), ceil_to(rw, d))
-    # what the graph reads besides the frames, made here and held by the
-    # function: the resized size and the scale back to the frame (x by the
-    # width ratio, y by the height ratio)
-    resized_hw = torch.tensor([float(rh), float(rw)], device=dev)
-    scale = torch.tensor([w0 / rw, h0 / rh] * 2, dtype=torch.float32, device=dev)
-    mean, std = tuple(input_cfg.pixel_mean), tuple(input_cfg.pixel_std)
-
-    @torch.inference_mode()
-    def run(frames: torch.Tensor) -> Detections:
-        if tuple(frames.shape[-2:]) != (h0, w0):
-            raise ValueError(f"frames of {tuple(frames.shape[-2:])}: this function serves {h0}x{w0}")
-        with profiling.stage("preprocess"):
-            canvases = preprocess_device(frames, (rh, rw), canvas_hw, mean, std)
-        return baseline_query_path(model, cache, canvases, resized_hw.expand(frames.shape[0], 2), cfg,
-                                   box_scale=scale)
-
+    dev, query = _baseline_query(cfg, params, cache, device)
+    run, canvas_hw = raw_frame_body(query, input_hw, input_cfg, dev)
     return PinnedFn(run, dev), canvas_hw
 
 

@@ -1,5 +1,7 @@
 """CUDA-graph replays of a request: the port's counterpart of ``jax.jit``
-for the serving builders (``PinnedFn``).
+for the serving builders (``PinnedFn``). Each pinned builder gives it a
+closure over its model family's request body, directly (raw frames) or
+through ``inference.PinnedImagesFn`` (one image or a batch).
 
 A request body ``run(*inputs)`` that copies nothing from the host and never
 waits for the device is captured once per input signature (the shapes and
@@ -20,9 +22,9 @@ spans (``utils.profiling.GraphSpans``): stamps of the card's clock
 replays in its place while spans are on, so a call with spans off runs no
 stamp. A timed replay is harvested into ``profiling.stage_samples()``
 before the twin's next replay. The kernel wrappers' launch counters
-advance when a call is captured, not when it is replayed:
-``kernel_launches`` is each signature's captured launches times its
-replays. While a profiler records, a call opens the host ranges
+(``ops._native.LAUNCH_COUNTERS``) advance when a call is captured, not when
+it is replayed: ``kernel_launches`` is each signature's captured launches
+times its replays. While a profiler records, a call opens the host ranges
 ``pinned.copy_in``, ``pinned.launch`` and ``pinned.clone``
 (``pinned.capture`` around a capture). A function counts its ``calls``,
 ``captures`` (signatures captured) and ``evictions`` (signatures dropped by
@@ -36,13 +38,12 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from ..ops import cgm_cuda, nms_cuda, roi_align_cuda, stamp_cuda
+from ..ops import _native, stamp_cuda
 from ..utils import profiling
 
 MAX_GRAPHS = 4  # captured signatures kept by one pinned function (least recently used goes)
 WARMUP_CALLS = 2
 CAPTURES = 2  # of each signature: the graph and its timed twin
-KERNELS = ("cgm", "nms", "roi")  # the launch counters of K1, K2 and K3 (ops/*_cuda.py)
 
 
 class _Graph:
@@ -56,11 +57,6 @@ class _Graph:
         self.launches = launches
         self.spans = spans
         self.replays = 0
-
-
-def _launch_counts() -> Dict[str, int]:
-    return {"cgm": cgm_cuda.counter.launches, "nms": nms_cuda.counter.launches,
-            "roi": roi_align_cuda.counter.launches}
 
 
 def _signature(key: tuple) -> str:
@@ -151,14 +147,14 @@ class PinnedFn:
             spans = profiling.GraphSpans(f"cuda:{torch.cuda.current_device()}", _signature(key),
                                          stamp_cuda.StampClock(self.device))
         current.wait_stream(side)
-        before = _launch_counts()
+        before = _native.launch_counts()
         graph = torch.cuda.CUDAGraph()
         # thread_local: other threads may call the CUDA runtime meanwhile (the
         # async predictor's producer pins host memory, its readback workers
         # wait on events), which a global-mode capture counts as its error
         with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
             out = self.run(*static)
-        launches = {k: n - before[k] for k, n in _launch_counts().items()}
+        launches = _native.launches_since(before)
         # the timed twin, in the graph's pool: the two replay in turn on one
         # stream and each call clones its outputs before the next replay
         timed = torch.cuda.CUDAGraph()
@@ -170,4 +166,5 @@ class PinnedFn:
     def kernel_launches(self) -> Dict[str, int]:
         """The kernel launches made by replays: each signature's captured
         launches times its replays."""
-        return {name: sum(g.launches[name] * g.replays for g in self.graphs.values()) for name in KERNELS}
+        return {name: sum(g.launches[name] * g.replays for g in self.graphs.values())
+                for name in _native.LAUNCH_COUNTERS}

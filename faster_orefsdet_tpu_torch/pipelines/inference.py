@@ -23,16 +23,22 @@ contiguously on the device (a canvas from ``preprocess_host`` is a
 permuted view), so that a request computes the same whatever the strides of
 the caller's tensor: in bf16, cuDNN picks its convolution by the strides,
 and the pinned function's static buffers are contiguous.
+
+A builder of any family (here, ``onestage.py``, ``attention_rpn.py``) is its
+family's query callable (here ``_detector_query``), wrapped for raw frames
+by ``raw_frame_body``, and pinned as a closure given to ``PinnedImagesFn``
+(one image or a batch) or to ``graphs.PinnedFn`` (raw frames).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import Config, InputConfig
 from ..models.cascade_roi import roi_inference
 from ..models.centernet import decode_proposals, stable_topk
 from ..models.detector import CenterNet2Detector, Kernels, support_kernels
@@ -43,7 +49,7 @@ from ..structures.instances import Detections
 from ..utils.device import device_constant, resolve_device
 from ..utils import profiling
 from .graphs import PinnedFn
-from .preprocess import ceil_to, pixel_stats, preprocess_device, resize_shortest_edge_size
+from .preprocess import frame_geometry, pixel_stats, preprocess_device
 from .support_cache import SupportCache
 
 
@@ -202,9 +208,9 @@ def _float_constant(values: Tuple) -> np.ndarray:
     return np.asarray(values, np.float32)
 
 
-def _hw(image_hw, batch_shape, dev) -> torch.Tensor:
-    """image_hw as an f32 tensor on `dev`, broadcast to batch_shape + (2,); a
-    pair (h, w) becomes a constant memoised on the device."""
+def _hw(image_hw, batch: int, dev) -> torch.Tensor:
+    """image_hw as an f32 tensor on `dev`, one pair broadcast to [batch, 2];
+    a pair (h, w) becomes a constant memoised on the device."""
     if isinstance(image_hw, torch.Tensor):
         # from pinned host memory the copy is queued on the stream, no wait
         hw = image_hw.to(device=dev, dtype=torch.float32, non_blocking=True)
@@ -212,7 +218,7 @@ def _hw(image_hw, batch_shape, dev) -> torch.Tensor:
         hw = _float_constant(tuple(float(v) for v in image_hw), device=dev)
     else:
         hw = torch.as_tensor(image_hw, dtype=torch.float32, device=dev)
-    return hw.expand(*batch_shape, 2) if hw.dim() == 1 and batch_shape else hw
+    return hw.expand(batch, 2) if hw.dim() == 1 else hw
 
 
 def _check_cache(cache: SupportCache, dev: torch.device) -> SupportCache:
@@ -224,19 +230,67 @@ def _check_cache(cache: SupportCache, dev: torch.device) -> SupportCache:
     return cache
 
 
+def _detector_query(cfg: Config, params: Optional[Mapping[str, torch.Tensor]], device,
+                    act_scales: Optional[Mapping[str, float]], path: Callable[..., Detections] = query_path,
+                    cache: Optional[SupportCache] = None) -> Tuple[torch.device, Callable[..., Detections]]:
+    """What every CenterNet2 builder starts with -> (dev, query): the
+    detector of `cfg` on its card `dev`, the calibrated scales frozen and
+    checked, and query(cache, images, image_hw, **kw) -> path(model, cache,
+    images, image_hw, **kw) under ``static_act_scales``, refusing a cache on
+    another device. Given `cache` (the pinned builders), it is checked and
+    its CGM taps computed here, once: query(images, image_hw) reads both."""
+    scales = _freeze_scales(cfg, act_scales)
+    model = make_detector(cfg, params, device=device)
+    dev = next(model.parameters()).device
+
+    def query(cache: SupportCache, images: torch.Tensor, image_hw: torch.Tensor, **kw) -> Detections:
+        with static_act_scales(scales):
+            return path(model, _check_cache(cache, dev), images, image_hw, **kw)
+
+    if cache is None:
+        return dev, query
+    with torch.inference_mode():
+        kernels = cache_kernels(model, _check_cache(cache, dev))
+    return dev, functools.partial(query, cache, kernels=kernels)
+
+
+def raw_frame_body(query: Callable[..., Detections], input_hw: Tuple[int, int], input_cfg: InputConfig,
+                   dev: torch.device) -> Tuple[Callable[..., Detections], Tuple[int, int]]:
+    """Either family's raw-frame request around its query, for a camera of
+    fixed size input_hw = (H0, W0) -> (run, canvas_hw). run(frames
+    [B, 3, H0, W0] on `dev`, *args) refuses frames of another size,
+    resizes, normalizes and pads them on the device to `input_cfg`'s test
+    geometry (``frame_geometry``), calls query(*args, canvases, resized_hw
+    [B, 2]) and scales the boxes back to the frame. The resized size and the
+    scale are held tensors, made here, as a CUDA graph of the body needs."""
+    h0, w0 = input_hw
+    geo = frame_geometry(h0, w0, input_cfg)
+    resized_hw = torch.tensor([float(v) for v in geo.resized_hw], device=dev)
+    sy, sx = geo.scale_hw
+    scale = torch.tensor([sx, sy, sx, sy], dtype=torch.float32, device=dev)
+    mean, std = tuple(input_cfg.pixel_mean), tuple(input_cfg.pixel_std)
+
+    @torch.inference_mode()
+    def run(frames: torch.Tensor, *args) -> Detections:
+        if tuple(frames.shape[-2:]) != (h0, w0):
+            raise ValueError(f"frames of {tuple(frames.shape[-2:])}: this function serves {h0}x{w0}")
+        with profiling.stage("preprocess"):
+            canvases = preprocess_device(frames, geo.resized_hw, geo.canvas_hw, mean, std)
+        det = query(*args, canvases, resized_hw.expand(frames.shape[0], 2))
+        return det._replace(boxes=det.boxes * scale)
+
+    return run, geo.canvas_hw
+
+
 def build_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], *, device="cuda",
                        act_scales: Optional[Mapping[str, float]] = None) -> Callable[..., Detections]:
     """(cache, image [3, Hc, Wc] normalized, image_hw (h, w), taps=None) ->
     Detections [K, ...] on `device`: the batch-1 path. The cache must be on
     `device`; `taps` as in ``query_path``."""
-    scales = _freeze_scales(cfg, act_scales)
-    model = make_detector(cfg, params, device=device)
-    dev = next(model.parameters()).device
+    dev, query = _detector_query(cfg, params, device, act_scales)
 
     def fn(cache: SupportCache, image: torch.Tensor, image_hw, taps: Optional[dict] = None) -> Detections:
-        with static_act_scales(scales):
-            return query_path_single(model, _check_cache(cache, dev), image.to(dev).contiguous(),
-                                     _hw(image_hw, (), dev), taps=taps)
+        return on_images(functools.partial(query, cache, taps=taps), image.to(dev).contiguous(), image_hw, dev)
 
     return fn
 
@@ -257,18 +311,14 @@ def build_batched_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], 
     """(cache, images [B, 3, Hc, Wc], image_hw [B, 2]) -> Detections
     [B, K, ...] on `device`: the serving path. Raw uint8 canvases are
     normalized on the device. The cache must be on `device`."""
-    scales = _freeze_scales(cfg, act_scales)
-    model = make_detector(cfg, params, device=device)
-    dev = next(model.parameters()).device
+    dev, query = _detector_query(cfg, params, device, act_scales)
 
     def fn(cache: SupportCache, images: torch.Tensor, image_hw) -> Detections:
-        cache = _check_cache(cache, dev)
         images = images.to(dev).contiguous()
-        hw = _hw(image_hw, (images.shape[0],), dev)
+        hw = _hw(image_hw, images.shape[0], dev)
         if images.dtype == torch.uint8:
             images = normalize_uint8(images, hw, cfg)
-        with static_act_scales(scales):
-            return query_path(model, cache, images, hw)
+        return query(cache, images, hw)
 
     return fn
 
@@ -280,29 +330,13 @@ def build_serving_fn(cfg: Config, params: Mapping[str, torch.Tensor], input_hw: 
     size input_hw = (H0, W0): the frames [B, 3, H0, W0] (uint8 or float) are
     resized to the test scale, normalized and padded on the device
     (``preprocess_device``), then go through the query path. The canvas, the
-    resized size and the scale back to the frame are fixed at build time.
+    resized size and the scale back to the frame are fixed at build time
+    (``raw_frame_body``).
 
     Returns (fn, canvas_hw) with fn(cache, frames) -> Detections [B, K, ...]."""
-    scales = _freeze_scales(cfg, act_scales)
-    model = make_detector(cfg, params, device=device)
-    dev = next(model.parameters()).device
-    h0, w0 = input_hw
-    rh, rw = resize_shortest_edge_size(h0, w0, cfg.input.min_size_test, cfg.input.max_size_test)
-    d = cfg.input.size_divisibility
-    canvas_hw = (ceil_to(rh, d), ceil_to(rw, d))
-    scale_hw = (h0 / rh, w0 / rw)
-
-    def fn(cache: SupportCache, frames: torch.Tensor) -> Detections:
-        cache = _check_cache(cache, dev)
-        if tuple(frames.shape[-2:]) != (h0, w0):
-            raise ValueError(f"frames of {tuple(frames.shape[-2:])}: this function serves {h0}x{w0}")
-        frames = frames.to(dev)
-        canvases = preprocess_device(frames, (rh, rw), canvas_hw, cfg.input.pixel_mean, cfg.input.pixel_std)
-        with static_act_scales(scales):
-            det = query_path(model, cache, canvases, _hw((rh, rw), (frames.shape[0],), dev))
-        return rescale_detections(det, scale_hw)
-
-    return fn, canvas_hw
+    dev, query = _detector_query(cfg, params, device, act_scales)
+    run, canvas_hw = raw_frame_body(query, input_hw, cfg.input, dev)
+    return (lambda cache, frames: run(frames.to(dev), cache)), canvas_hw
 
 
 def rescale_detections(det: Detections, scale_hw) -> Detections:
@@ -316,15 +350,10 @@ def build_multiclass_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor
                                   act_scales: Optional[Mapping[str, float]] = None) -> Callable[..., Detections]:
     """(mcache, image [3, Hc, Wc] normalized, image_hw (h, w)) -> Detections
     [K, ...] over every class of the stacked cache `mcache` (on `device`)."""
-    scales = _freeze_scales(cfg, act_scales)
-    model = make_detector(cfg, params, device=device)
-    dev = next(model.parameters()).device
+    dev, query = _detector_query(cfg, params, device, act_scales, query_path_multiclass)
 
     def fn(mcache: SupportCache, image: torch.Tensor, image_hw) -> Detections:
-        with static_act_scales(scales):
-            det = query_path_multiclass(model, _check_cache(mcache, dev), image.to(dev).contiguous()[None],
-                                        _hw(image_hw, (1,), dev))
-        return Detections(*(t[0] for t in det))
+        return on_images(functools.partial(query, mcache), image.to(dev).contiguous(), image_hw, dev)
 
     return fn
 
@@ -332,47 +361,29 @@ def build_multiclass_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor
 Output = Union[Detections, torch.Tensor]
 
 
+def on_images(run: Callable[..., Output], image: torch.Tensor, image_hw, dev: torch.device) -> Output:
+    """run(images [B, 3, H, W], image_hw [B, 2] f32 on `dev`) called with one
+    image [3, H, W] and its image_hw (h, w) -> the result for that image, or
+    with a batch [B, 3, H, W] and image_hw [B, 2] or one pair for all -> the
+    batch's."""
+    single = image.dim() == 3
+    images = image[None] if single else image
+    out = run(images, _hw(image_hw, images.shape[0], dev))
+    if not single:
+        return out
+    return out[0] if isinstance(out, torch.Tensor) else out._make(t[0] for t in out)
+
+
 class PinnedImagesFn(PinnedFn):
-    """A pinned function of (images, image_hw): fn(image [3, H, W], image_hw
-    (h, w)) -> the result for that image, or fn(images [B, 3, H, W],
-    image_hw [B, 2] or one pair for all) -> the batch's."""
+    """A pinned function of (images, image_hw), called as ``on_images`` says."""
 
     def __call__(self, image: torch.Tensor, image_hw) -> Output:
-        single = image.dim() == 3
-        images = image[None] if single else image
-        out = super().__call__(images, _hw(image_hw, (images.shape[0],), self.device))
-        if not single:
-            return out
-        return out[0] if isinstance(out, torch.Tensor) else out._make(t[0] for t in out)
-
-
-class PinnedInferenceFn(PinnedImagesFn):
-    """fn(image, image_hw) -> Detections (or packed [.., K, 7]) with the
-    weights and the support cache fixed at build time (see
-    ``build_pinned_inference_fn``)."""
-
-    def __init__(self, cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCache, *,
-                 device="cuda", packed: bool = False, act_scales: Optional[Mapping[str, float]] = None):
-        self.scales = _freeze_scales(cfg, act_scales)
-        self.model = make_detector(cfg, params, device=device)
-        dev = next(self.model.parameters()).device
-        self.cache = _check_cache(cache, dev)
-        with torch.inference_mode():
-            self.kernels = cache_kernels(self.model, cache)
-        self.packed = packed
-        super().__init__(self._run, dev)
-
-    def _run(self, images: torch.Tensor, image_hw: torch.Tensor) -> Output:
-        if images.dtype == torch.uint8:
-            images = normalize_uint8(images, image_hw, self.model.cfg)
-        with static_act_scales(self.scales):
-            det = query_path(self.model, self.cache, images, image_hw, kernels=self.kernels)
-        return pack_detections(det) if self.packed else det
+        return on_images(super().__call__, image, image_hw, self.device)
 
 
 def build_pinned_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCache, *,
                               device="cuda", packed: bool = False,
-                              act_scales: Optional[Mapping[str, float]] = None) -> PinnedInferenceFn:
+                              act_scales: Optional[Mapping[str, float]] = None) -> PinnedImagesFn:
     """fn(image, image_hw) -> Detections with the weights and the support
     cache fixed at build time: the sustained-serving path. image is one
     canvas [3, Hc, Wc] with image_hw (h, w), or a batch [B, 3, Hc, Wc] with
@@ -388,7 +399,15 @@ def build_pinned_inference_fn(cfg: Config, params: Mapping[str, torch.Tensor], c
     weights or the cache. On the CPU it runs the eager path. Static scales
     (act_scales=) are constants of the captured graph, and qconcat's scale
     vectors are kept on the device before the capture."""
-    return PinnedInferenceFn(cfg, params, cache, device=device, packed=packed, act_scales=act_scales)
+    dev, query = _detector_query(cfg, params, device, act_scales, cache=cache)
+
+    def run(images: torch.Tensor, image_hw: torch.Tensor) -> Output:
+        if images.dtype == torch.uint8:
+            images = normalize_uint8(images, image_hw, cfg)
+        det = query(images, image_hw)
+        return pack_detections(det) if packed else det
+
+    return PinnedImagesFn(run, dev)
 
 
 def build_pinned_serving_fn(cfg: Config, params: Mapping[str, torch.Tensor], cache: SupportCache,
@@ -401,33 +420,8 @@ def build_pinned_serving_fn(cfg: Config, params: Mapping[str, torch.Tensor], cac
     per (batch, dtype) on the card (``PinnedFn``). Returns (fn, canvas_hw).
     Rebuild the function after changing the weights or the cache. On the
     CPU it runs the eager path."""
-    scales = _freeze_scales(cfg, act_scales)
-    model = make_detector(cfg, params, device=device)
-    dev = next(model.parameters()).device
-    cache = _check_cache(cache, dev)
-    h0, w0 = input_hw
-    rh, rw = resize_shortest_edge_size(h0, w0, cfg.input.min_size_test, cfg.input.max_size_test)
-    d = cfg.input.size_divisibility
-    canvas_hw = (ceil_to(rh, d), ceil_to(rw, d))
-    # what the graph reads besides the frames, made here and held by the
-    # function: the cache's taps, the resized size, the scale back to the
-    # frame (x by the width ratio, y by the height ratio)
-    with torch.inference_mode():
-        kernels = cache_kernels(model, cache)
-    resized_hw = torch.tensor([float(rh), float(rw)], device=dev)
-    scale = torch.tensor([w0 / rw, h0 / rh] * 2, dtype=torch.float32, device=dev)
-    mean, std = tuple(cfg.input.pixel_mean), tuple(cfg.input.pixel_std)
-
-    @torch.inference_mode()
-    def run(frames: torch.Tensor) -> Detections:
-        if tuple(frames.shape[-2:]) != (h0, w0):
-            raise ValueError(f"frames of {tuple(frames.shape[-2:])}: this function serves {h0}x{w0}")
-        with profiling.stage("preprocess"):
-            canvases = preprocess_device(frames, (rh, rw), canvas_hw, mean, std)
-        with static_act_scales(scales):
-            det = query_path(model, cache, canvases, resized_hw.expand(frames.shape[0], 2), kernels=kernels)
-        return det._replace(boxes=det.boxes * scale)
-
+    dev, query = _detector_query(cfg, params, device, act_scales, cache=cache)
+    run, canvas_hw = raw_frame_body(query, input_hw, cfg.input, dev)
     return PinnedFn(run, dev), canvas_hw
 
 
@@ -441,18 +435,8 @@ def build_pinned_multiclass_inference_fn(cfg: Config, params: Mapping[str, torch
     [B, K, ...]; one CUDA graph per (batch, canvas, dtype) on the card
     (``PinnedFn``). Rebuild the function after changing the weights or the
     cache. On the CPU it runs the eager path."""
-    scales = _freeze_scales(cfg, act_scales)
-    model = make_detector(cfg, params, device=device)
-    dev = next(model.parameters()).device
-    mcache = _check_cache(mcache, dev)
-    with torch.inference_mode():
-        kernels = cache_kernels(model, mcache)
-
-    def run(images: torch.Tensor, image_hw: torch.Tensor) -> Detections:
-        with static_act_scales(scales):
-            return query_path_multiclass(model, mcache, images, image_hw, kernels=kernels)
-
-    return PinnedImagesFn(run, dev)
+    dev, query = _detector_query(cfg, params, device, act_scales, query_path_multiclass, cache=mcache)
+    return PinnedImagesFn(query, dev)
 
 
 def pack_detections(det: Detections) -> torch.Tensor:

@@ -22,7 +22,6 @@ from typing import Callable, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
-from torch.profiler import record_function
 
 from ..config import Config
 from ..models.centernet import _gather_rows, _level_valid_mask, stable_topk
@@ -36,7 +35,7 @@ from ..ops.nms import keep_top_scores
 from ..structures.boxes import ltrb_to_xyxy
 from ..structures.instances import Detections
 from ..utils.device import resolve_device
-from .inference import PinnedImagesFn, _hw
+from .inference import PinnedImagesFn, on_images
 
 
 class OneStageCenterNet(nn.Module):
@@ -148,27 +147,35 @@ def make_onestage(cfg: Config, params: Optional[Mapping[str, torch.Tensor]] = No
     return model.to(dev).cast_compute_weights().eval()
 
 
+def _onestage_body(cfg: Config, params: Optional[Mapping[str, torch.Tensor]], device
+                   ) -> Tuple[torch.device, Callable[..., Detections]]:
+    """The one-stage detector of `cfg` on its card `dev` -> (dev, run):
+    run(images [B, 3, Hc, Wc] on `dev`, image_hw [B, 2]) -> Detections
+    [B, K, ...], the forward and the class-aware decode, refusing a canvas
+    that the coarsest stride does not divide (``check_canvas``)."""
+    model = make_onestage(cfg, params, device=device)
+
+    @torch.inference_mode()
+    def run(images: torch.Tensor, image_hw: torch.Tensor) -> Detections:
+        canvas_hw = (images.shape[-2], images.shape[-1])
+        check_canvas(canvas_hw, cfg.centernet.fpn_strides)
+        clss, agn_hms, regs = model(images)
+        return decode_multiclass(clss, agn_hms, regs, cfg, canvas_hw, image_hw)
+
+    return next(model.parameters()).device, run
+
+
 def build_onestage_inference_fn(cfg: Config, params: Optional[Mapping[str, torch.Tensor]], *,
                                 device="cuda") -> Callable[..., Detections]:
     """fn(image, image_hw) -> Detections: image one normalized canvas
     [3, Hc, Wc] with image_hw (h, w) -> Detections [K, ...], or a batch
-    [B, 3, Hc, Wc] with image_hw [B, 2] -> [B, K, ...], on `device`. The
-    canvas must be a multiple of the coarsest stride (``check_canvas``)."""
-    model = make_onestage(cfg, params, device=device)
-    dev = next(model.parameters()).device
+    [B, 3, Hc, Wc] with image_hw [B, 2] -> [B, K, ...], on `device`
+    (``inference.on_images``). The canvas must be a multiple of the coarsest
+    stride (``check_canvas``)."""
+    dev, run = _onestage_body(cfg, params, device)
 
-    @torch.inference_mode()
     def fn(image: torch.Tensor, image_hw) -> Detections:
-        single = image.dim() == 3
-        images = (image[None] if single else image).to(dev).contiguous()
-        canvas_hw = (images.shape[-2], images.shape[-1])
-        check_canvas(canvas_hw, cfg.centernet.fpn_strides)
-        hw = _hw(image_hw, (images.shape[0],), dev)
-        with record_function("onestage_forward"):
-            clss, agn_hms, regs = model(images)
-        with record_function("decode_multiclass"):
-            det = decode_multiclass(clss, agn_hms, regs, cfg, canvas_hw, hw)
-        return Detections(*(t[0] for t in det)) if single else det
+        return on_images(lambda images, hw: run(images.to(dev).contiguous(), hw), image, image_hw, dev)
 
     return fn
 
@@ -180,13 +187,5 @@ def build_pinned_onestage_inference_fn(cfg: Config, params: Optional[Mapping[str
     canvas, dtype) on the card (``PinnedFn``); the same calls and results.
     Rebuild the function after changing the weights. On the CPU it runs the
     eager path."""
-    model = make_onestage(cfg, params, device=device)
-
-    @torch.inference_mode()
-    def run(images: torch.Tensor, image_hw: torch.Tensor) -> Detections:
-        canvas_hw = (images.shape[-2], images.shape[-1])
-        check_canvas(canvas_hw, cfg.centernet.fpn_strides)
-        clss, agn_hms, regs = model(images)
-        return decode_multiclass(clss, agn_hms, regs, cfg, canvas_hw, image_hw)
-
-    return PinnedImagesFn(run, next(model.parameters()).device)
+    dev, run = _onestage_body(cfg, params, device)
+    return PinnedImagesFn(run, dev)

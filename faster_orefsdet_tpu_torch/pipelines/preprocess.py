@@ -21,7 +21,7 @@ multiple of the size divisibility, with its resized size carried beside it.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -101,6 +101,20 @@ def canvas_for(newh: int, neww: int, buckets: Sequence[Tuple[int, int]] | None =
             if newh <= bh and neww <= bw:
                 return (bh, bw)
     return (ceil_to(newh, divisibility), ceil_to(neww, divisibility))
+
+
+class FrameGeometry(NamedTuple):
+    resized_hw: Tuple[int, int]  # the frame resized to the test scale
+    canvas_hw: Tuple[int, int]  # the padded canvas, a multiple of the size divisibility
+    scale_hw: Tuple[float, float]  # (h / resized_h, w / resized_w): back to the frame
+
+
+def frame_geometry(h: int, w: int, input_cfg) -> FrameGeometry:
+    """The test-time geometry of an h x w frame under `input_cfg` (an
+    ``InputConfig``: min_size_test, max_size_test, size_divisibility): its
+    resized size, its canvas and the scale back to the frame."""
+    rh, rw = resize_shortest_edge_size(h, w, input_cfg.min_size_test, input_cfg.max_size_test)
+    return FrameGeometry((rh, rw), canvas_for(rh, rw, divisibility=input_cfg.size_divisibility), (h / rh, w / rw))
 
 
 @device_constant

@@ -42,7 +42,7 @@ from ..models.centernet import _level_valid_mask, centernet_losses, decode_propo
 from ..models.detector import CenterNet2Detector, support_kernels
 from ..ops.heatmap import more_pos_inds, render_targets
 from ..ops.roi_align_cuda import multilevel_roi_pool
-from ..ops import cgm_cuda, nms_cuda
+from ..ops import _native
 from ..solver import build_optimizer, build_schedule, optimizer_step, set_lr, sgd_update
 from ..structures.boxes import apply_deltas
 from ..structures.instances import GroundTruth
@@ -309,7 +309,7 @@ class TrainStepK:
         self.body = body or StepBody(cfg)
         self.graphs: Dict[tuple, _StepGraph] = {}
         self._eager_steps: Dict[tuple, int] = {}
-        self._eager_launches = {"cgm": 0, "nms": 0}
+        self._eager_launches = dict.fromkeys(_native.LAUNCH_COUNTERS, 0)
         self._state: Optional[TrainState] = None
         self._stream = None
         self.names: Optional[List[str]] = None  # the metrics, in the order `step` stacks them
@@ -347,10 +347,10 @@ class TrainStepK:
         warm-ups), its kernel launches added to the eager count."""
         self.body.prepare(state)
         state.optimizer.zero_grad(set_to_none=True)
-        before = (cgm_cuda.counter.launches, nms_cuda.counter.launches)
+        before = _native.launch_counts()
         metrics = self.body.run(state, batch)
-        self._eager_launches["cgm"] += cgm_cuda.counter.launches - before[0]
-        self._eager_launches["nms"] += nms_cuda.counter.launches - before[1]
+        for name, n in _native.launches_since(before).items():
+            self._eager_launches[name] += n
         state.step += 1
         self.names = list(metrics)
         return torch.stack(list(metrics.values()))
@@ -380,7 +380,7 @@ class TrainStepK:
             s.copy_(t)
         self._stream.wait_stream(torch.cuda.current_stream(state.device))
         state.optimizer.zero_grad(set_to_none=True)
-        before = (cgm_cuda.counter.launches, nms_cuda.counter.launches)
+        before = _native.launch_counts()
         graph = torch.cuda.CUDAGraph()
         for gen in self.body.generators(state):
             graph.register_generator_state(gen)
@@ -388,7 +388,7 @@ class TrainStepK:
         # and a process group's watchdog thread queries its events
         with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
             out = torch.stack(list(self.body.run(state, static).values()))
-        launches = {"cgm": cgm_cuda.counter.launches - before[0], "nms": nms_cuda.counter.launches - before[1]}
+        launches = _native.launches_since(before)
         return _StepGraph(graph, static, out, launches)
 
     def kernel_launches(self) -> Dict[str, int]:

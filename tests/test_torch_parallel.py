@@ -349,7 +349,7 @@ def test_pinned_world_one_equals_build_train_step():
     for (k, va), vb in zip(a.model.state_dict().items(), b.model.state_dict().values()):
         assert torch.equal(va, vb), k
     assert torch.equal(a.generator.get_state(), b.generator.get_state()) and a.step == b.step == 2
-    assert not step_b.graphs and step_b.kernel_launches() == {"cgm": 0, "nms": 0}
+    assert not step_b.graphs and step_b.kernel_launches() == {"cgm": 0, "nms": 0, "roi": 0}
 
 
 def test_make_mesh(monkeypatch):

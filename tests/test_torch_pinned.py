@@ -13,10 +13,10 @@ depends on the data (``nonzero``, one-argument ``where``,
 ``masked_select``, ``unique*``, indexing or index_put with a bool index),
 tensors made from host data in the body (``lift_fresh``) and copies to
 the CPU (``to`` / ``_to_copy`` naming the CPU). It is calibrated both ways:
-the query path that ``PinnedInferenceFn`` has captured on the card since
-PR 2 passes it, and toy bodies with each refused op fail it. Then every
-new pinned body (raw-frame serving, multiclass, one-stage, baseline)
-must pass it.
+the query path that ``build_pinned_inference_fn`` captures on the card
+passes it, and toy bodies with each refused op fail it. Then every other
+pinned body (raw-frame serving, multiclass, one-stage, baseline) must pass
+it.
 
 On the CPU every pinned builder runs its eager path, so each must give its
 eager builder's detections bit for bit. Sizes: ``test_torch_serving``'s
@@ -168,13 +168,14 @@ def _bodies(serving, one, baseline):
                        (s["img"], s["hw"])),
         "onestage": (onestage.build_pinned_onestage_inference_fn(o["cfg"], o["sd"], device="cpu"), (o["img"], o["hw"])),
         "baseline": (tpipe.build_pinned_baseline_inference_fn(b["cfg"], b["sd"], b["cache"], device="cpu"),
-                     (b["img"], b["hw"])),
+                     (b["img"][None], b["hw"][None])),
     }
 
 
 def test_capture_safety_accepts_the_captured_query_path(serving):
-    """The query path PinnedInferenceFn captures on the card, f32 canvases
-    at batch 1 and uint8 canvases (normalized in the body) at batch 2."""
+    """The query path build_pinned_inference_fn captures on the card, f32
+    canvases at batch 1 and uint8 canvases (normalized in the body) at
+    batch 2."""
     s = serving
     pinned = tinf.build_pinned_inference_fn(s["cfg"], s["sd"], s["caches"][0], device="cpu")
     u8 = s["frames"][:, :, :CANVAS[0], :CANVAS[1]].contiguous()
@@ -254,4 +255,7 @@ def test_pinned_baseline_equals_eager(baseline):
     b = baseline
     fn = tpipe.build_pinned_baseline_inference_fn(b["cfg"], b["sd"], b["cache"], device="cpu")
     eager = tpipe.build_baseline_inference_fn(b["cfg"], b["sd"], device="cpu")
-    _assert_equal(fn(b["img"], IMAGE_HW), eager(b["cache"], b["img"], IMAGE_HW))
+    ref = eager(b["cache"], b["img"], IMAGE_HW)
+    _assert_equal(fn(b["img"], IMAGE_HW), ref)
+    batch = fn(b["img"][None], b["hw"][None])  # a batch of one: [1, K, ...]
+    _assert_equal(type(ref)(*(t[0] for t in batch)), ref)

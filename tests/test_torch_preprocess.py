@@ -4,7 +4,9 @@ antialiased bilinear weights) within 2e-3 of a level on the 0-255 scale, and the
 host path (PyTorch bilinear, no image library) within one uint8 level of
 cv2's INTER_LINEAR, which rounds in fixed point."""
 
+import dataclasses
 import itertools
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,8 @@ import pytest
 import torch
 
 from faster_orefsdet_tpu.pipelines import preprocess as jp
+from faster_orefsdet_tpu_torch import config_yaml
+from faster_orefsdet_tpu_torch.config import InputConfig, get_config
 from faster_orefsdet_tpu_torch.pipelines import preprocess as tp
 
 import torch_budget  # noqa: F401 (the suite's torch thread budget)
@@ -33,6 +37,34 @@ def test_resize_sizes_and_canvases_exact():
     for nh, nw in itertools.product((100, 320, 330, 447, 600, 700), repeat=2):
         assert tp.canvas_for(nh, nw, buckets) == jp.canvas_for(nh, nw, buckets)
         assert tp.canvas_for(nh, nw) == jp.canvas_for(nh, nw)
+
+
+def _fsod_c4_input() -> InputConfig:
+    # Base-FSOD-C4.yaml's test size, as the baseline's serving cell reads it
+    yaml = Path(__file__).resolve().parents[1] / "configs/fsod/Base-FSOD-C4.yaml"
+    test = config_yaml.load_merged_yaml(str(yaml))["INPUT"]
+    return InputConfig(min_size_test=int(test["MIN_SIZE_TEST"]), max_size_test=int(test["MAX_SIZE_TEST"]))
+
+
+@pytest.mark.parametrize("frame_hw,inputs,canvas_hw", [
+    ((480, 640), "serving_vovnet", (320, 448)),
+    ((480, 640), "fsod_c4", (608, 800)),
+    ((333, 250), "serving_vovnet", (448, 320)),  # resized 426x320: 426 is no multiple of 32
+    ((1080, 1920), "fsod_c4", (576, 1024)),  # resized 562x1000, the long side capped
+    ((200, 300), "divisibility_64", (320, 512)),  # resized 320x480: 480 is no multiple of 64
+], ids=["vga-serving_vovnet", "vga-fsod_c4", "333x250-serving_vovnet", "1080p-fsod_c4", "200x300-d64"])
+def test_frame_geometry_matches_jax(frame_hw, inputs, canvas_hw):
+    """The raw-frame builders' geometry against the JAX package's resize
+    arithmetic, canvas rule and scale back to the frame."""
+    inp = {"serving_vovnet": lambda: get_config("serving_vovnet").input, "fsod_c4": _fsod_c4_input,
+           "divisibility_64": lambda: dataclasses.replace(get_config("serving_vovnet").input,
+                                                          size_divisibility=64)}[inputs]()
+    h, w = frame_hw
+    rh, rw = jp.resize_shortest_edge_size(h, w, inp.min_size_test, inp.max_size_test)
+    geo = tp.frame_geometry(h, w, inp)
+    assert geo.resized_hw == (rh, rw)
+    assert geo.canvas_hw == jp.canvas_for(rh, rw, divisibility=inp.size_divisibility) == canvas_hw
+    assert geo.scale_hw == (h / rh, w / rw)
 
 
 def test_normalize_and_pad_exact():
