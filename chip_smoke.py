@@ -298,6 +298,7 @@ CGM_RTOL = CGM_ATOL = 1e-4  # f32 (3xTF32 on the card), 256-term sums in another
 MATCH_IOU, MATCH_FRACTION, MATCH_DSCORE = 0.95, 0.85, 1e-3
 MATCH_PAD = 1e-2  # pixels: the width given to a box clipped to a line when it is matched
 PINNED_DSCORE = 1e-5  # the same kernels on the same inputs, eager or replayed
+DSA_FOLD_REL = 1e-4  # the DSA head's fold against its chain, of each output's range: f32 sums reassociated
 PREPROCESS_ATOL = 2e-3  # 0-255 scale: the resize's f32 matrix products summed in another order
 ASYNC_ATOL = 1e-4  # frame coordinates and scores: the same graph on the same canvas
 CANVAS_HW, IMAGE_HW = (320, 448), (320.0, 427.0)
@@ -345,6 +346,8 @@ WORKFLOW_CONFIG = "serving_vovnet"
 WORKFLOW_COCO_IMAGES = 12  # synthetic VGA scenes with 1-6 ores each: the support crops' COCO set
 WORKFLOW_GLOB, WORKFLOW_VIDEO, WORKFLOW_FRAME_BATCH = 8, 16, 8
 WORKFLOW_MAP_TOL = 1e-3  # feature maps card vs CPU in f32, of each map's largest
+NMS_TIE = 1e-5  # IoU: a pair this close to the ROI NMS threshold is a tie that f32 rounding decides either way
+NMS_TIES_MAX = 1  # such ties that one card-vs-CPU comparison of a video may show
 DLA_TOL = 1e-3  # card vs CPU: each loss, gradient and running statistic, of its tensor's largest |value|
 DLA_F32_FACTOR = 3.0  # f32 card vs CPU: at most this many times the CPU's own f32 vs f64, where above DLA_TOL
 # phase 17, the quantized serving presets at full width
@@ -1869,15 +1872,44 @@ class MemoryMedia:
                      open_writer=lambda path, fps, size_wh: Sink(path), draw=draw, debug=debug)
 
 
-def match_frames(np, got, ref, max_dscore) -> dict:
+def nms_tie_kept(np, d, other, nms_thresh):
+    """Which detections of a frame's `d` the other device's `other` lacks
+    although an NMS at `nms_thresh` decided them by a tie: no box of `other`
+    matches one at IoU >= MATCH_IOU, and a higher-scored detection of `d`
+    that `other` does match lies within NMS_TIE of the threshold from it,
+    as does that detection's match in `other`, which the NMS there kept in
+    its place."""
+    b, s, ob = d["boxes"], d["scores"], other["boxes"]
+    if not len(ob):
+        return np.zeros(len(b), bool)
+    cross = box_iou(np, b, ob)
+    partner = cross.argmax(axis=1)  # each detection's best box on the other side
+    matched = cross.max(axis=1) >= MATCH_IOU
+    near = lambda iou: np.abs(iou - nms_thresh) <= NMS_TIE  # noqa: E731
+    # [i, j]: detection j of d, higher-scored and matched, ties with i on both sides
+    tie = (s[None, :] > s[:, None]) & matched[None, :] & near(box_iou(np, b, b)) & near(cross[:, partner])
+    return ~matched & tie.any(axis=1)
+
+
+def match_frames(np, got, ref, max_dscore, nms_thresh=None) -> dict:
     """Phase 5's criteria on each frame's detections (frame coordinates,
-    valid ones only, as the demo draws them)."""
-    checks = [match(np, {"boxes": g["boxes"], "scores": g["scores"], "valid": np.ones(len(g["scores"]), bool)},
-                    {"boxes": r["boxes"], "scores": r["scores"], "valid": np.ones(len(r["scores"]), bool)},
-                    max_dscore) for g, r in zip(got, ref)]
-    return {"frames": [len(got), len(ref)], "all_matched": len(got) == len(ref) and all(c["ok"] for c in checks),
+    valid ones only, as the demo draws them). Given the ROI NMS threshold,
+    a detection that one side kept and the other suppressed by a tie at it
+    (``nms_tie_kept``) is left out of both sides' counts and counted in
+    `nms_ties`, of which NMS_TIES_MAX pass."""
+    checks, ties = [], 0
+    for g, r in zip(got, ref):
+        keep = [np.ones(len(d["scores"]), bool) for d in (g, r)]
+        if nms_thresh is not None and len(g["scores"]) != len(r["scores"]):
+            keep = [~nms_tie_kept(np, g, r, nms_thresh), ~nms_tie_kept(np, r, g, nms_thresh)]
+            ties += sum(int((~k).sum()) for k in keep)
+        checks.append(match(np, {"boxes": g["boxes"], "scores": g["scores"], "valid": keep[0]},
+                            {"boxes": r["boxes"], "scores": r["scores"], "valid": keep[1]}, max_dscore))
+    return {"frames": [len(got), len(ref)],
+            "all_matched": len(got) == len(ref) and all(c["ok"] for c in checks) and ties <= NMS_TIES_MAX,
             "max_dscore": max((c["max_dscore"] for c in checks), default=0.0),
-            "matched": sum(c["matched"] for c in checks), "valid": sum(c["valid"][1] for c in checks)}
+            "matched": sum(c["matched"] for c in checks), "valid": sum(c["valid"][1] for c in checks),
+            "nms_ties": ties}
 
 
 def phase_workflow(torch, np, smi):
@@ -1985,7 +2017,8 @@ def phase_workflow(torch, np, smi):
         card_vs_cpu = {}
         for name, argv in (("glob", glob_args), ("video", video_args)):
             runs = {d: run(argv, d, f32)[0].draws for d in ("cuda", "cpu")}
-            card_vs_cpu[name] = match_frames(np, runs["cuda"], runs["cpu"], MATCH_DSCORE)
+            tie_at = get_config(WORKFLOW_CONFIG).roi.nms_thresh_test if name == "video" else None
+            card_vs_cpu[name] = match_frames(np, runs["cuda"], runs["cpu"], MATCH_DSCORE, tie_at)
 
         # ---- visualize_features on one frame, card vs CPU in f32
         cfg32 = apply_overrides(cfg, f32)
@@ -2964,6 +2997,48 @@ def roi_check(torch, got, maps, boxes, levels, scales, p, ratio) -> dict:
             "max_abs_err": float(err.max()), "out_of_bound": int((err > allowed + 1e-5 + 1e-5 * ref64.abs()).sum())}
 
 
+def record_dsa_calls(torch, request):
+    """Runs request() with the DSA head's forward recording its arguments
+    (calls made while a CUDA graph is being captured are not recorded);
+    returns [(head, features, boxes, support_8, stage, fold)]. The recording
+    launches nothing."""
+    from faster_orefsdet_tpu_torch.models.cascade_roi import DSACascadeHead
+
+    forward, seen = DSACascadeHead.forward, []
+
+    def wrapped(head, features, boxes, support_8, support_4, stage, fold=None):
+        if not torch.cuda.is_current_stream_capturing():
+            seen.append((head, list(features), boxes, support_8, stage, fold))
+        return forward(head, features, boxes, support_8, support_4, stage, fold)
+
+    DSACascadeHead.forward = wrapped
+    try:
+        request()
+        torch.cuda.synchronize()
+    finally:
+        DSACascadeHead.forward = forward
+    return seen
+
+
+def check_dsa_calls(torch, seen):
+    """Each recorded DSA head call again by both routes on the request's own
+    pooled rows: the fold it took (inference mode) and the chain (grad mode
+    on copies, the head's parameters trainable), TF32 as the caller has it.
+    Returns the worst |fold - chain| over each output's range."""
+    worst = 0.0
+    for head, feats, boxes, s8, stage, fold in seen:
+        with torch.inference_mode():
+            folded = head(feats, boxes, s8, None, stage, fold)
+        with torch.enable_grad():
+            chain = head([f.clone() for f in feats], boxes.clone(), s8.clone(), None, stage)
+        if not chain.scores.requires_grad:
+            raise AssertionError("the DSA head's chain was not taken under grad mode")
+        for a, b in zip(folded, chain):
+            b = b.detach()
+            worst = max(worst, ((a - b).abs().max() / (b.max() - b.min())).item())
+    return worst
+
+
 def check_roi_calls(torch, seen):
     """Each recorded K3 call's result held by `roi_check`. Returns (checks,
     values out of the bound)."""
@@ -3702,30 +3777,46 @@ def phase_k3_timing(torch, np, smi) -> dict:
 
 
 # ------------------------------------------------------------------ phase 21
-def entry_point(torch, np, smi, path, eager, pinned, inputs, by_class, iters=(10, 20)):
+def entry_point(torch, np, smi, path, eager, pinned, inputs, by_class, iters=(10, 20), dsa_stages=0):
     """An eager request and its pinned counterpart on the same inputs (a
     list of argument tuples, one request each): the eager requests counted
     with K1's, K2's and K3's inputs recorded and held (K2 bit for bit against
     its plain twin, K1 within phase 19's dot-product bound, K3 by
     `roi_check`); the pinned requests
     against them by phase 5's criteria at |dscore| <= PINNED_DSCORE; each
-    graph's captured launches equal to an eager request's; then request ms
-    at the median, eager and pinned, each on its own line."""
+    graph's captured launches equal to an eager request's; the DSA head's
+    routes counted (`dsa_stages` folded calls a request, eager or captured,
+    and no chain) and its fold held against the chain on the eager requests'
+    own rows (DSA_FOLD_REL); then request ms at the median, eager and
+    pinned, each on its own line."""
+    from faster_orefsdet_tpu_torch.models import cascade_roi
     from faster_orefsdet_tpu_torch.ops import cgm_cuda, nms_cuda, roi_align_cuda
+    from faster_orefsdet_tpu_torch.pipelines.graphs import CAPTURES, WARMUP_CALLS
     from faster_orefsdet_tpu_torch.pipelines.inference import pack_detections, unpack_detections_np
 
-    ref, cgm_seen, nms_seen, roi_seen = [], [], {}, []
+    ref, cgm_seen, nms_seen, roi_seen, dsa_seen = [], [], {}, [], []
     dense_before = roi_align_cuda.counter.dense_calls
 
-    def requests():
-        roi_seen.extend(record_roi_calls(torch, lambda: ref.extend(eager(*x) for x in inputs)))
+    def dsa_routes():
+        return cascade_roi.counter.folded_calls, cascade_roi.counter.chain_calls
 
+    def requests():
+        roi_seen.extend(record_roi_calls(torch, lambda: dsa_seen.extend(record_dsa_calls(
+            torch, lambda: ref.extend(eager(*x) for x in inputs)))))
+
+    dsa_before = dsa_routes()
     launches = count_launches(cgm_cuda, nms_cuda, lambda: cgm_seen.extend(record_cgm_calls(
         torch, lambda: nms_seen.update(record_nms_calls(torch, requests)))))
+    dsa_eager = [n - b for n, b in zip(dsa_routes(), dsa_before)]
     per_request = {k: v // len(inputs) for k, v in launches.items()}
+    dsa_before = dsa_routes()
     got = [pinned(*x) for x in inputs]
     torch.cuda.synchronize()
+    dsa_pinned = [n - b for n, b in zip(dsa_routes(), dsa_before)]
     dense_calls = roi_align_cuda.counter.dense_calls - dense_before
+    dsa_rel = check_dsa_calls(torch, dsa_seen)
+    dsa_seen.clear()
+    bodies = len(pinned.graphs) * (WARMUP_CALLS + CAPTURES)  # eager warm-ups and captures: replays count nothing
     checks = []
     for a, b in zip(got, ref):
         pa, pb = pack_detections(a), pack_detections(b)
@@ -3747,7 +3838,9 @@ def entry_point(torch, np, smi, path, eager, pinned, inputs, by_class, iters=(10
            "cgm_calls": [[c["shape"], c["classes"]] for c in cgm_checks], "cgm_max_abs_err": cgm_err,
            "cgm_out_of_bound": cgm_bad, "roi_dense_calls": dense_calls,
            "roi_calls": [[c["shape"], c["dtype"], c["levels"]] for c in roi_checks],
-           "roi_max_abs_err": max((c["max_abs_err"] for c in roi_checks), default=0.0), "roi_out_of_bound": roi_bad}
+           "roi_max_abs_err": max((c["max_abs_err"] for c in roi_checks), default=0.0), "roi_out_of_bound": roi_bad,
+           "dsa_folded_per_request": dsa_eager[0] / len(inputs), "dsa_folded_per_captured_body": dsa_pinned[0] / bodies,
+           "dsa_chain_calls": dsa_eager[1] + dsa_pinned[1], "dsa_fold_vs_chain_rel": dsa_rel}
     emit(pinned_entry=row)
     if not row["all_matched"] or any(g != per_request for g in graphs) or not graphs or dense_calls:
         raise AssertionError(f"pinned {path}: detections {checks}, graphs {graphs} against {per_request} an eager "
@@ -3755,6 +3848,9 @@ def entry_point(torch, np, smi, path, eager, pinned, inputs, by_class, iters=(10
     if row["nms_mismatches"] or cgm_bad or roi_bad or len(roi_checks) != launches["roi"]:
         raise AssertionError(f"pinned {path}: the kernels on the request's own inputs: {nms_checks} {cgm_checks} "
                              f"{roi_checks}")
+    if (dsa_eager, dsa_pinned) != ([dsa_stages * len(inputs), 0], [dsa_stages * bodies, 0]) or dsa_rel > DSA_FOLD_REL:
+        raise AssertionError(f"pinned {path}: the DSA head's routes (folded, chain) eager {dsa_eager} and captured "
+                             f"{dsa_pinned} over {bodies} bodies, {dsa_stages} stages; fold vs chain {dsa_rel}")
     x = inputs[0]
     for side, fn, n in (("eager", eager, iters[0]), ("pinned", pinned, iters[1])):
         med, lo, hi = request_times(torch, lambda: fn(*x), n)
@@ -3791,13 +3887,14 @@ def phase_pinned_entry_points(torch, np, smi, cfg, params, cache, frames_u8, mul
     frames = frames_u8.cuda()
     serve, _ = build_serving_fn(cfg, params, FRAME_HW)
     eager_serve = lambda f: serve(cache, f)  # noqa: E731
+    stages = len(cfg.roi.cascade_ious)
     # a function a batch, so that each path's replays are its own
     run("raw_frames_b1", eager_serve, build_pinned_serving_fn(cfg, params, cache, FRAME_HW)[0],
-        [(frames[i:i + 1],) for i in range(len(frames))], False)
+        [(frames[i:i + 1],) for i in range(len(frames))], False, dsa_stages=stages)
     pinned_serve, canvas = build_pinned_serving_fn(cfg, params, cache, FRAME_HW)
-    run("raw_frames_b8", eager_serve, pinned_serve, [(frames,)], False)
+    run("raw_frames_b8", eager_serve, pinned_serve, [(frames,)], False, dsa_stages=stages)
     run(f"multiclass{MULTICLASS_CLASSES}", lambda *x: multi(mcache, *x),
-        build_pinned_multiclass_inference_fn(cfg, params, mcache), [(image, IMAGE_HW)], True)
+        build_pinned_multiclass_inference_fn(cfg, params, mcache), [(image, IMAGE_HW)], True, dsa_stages=stages)
     for n in ONESTAGE_CLASSES:
         for dtype in ("float32", "bfloat16"):
             ocfg = onestage_cfg(get_config(ONESTAGE_CONFIG), n, dtype)

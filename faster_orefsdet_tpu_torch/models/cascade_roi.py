@@ -6,6 +6,12 @@ The head runs in f32, as the JAX package's does (its Dense layers promote the
 pooled features against f32 parameters). Pooled features are channel-last
 [.., P, P, C] and fc1 flattens them in HWC order, the JAX package's order,
 so its weight carries over by a plain transpose.
+
+Everything between the pooled rows and fc1's ReLU is linear in the query and
+the support, so serving folds it (``dsa_fold``): one weight A per stage and
+one bias g per stage and support row, made once per weights and cache, and
+one GEMM a stage in place of the fusion's projections and fc1. Training,
+which needs each weight's gradient, runs the chain as written.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..config import ROIConfig
 from ..ops.losses import smooth_l1_loss, softmax_cross_entropy
@@ -27,9 +34,34 @@ from .layers import at_least_f32, linear
 ROI_STRIDES = (8, 16, 32)
 
 
+class _Counter:
+    """Head calls on CUDA tensors, by route: `folded_calls` took the fold
+    (nothing needs a gradient), `chain_calls` the differentiable chain."""
+
+    folded_calls = 0
+    chain_calls = 0
+
+
+counter = _Counter()
+
+
 class StageOutput(NamedTuple):
     scores: torch.Tensor  # [..., K, 2] class logits (fg, bg)
     deltas: torch.Tensor  # [..., K, 4] class-agnostic box deltas
+
+
+class DSAFold(NamedTuple):
+    """The DSA fusion and each stage's fc1 up to its ReLU, folded for one
+    support (``dsa_fold``): w[k] [P*P*C, fc_dim], the folded weight A of
+    stage k transposed (the GEMM's right operand), and g[k] [S, fc_dim], its
+    bias for S support rows (1, or one a class of a stacked cache); `support`
+    the support_8 it was made from and `dtype` the pooled features' dtype,
+    to which the chain rounds the support."""
+
+    w: Tuple[torch.Tensor, ...]
+    g: Tuple[torch.Tensor, ...]
+    support: torch.Tensor
+    dtype: torch.dtype
 
 
 class DSACascadeHead(nn.Module):
@@ -47,30 +79,105 @@ class DSACascadeHead(nn.Module):
             self.add_module(f"stage{st}_bbox", nn.Linear(cfg.fc_dim, 4))
 
     def forward(self, features: Sequence[torch.Tensor], boxes: torch.Tensor,
-                support_8: torch.Tensor, support_4: torch.Tensor, stage: int) -> StageOutput:
+                support_8: torch.Tensor, support_4: torch.Tensor, stage: int,
+                fold: Optional[DSAFold] = None) -> StageOutput:
         """features: [B, C, H_l, W_l] per level; boxes [B, K, 4]; support_8
         the shot-mean support ROI features, [P, P, C] for every row or
-        [B, P, P, C] one per row (the multiclass path's classes). support_4
+        [S, P, P, C] one for each of S class-major groups of the B rows (one
+        per row where S is B; the multiclass path's classes). support_4
         feeds only the reference's discarded 4x4 branch and is not used.
         The boxes are pooled by ``multilevel_roi_pool``: the gather kernel on
-        the card, the dense composition where the features need a gradient."""
+        the card, the dense composition where the features need a gradient.
+
+        Two routes to fc1's ReLU, by what the inputs show (``needs_chain``):
+        where an input or a parameter of the head needs a gradient, the
+        chain as written (the fusion's three Linears on the pooled rows and
+        the expanded support, then fc1); otherwise the fold, the same linear
+        map reassociated in the same precision: one GEMM of the flattened
+        rows with ``fold.w[stage]`` and the bias ``fold.g[stage]`` in one
+        call. `fold` is ``dsa_fold(self, support_8, q8's dtype)``, made once
+        by the caller for this very `support_8`: one made from another
+        support or for rows of another dtype is refused (ValueError). Without
+        one (the head called on its own) the stage's part is made here."""
         cfg = self.cfg
         q8 = multilevel_roi_pool(
             features, boxes, ROI_STRIDES, cfg.pooler_resolution, cfg.pooler_sampling_ratio,
             cfg.canonical_box_size, cfg.canonical_level,
         )  # [B, K, P, P, C]
+        if self.needs_chain(q8, support_8):
+            counter.chain_calls += q8.is_cuda
+            x = self._chain(q8, support_8, stage)
+        else:
+            counter.folded_calls += q8.is_cuda
+            x = self._folded(q8, support_8, stage, fold)
+        x = at_least_f32(torch.relu(x))
+        scores = linear(x, getattr(self, f"stage{stage}_cls"))
+        deltas = linear(x, getattr(self, f"stage{stage}_bbox"))
+        return StageOutput(scores=scores, deltas=deltas)
+
+    def needs_chain(self, q8: torch.Tensor, support_8: torch.Tensor) -> bool:
+        """Whether a gradient is wanted of the pooled rows, the support or
+        a parameter of the head (the training step): the fold has none."""
+        return torch.is_grad_enabled() and (q8.requires_grad or support_8.requires_grad
+                                            or any(p.requires_grad for p in self.parameters()))
+
+    def _chain(self, q8: torch.Tensor, support_8: torch.Tensor, stage: int) -> torch.Tensor:
         s8 = support_8.to(q8.dtype)
-        if s8.dim() == 4:
-            s8 = s8[:, None]
+        if s8.dim() == 4:  # one a class-major group of rows
+            s8 = s8.repeat_interleave(q8.shape[0] // s8.shape[0], dim=0)[:, None]
         s8 = s8.expand(q8.shape)
         fused = linear(torch.cat([q8, s8], dim=-1), self.dsa_conv3)
         branch = torch.cat([linear(q8, self.dsa_conv1), linear(s8, self.dsa_conv2)], dim=-1)
         attn8 = fused + branch
         x = attn8.reshape(*attn8.shape[:2], -1)  # HWC flatten
-        x = at_least_f32(torch.relu(linear(x, getattr(self, f"stage{stage}_fc1"))))
-        scores = linear(x, getattr(self, f"stage{stage}_cls"))
-        deltas = linear(x, getattr(self, f"stage{stage}_bbox"))
-        return StageOutput(scores=scores, deltas=deltas)
+        return linear(x, getattr(self, f"stage{stage}_fc1"))
+
+    def _folded(self, q8: torch.Tensor, support_8: torch.Tensor, stage: int,
+                fold: Optional[DSAFold]) -> torch.Tensor:
+        if fold is None:
+            w, g = self.fold_stage(support_8.to(q8.dtype), stage)  # the chain rounds the support to the rows' dtype
+        elif fold.support is not support_8 or fold.dtype != q8.dtype:
+            raise ValueError(f"a DSA fold made for another support or for {fold.dtype} rows, given {q8.dtype} "
+                             "rows: make it with dsa_fold(head, support_8, the rows' dtype)")
+        else:
+            w, g = fold.w[stage], fold.g[stage]
+        x = q8.reshape(-1, w.shape[0]).to(w.dtype)  # HWC flatten
+        if g.shape[0] == 1:
+            y = torch.addmm(g[0], x, w)  # the bias in the GEMM
+        else:  # one bias row a class-major group of rows
+            y = (x @ w).view(g.shape[0], -1, w.shape[1]).add_(g[:, None])
+        return y.view(*q8.shape[:2], -1)
+
+    def fold_stage(self, s8: torch.Tensor, stage: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stage `stage`'s part of the fold of a support s8 [P, P, C] or
+        [S, P, P, C], in the dtype the chain sees it in -> (w [P*P*C,
+        fc_dim], the folded weight transposed, and g [S, fc_dim]), in the
+        precision of the chain's products (f32; f64 for f64 weights or rows).
+
+        With W3 = [W3q | W3s] and Wq = W3q plus W1 on its first C/2 rows,
+        the fused rows are attn8[p] = q[p] Wq^T + b_s[p], with b_s[p] =
+        s[p] W3s^T + b3 + [b1 ; s[p] W2^T + b2]; so fc1(flat(attn8)) =
+        flat(q) A^T + g, A[o, p, :] = sum_c fc1[o, p, c] Wq[c, :] and
+        g = fc1(flat(b_s)); w = A^T."""
+        fc1 = getattr(self, f"stage{stage}_fc1")
+        c = s8.shape[-1]
+        dt = torch.promote_types(s8.dtype, fc1.weight.dtype)
+        w1, w2, w3, wf = (m.weight.to(dt) for m in (self.dsa_conv1, self.dsa_conv2, self.dsa_conv3, fc1))
+        b1, b2, b3, bf = (m.bias.to(dt) for m in (self.dsa_conv1, self.dsa_conv2, self.dsa_conv3, fc1))
+        wq = w3[:, :c] + torch.cat([w1, w1.new_zeros(c - w1.shape[0], c)])
+        w = (wf.view(wf.shape[0], -1, c) @ wq).reshape(wf.shape[0], -1).t().contiguous()
+        s = s8.to(dt).reshape(-1, s8.shape[-3] * s8.shape[-2], c)  # [S, P*P, C]
+        b_s = F.linear(s, w3[:, c:], b3) + torch.cat([b1.expand(*s.shape[:2], -1), F.linear(s, w2, b2)], dim=-1)
+        return w, F.linear(b_s.reshape(s.shape[0], -1), wf, bf)
+
+
+def dsa_fold(head: DSACascadeHead, support_8: torch.Tensor, dtype: torch.dtype) -> DSAFold:
+    """Every stage's fold of `head` for a support [P, P, C] (one row) or a
+    stacked cache's [N, P, P, C] (one a class), as the chain sees it in
+    pooled features of `dtype`. Made once per weights and cache; call it
+    under ``torch.inference_mode()``."""
+    parts = [head.fold_stage(support_8.to(dtype), k) for k in range(len(head.cfg.cascade_ious))]
+    return DSAFold(tuple(w for w, _ in parts), tuple(g for _, g in parts), support_8, dtype)
 
 
 # ------------------------------------------------------------------ sampling

@@ -29,7 +29,7 @@ from ..ops.adaptive_pool import adaptive_avg_pool2d
 from ..ops.cgm_cuda import cgm_correlate_fused
 from ..ops.correlation import cgm_correlate
 from .bifpn import BiFPN
-from .cascade_roi import DSACascadeHead, StageOutput
+from .cascade_roi import DSACascadeHead, DSAFold, StageOutput
 from .centernet_head import CenterNetHead
 from .dla import DLA
 from .fpn import FPN
@@ -225,6 +225,8 @@ class CenterNet2Detector(nn.Module):
         return self.head([pos_features[level] for level in self.levels])
 
     def roi_stage(self, features: Sequence[torch.Tensor], boxes: torch.Tensor,
-                  support_8: torch.Tensor, support_4: torch.Tensor, stage: int = 0) -> StageOutput:
-        """One cascade stage on the original (un-correlated) pyramid."""
-        return self.roi(features, boxes, support_8, support_4, stage)
+                  support_8: torch.Tensor, support_4: torch.Tensor, stage: int = 0,
+                  fold: Optional[DSAFold] = None) -> StageOutput:
+        """One cascade stage on the original (un-correlated) pyramid (`fold`
+        as ``DSACascadeHead.forward`` takes it)."""
+        return self.roi(features, boxes, support_8, support_4, stage, fold)

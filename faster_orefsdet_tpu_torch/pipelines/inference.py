@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..config import Config, InputConfig
-from ..models.cascade_roi import roi_inference
+from ..models.cascade_roi import DSAFold, dsa_fold, roi_inference
 from ..models.centernet import decode_proposals, stable_topk
 from ..models.detector import CenterNet2Detector, Kernels, support_kernels
 from ..ops import nms_cuda
@@ -83,14 +83,26 @@ def cache_kernels(model: CenterNet2Detector, cache: SupportCache) -> Dict[str, K
     return {level: support_kernels(getattr(cache, level)) for level in model.levels}
 
 
+def cache_fold(model: CenterNet2Detector, cache: SupportCache) -> DSAFold:
+    """The DSA head's fold of a cache (``models.cascade_roi.dsa_fold``) for
+    the pyramid's dtype (the compute dtype, or f32): one bias row a stage
+    for a single-class cache, one a class for a stacked one."""
+    return dsa_fold(model.roi, cache.rcnn_8, model.dtype or torch.float32)
+
+
 @torch.inference_mode()
 def query_path(model: CenterNet2Detector, cache: SupportCache, images: torch.Tensor,
                image_hw: torch.Tensor, kernels: Optional[Dict[str, Kernels]] = None,
-               taps: Optional[dict] = None) -> Detections:
+               taps: Optional[dict] = None, fold: Optional[DSAFold] = None) -> Detections:
     """images [B, 3, Hc, Wc] normalized, padded canvases; image_hw [B, 2] the
     true (h, w) before padding -> Detections [B, K, ...] in resized-image
     coordinates. `kernels`, when given, are ``cache_kernels(model, cache)``
-    computed once by the caller (the pinned path). `taps`, when given,
+    computed once by the caller (the pinned path); `fold` likewise
+    ``cache_fold(model, cache)``, else it is made here at each call.
+    The cascade runs the DSA head's fold (``DSACascadeHead.forward``): one
+    f32 GEMM a stage from the pooled rows to fc1's ReLU, the chain's linear
+    map reassociated; the chain itself runs only where a gradient is wanted,
+    never under this function's inference mode. `taps`, when given,
     receives the proposal stage's per-level heatmap logits ("heatmaps") and
     decoded proposals ("proposals"), as the demo's --debug draws them."""
     cfg = model.cfg
@@ -114,8 +126,9 @@ def query_path(model: CenterNet2Detector, cache: SupportCache, images: torch.Ten
     stage_outputs = []
     n_stages = len(cfg.roi.cascade_ious)
     with profiling.stage("roi_stage"):
+        fold = cache_fold(model, cache) if fold is None else fold
         for stage in range(n_stages):
-            out = model.roi_stage(feat_list, boxes, cache.rcnn_8, cache.rcnn_4, stage)
+            out = model.roi_stage(feat_list, boxes, cache.rcnn_8, cache.rcnn_4, stage, fold)
             stage_outputs.append(out)
             boxes = apply_deltas(out.deltas, boxes, cfg.roi.cascade_bbox_reg_weights[stage])
             if stage + 1 < n_stages:
@@ -135,7 +148,8 @@ def query_path_single(model: CenterNet2Detector, cache: SupportCache, image: tor
 
 @torch.inference_mode()
 def query_path_multiclass(model: CenterNet2Detector, mcache: SupportCache, images: torch.Tensor,
-                          image_hw: torch.Tensor, kernels: Optional[Dict[str, Kernels]] = None) -> Detections:
+                          image_hw: torch.Tensor, kernels: Optional[Dict[str, Kernels]] = None,
+                          fold: Optional[DSAFold] = None) -> Detections:
     """The multiclass query path over a stacked cache (``stack_support_caches``,
     N classes): the backbone once, then the CGM correlation of every class
     (one CGM launch a level, over the classes' stacked taps), and the head,
@@ -143,7 +157,9 @@ def query_path_multiclass(model: CenterNet2Detector, mcache: SupportCache, image
     classes at the end. images [B, 3, Hc, Wc], image_hw [B, 2] ->
     Detections [B, detections_per_image, ...] with class ids in 0..N-1.
     `kernels`, when given, are ``cache_kernels(model, mcache)`` computed once
-    by the caller (the pinned path).
+    by the caller (the pinned path); `fold` likewise ``cache_fold(model,
+    mcache)`` (one bias row a class, applied to the class's rows), else it
+    is made here at each call.
 
     The JAX package's multiclass semantics, where they differ from
     `query_path`: scores are the mean softmax (no mult_proposal_score);
@@ -166,13 +182,12 @@ def query_path_multiclass(model: CenterNet2Detector, mcache: SupportCache, image
             nms_budget=cfg.static.nms_budget_test,
         )
     feat_list = [feats[level].repeat(n_cls, 1, 1, 1) for level in ("p3", "p4", "p5")]
-    support_8 = mcache.rcnn_8.repeat_interleave(b, dim=0)
-    support_4 = mcache.rcnn_4.repeat_interleave(b, dim=0)
     boxes = proposals.boxes
     stage_outputs = []
     with profiling.stage("roi_stage"):
-        for stage in range(len(cfg.roi.cascade_ious)):
-            out = model.roi_stage(feat_list, boxes, support_8, support_4, stage)
+        fold = cache_fold(model, mcache) if fold is None else fold
+        for stage in range(len(cfg.roi.cascade_ious)):  # the classes' supports, one a class-major group of rows
+            out = model.roi_stage(feat_list, boxes, mcache.rcnn_8, mcache.rcnn_4, stage, fold)
             stage_outputs.append(out)
             boxes = apply_deltas(out.deltas, boxes, cfg.roi.cascade_bbox_reg_weights[stage])
     with profiling.stage("roi_inference"):
@@ -237,8 +252,9 @@ def _detector_query(cfg: Config, params: Optional[Mapping[str, torch.Tensor]], d
     detector of `cfg` on its card `dev`, the calibrated scales frozen and
     checked, and query(cache, images, image_hw, **kw) -> path(model, cache,
     images, image_hw, **kw) under ``static_act_scales``, refusing a cache on
-    another device. Given `cache` (the pinned builders), it is checked and
-    its CGM taps computed here, once: query(images, image_hw) reads both."""
+    another device. Given `cache` (the pinned builders), it is checked, and
+    its CGM taps and the DSA head's fold computed here, once:
+    query(images, image_hw) reads all three."""
     scales = _freeze_scales(cfg, act_scales)
     model = make_detector(cfg, params, device=device)
     dev = next(model.parameters()).device
@@ -251,7 +267,8 @@ def _detector_query(cfg: Config, params: Optional[Mapping[str, torch.Tensor]], d
         return dev, query
     with torch.inference_mode():
         kernels = cache_kernels(model, _check_cache(cache, dev))
-    return dev, functools.partial(query, cache, kernels=kernels)
+        fold = cache_fold(model, cache)
+    return dev, functools.partial(query, cache, kernels=kernels, fold=fold)
 
 
 def raw_frame_body(query: Callable[..., Detections], input_hw: Tuple[int, int], input_cfg: InputConfig,

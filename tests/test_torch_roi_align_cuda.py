@@ -186,7 +186,10 @@ def test_cuda_channels_fill_16_byte_vectors(monkeypatch, dtype, channels, fits):
 def test_cascade_head_routes_by_what_the_features_need(monkeypatch):
     """The head pools through the dense, differentiable composition when its
     features require grad (training) and through the gather otherwise; on
-    the CPU both give the same outputs bit for bit."""
+    the CPU both give the same rows, so the same head route gives the same
+    outputs bit for bit. The head's own route (``DSACascadeHead.forward``)
+    is the chain where a gradient is wanted, its fold otherwise, equal to
+    the chain within f32's reassociation (``test_torch_dsa_fold.py``)."""
     torch.manual_seed(0)
     cfg = ROIConfig()
     head = DSACascadeHead(cfg, channels=16)
@@ -199,14 +202,18 @@ def test_cascade_head_routes_by_what_the_features_need(monkeypatch):
     monkeypatch.setattr(roi_align_cuda, "roi_align_plain", lambda *a: calls.append("dense") or dense(*a))
 
     with torch.no_grad():
-        served = head(feats, boxes, s8, s4, 0)
+        served = head(feats, boxes, s8, s4, 0)  # the gather, the fold
     grad_feats = [f.clone().requires_grad_() for f in feats]
-    trained = head(grad_feats, boxes, s8, s4, 0)
-    detached = head(feats, boxes, s8, s4, 0)  # grad mode on, nothing to differentiate on the pooler's inputs
+    trained = head(grad_feats, boxes, s8, s4, 0)  # the dense composition, the chain
+    detached = head(feats, boxes, s8, s4, 0)  # grad mode on, nothing to differentiate on the pooler's inputs: the chain
+    head.requires_grad_(False)
+    frozen = head(feats, boxes, s8, s4, 0)  # grad mode on, nothing to differentiate at all: the fold
     # the gather's CPU route is the dense composition too; training skips the gather
-    assert calls == ["gather", "dense", "dense", "gather", "dense"]
-    for out in (trained, detached):
-        assert torch.equal(served.scores, out.scores) and torch.equal(served.deltas, out.deltas)
+    assert calls == ["gather", "dense", "dense", "gather", "dense", "gather", "dense"]
+    assert torch.equal(trained.scores, detached.scores) and torch.equal(trained.deltas, detached.deltas)
+    assert torch.equal(served.scores, frozen.scores) and torch.equal(served.deltas, frozen.deltas)
+    for a, b in zip(served, trained):
+        assert (a - b.detach()).abs().max() <= 1e-5 * (b.max() - b.min()).detach()
     trained.scores.sum().backward()
     assert all(f.grad is not None and torch.isfinite(f.grad).all() for f in grad_feats)
 

@@ -84,7 +84,7 @@ class StubModel:
     def proposal_head(self, pos):
         return [pos["p3"]], [pos["p3"]]
 
-    def roi_stage(self, feats, boxes, support_8, support_4, stage):
+    def roi_stage(self, feats, boxes, support_8, support_4, stage, fold=None):
         return SimpleNamespace(deltas=torch.zeros_like(boxes), scores=torch.zeros(*boxes.shape[:2], 2))
 
 
@@ -103,6 +103,7 @@ def _detections(stage_outputs, boxes, valid, image_hw, cfg, proposal_scores=None
 def stubbed(monkeypatch):
     monkeypatch.setattr(tinf, "make_detector", lambda cfg, params, device: StubModel(cfg))
     monkeypatch.setattr(tinf, "cache_kernels", lambda model, cache: {})
+    monkeypatch.setattr(tinf, "cache_fold", lambda model, cache: None)
     monkeypatch.setattr(tinf, "decode_proposals", _proposals)
     monkeypatch.setattr(tinf, "roi_inference", _detections)
     cfg = get_config("finetune_vovnet")
