@@ -392,6 +392,17 @@ TRAIN_STAGES = ("features", "refine_support", "correlate", "proposal_head", "tar
 ONESTAGE_CONFIG, ONESTAGE_FRAMES, ONESTAGE_CLASSES = "finetune_vovnet", 6, (1, 9)
 ONESTAGE_LEVELS, ONESTAGE_STRIDES = ("p3", "p4", "p5", "p6", "p7"), (8, 16, 32, 64, 128)
 PINNED_ONESTAGE_FRAMES = 2  # phase 21: pinned against eager on two of phase 20's frames a configuration
+# phase 20, CenterNet-S4 over DLA-34-DCN as the benchmark's one-stage cell serves it: finetune_dla with these
+# overrides, eight VGA frames a request on the 608x832 canvas (the stride-4 map 152x208)
+ONESTAGE_DLA_OVERRIDES = (
+    "backbone_name=dla_seg", "centernet.num_classes=80", "centernet.in_features=('dla2',)",
+    "centernet.fpn_strides=(4,)", "centernet.sizes_of_interest=((0, 1000000),)", "centernet.only_proposal=False",
+    "centernet.with_agn_hm=False", "centernet.more_pos=True", "centernet.nms_thresh_test=0.6",
+    "centernet.post_nms_topk_test=100", "input.min_size_test=608", "input.max_size_test=900",
+    "input.pixel_mean=(123.675, 116.28, 103.53)", "input.pixel_std=(58.395, 57.12, 57.375)", "input.format=RGB")
+ONESTAGE_DLA_BATCH, ONESTAGE_DLA_CANVAS = 8, (608, 832)
+# a body's deformable convs and their samples, B * Ho * Wo * 9 summed: 5 blocks on the 152x208 map, the rest coarser
+ONESTAGE_DLA_DEFORM = (16, 15_400_944)
 ZOO_INPUT_HW, DLASEG_INPUT_HW, ZOO_ATTENTION_CHANNELS = (384, 512), (512, 512), 128
 ZOO_TOL = 1e-4  # card vs CPU in f32, of each output's largest |value| (or DLA_F32_FACTOR x the witness)
 REGNET_Y_400MF = dict(w_a=27.89, w_0=48, w_m=2.09, depth=16, group_width=8, se_ratio=0.25)
@@ -3481,12 +3492,81 @@ def zoo_card_vs_cpu(torch, make, x, what) -> dict:
     return res
 
 
+def onestage_dla_request(torch, np, smi) -> dict:
+    """CenterNet-S4 over DLA-34-DCN (``backbone_name="dla_seg"``) as the
+    benchmark's one-stage cell serves it: eight VGA frames a request through
+    ``build_pinned_onestage_serving_fn`` at the test size 608 (the 608x832
+    canvas), 80 classes, TF32 convs. The eager request (the same raw-frame
+    body, not captured) counted, its K2 inputs recorded and held bit for bit
+    against the plain twin on the card and on the CPU: the class-aware call
+    ([8, 1000] at IoU 0.6) and the launch on its class-offset boxes (up to
+    79 offsets of the largest coordinate + 1). The pinned request equal to
+    the eager one bit for bit, at its capture and at a replay, its graph's
+    captured launches equal to the eager request's, and
+    ONESTAGE_DLA_DEFORM deformable convs and samples a body, eager and
+    captured."""
+    from faster_orefsdet_tpu_torch.config import apply_overrides, get_config
+    from faster_orefsdet_tpu_torch.ops import cgm_cuda, deform_conv, nms_cuda
+    from faster_orefsdet_tpu_torch.pipelines import onestage
+    from faster_orefsdet_tpu_torch.pipelines.graphs import CAPTURES, WARMUP_CALLS
+    from faster_orefsdet_tpu_torch.pipelines.inference import pack_detections, raw_frame_body
+    from faster_orefsdet_tpu_torch.utils.params import init_onestage_params
+
+    cfg = apply_overrides(get_config("finetune_dla"), list(ONESTAGE_DLA_OVERRIDES))
+    params = init_onestage_params(cfg, seed=23)
+    frames, _ = synthetic_frames(np, ONESTAGE_DLA_BATCH, seed=23)
+    u8 = torch.from_numpy(np.stack(frames)).permute(0, 3, 1, 2).contiguous().cuda()
+    torch.backends.cudnn.allow_tf32 = True
+    dev, run = onestage._onestage_body(cfg, params, "cuda")
+    eager, canvas = raw_frame_body(run, FRAME_HW, cfg.input, dev)
+    pinned, pinned_canvas = onestage.build_pinned_onestage_serving_fn(cfg, params, FRAME_HW)
+    counter = deform_conv.counter
+
+    def deform(before, bodies):
+        return [(counter.calls - before[0]) / bodies, (counter.samples - before[1]) / bodies]
+
+    seen, ref = {}, []
+    before = (counter.calls, counter.samples)
+    launches = count_launches(cgm_cuda, nms_cuda, lambda: seen.update(record_nms_calls(
+        torch, lambda: ref.append(pack_detections(eager(u8))))))
+    deform_eager = deform(before, 1)
+    before = (counter.calls, counter.samples)
+    got = [pack_detections(pinned(u8)) for _ in range(2)]  # the capture's call, then a replay
+    torch.cuda.synchronize()
+    deform_pinned = deform(before, len(pinned.graphs) * (WARMUP_CALLS + CAPTURES))
+    checks, worst = check_nms_calls(torch, seen)
+    shifted = seen["kernel"][0][0]
+    row = {"canvas": list(canvas), "launches": launches,
+           "graphs_captured_launches": [g.launches for g in pinned.graphs.values()],
+           "nms_checks": [[c["site"], c["shape"], c["thr"], c["kept"], c["mismatches"]] for c in checks],
+           "nms_max_abs_err": worst, "largest_shifted_coordinate": float(shifted.max()),
+           "bit_identical": [bool(torch.equal(g, ref[0])) for g in got],
+           "all_finite": bool(torch.isfinite(ref[0]).all()),
+           "valid_per_frame": [int(v) for v in ref[0][:, :, 6].sum(1)],
+           "deform_per_body": {"eager": deform_eager, "captured": deform_pinned}}
+    med, lo, hi = request_times(torch, lambda: pinned(u8), 5)
+    row.update(pinned_ms_median=med, pinned_ms_min=lo, pinned_ms_max=hi, card=smi)
+    emit(onestage_dla=row)
+    expect_deform = [float(n) for n in ONESTAGE_DLA_DEFORM]
+    if (tuple(canvas) != ONESTAGE_DLA_CANVAS or pinned_canvas != canvas or launches != kernels(0, 1)
+            or row["graphs_captured_launches"] != [launches]
+            or [c["shape"] for c in checks] != [[ONESTAGE_DLA_BATCH, 1000]] * 2):
+        raise AssertionError(f"one-stage DLA: canvas, launches or K2 sites: {row}")
+    if any(c["mismatches"] for c in checks) or not all(row["bit_identical"]) or not row["all_finite"]:
+        raise AssertionError(f"one-stage DLA: K2 against its twin or pinned against eager: {row}")
+    if deform_eager != expect_deform or deform_pinned != expect_deform:
+        raise AssertionError(f"one-stage DLA: deformable convs a body {row['deform_per_body']}, "
+                             f"expected {expect_deform}")
+    return row
+
+
 def phase_onestage(torch, np, smi):
     """The one-stage CenterNet over P3-P7 at full width on six VGA frames
     (1 and 9 classes: K2 at its register and wide sweep), the P7 canvas
-    refusal, the rest of the backbone zoo and the attention zoo at the
-    published widths, the federated loss, the profiling utilities and the
-    native COCO matcher, each card vs CPU."""
+    refusal, CenterNet-S4 over DLA-34-DCN at batch 8 pinned against eager
+    (``onestage_dla_request``), the rest of the backbone zoo and the
+    attention zoo at the published widths, the federated loss, the profiling
+    utilities and the native COCO matcher, each card vs CPU."""
     import tempfile
 
     from faster_orefsdet_tpu_torch.config import get_config, serving_vovnet
@@ -3562,6 +3642,9 @@ def phase_onestage(torch, np, smi):
         if "size_divisibility" not in str(e):
             raise
         emit(onestage_refusal={"canvas": list(CANVAS_HW), "error": str(e)})
+
+    # ---- CenterNet-S4 over DLA-34-DCN, the benchmark's one-stage cell's path (TF32 convs)
+    out["dla"] = onestage_dla_request(torch, np, smi)
 
     # request times, library defaults (TF32 convs), bf16 and f32, batch 1
     torch.backends.cudnn.allow_tf32 = True

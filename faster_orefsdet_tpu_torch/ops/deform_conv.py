@@ -8,6 +8,11 @@ zero; each of its four corners counts only when it lies in the image), then
 scaled by the v2 modulation mask, and the sampled [B, Ho, Wo, K, Cin]
 tensor is contracted with the weights. ``F.grid_sample`` is not used: its
 coordinate normalization and border rules differ.
+
+The sample coordinates are computed in f32 (f64 for f64 offsets) whatever
+the dtype of the offsets: in bf16 a coordinate above 128 has a resolution
+of a pixel or more. The sampled values and the contraction keep the map's
+dtype.
 """
 
 from __future__ import annotations
@@ -15,6 +20,19 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+
+class _Counter:
+    """``deform_conv2d`` calls on CUDA tensors (`calls`) and the positions
+    they sampled, B * Ho * Wo * K summed over them (`samples`). Counted at the
+    call, so a CUDA-graph replay adds nothing: a pinned function counts its
+    warm-ups and captures."""
+
+    calls = 0
+    samples = 0
+
+
+counter = _Counter()
 
 
 def _bilinear_gather(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
@@ -36,7 +54,7 @@ def _bilinear_gather(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> tor
     def corner(yi, xi, valid, wgt):
         idx = (yi * w + xi).reshape(b, -1, 1).expand(-1, -1, c)
         v = torch.gather(flat, 1, idx).reshape(*ys.shape, c)
-        return v * ((valid & inrange).to(x.dtype) * wgt)[..., None]
+        return v * ((valid & inrange).to(x.dtype) * wgt.to(x.dtype))[..., None]
 
     return (corner(y0c, x0c, vy0 & vx0, (1 - ly) * (1 - lx)) + corner(y0c, x1c, vy0 & vx1, (1 - ly) * lx)
             + corner(y1c, x0c, vy1 & vx0, ly * (1 - lx)) + corner(y1c, x1c, vy1 & vx1, ly * lx))
@@ -55,13 +73,16 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
     k = kh * kw
     b, _, ho, wo = offsets.shape
     pad = dilation * (kh - 1) // 2
-    dev, dt = x.device, offsets.dtype
+    dev, dt = x.device, torch.promote_types(offsets.dtype, torch.float32)
+    if x.is_cuda:
+        counter.calls += 1
+        counter.samples += b * ho * wo * k
     base_y = (torch.arange(ho, device=dev, dtype=dt) * stride - pad)[:, None, None]
     base_x = (torch.arange(wo, device=dev, dtype=dt) * stride - pad)[None, :, None]
     taps = torch.arange(kh, device=dev, dtype=dt) * dilation
     tap_dy = taps.repeat_interleave(kw)[None, None, :]
     tap_dx = taps.repeat(kh)[None, None, :]
-    off = offsets.reshape(b, k, 2, ho, wo).permute(0, 3, 4, 1, 2)  # [B, Ho, Wo, K, 2]
+    off = offsets.to(dt).reshape(b, k, 2, ho, wo).permute(0, 3, 4, 1, 2)  # [B, Ho, Wo, K, 2]
     ys = base_y + tap_dy + off[..., 0]
     xs = base_x + tap_dx + off[..., 1]
     sampled = _bilinear_gather(x, ys, xs)  # [B, Ho, Wo, K, Cin]

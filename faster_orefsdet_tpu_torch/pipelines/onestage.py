@@ -2,6 +2,16 @@
 ``faster_orefsdet_tpu/pipelines/onestage.py``): VoVNet + FPN + the
 class-aware CenterNet head, with no support matching and no ROI stage.
 
+``backbone_name="dla_seg"`` builds CenterNet's DLA-34-DCN instead, as
+CenterNet2's ``CenterNet-S4_DLA_8x`` does: ``models/dlaup.DLASeg`` (DLA-34,
+the DLA-Up decoder of modulated deformable convs and the final IDA-Up,
+norms by ``dla.norm``) and no FPN, the head over its one 64-channel map
+``dla2`` at stride 4 (``centernet.in_features=("dla2",)``,
+``fpn_strides=(4,)``). Its forward is the stages ``backbone`` (DLA-34) and
+``decoder`` (every deformable block), VoVNet's the stage ``features``; the
+head and the decode are the stages ``head`` and ``decode``
+(``utils.profiling.stage``).
+
 Its decode is class-aware: per level the heatmap is sigmoid(class logits)
 times sigmoid(agnostic heatmap), the top-k runs over (location, class)
 pairs, then the class-aware NMS (the NMS kernel on the card, over the class
@@ -27,6 +37,8 @@ from ..config import Config
 from ..models.centernet import _gather_rows, _level_valid_mask, stable_topk
 from ..models.centernet_head import CenterNetHead
 from ..models.detector import compute_dtype
+from ..models.dla import DLA
+from ..models.dlaup import DLASeg
 from ..models.fpn import FPN
 from ..models.vovnet import VoVNet
 from ..ops import nms_cuda
@@ -34,24 +46,43 @@ from ..ops.heatmap import compute_grids, level_grid_shapes
 from ..ops.nms import keep_top_scores
 from ..structures.boxes import ltrb_to_xyxy
 from ..structures.instances import Detections
+from ..utils import profiling
 from ..utils.device import resolve_device
-from .inference import PinnedImagesFn, on_images
+from .graphs import PinnedFn
+from .inference import PinnedImagesFn, on_images, raw_frame_body
+
+BACKBONES = ("vovnet_fpn", "dla_seg")
 
 
 class OneStageCenterNet(nn.Module):
-    """Backbone + FPN + class-aware CenterNet head (at least one class conv)."""
+    """Backbone (+ FPN) + class-aware CenterNet head (at least one class conv)."""
 
     def __init__(self, cfg: Config):
         super().__init__()
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
         cn = cfg.centernet
-        self.backbone = VoVNet(cfg.vovnet.conv_body, cfg.vovnet.out_features, dtype=self.dtype)
-        chans = VoVNet.out_channels(cfg.vovnet.conv_body)
-        self.fpn = FPN([chans[f] for f in cfg.fpn.in_features], cfg.fpn.in_features, cfg.fpn.out_channels,
-                       top_levels=cfg.fpn.top_levels, dtype=self.dtype)
+        if cfg.backbone_name == "dla_seg":
+            if self.dtype is not None:
+                raise ValueError(f"backbone_name 'dla_seg' serves in float32 (DLASeg has no compute-dtype path); "
+                                 f"got compute_dtype={cfg.compute_dtype!r}")
+            if tuple(cn.in_features) != ("dla2",) or tuple(cn.fpn_strides) != (4,):
+                raise ValueError("backbone_name 'dla_seg' has the one level 'dla2' at stride 4: set "
+                                 "centernet.in_features=('dla2',) and centernet.fpn_strides=(4,), got "
+                                 f"{tuple(cn.in_features)} and {tuple(cn.fpn_strides)}")
+            self.backbone = DLASeg(cfg.dla.num_layers, norm=cfg.dla.norm)
+            self.fpn = None
+            in_channels = DLA.out_channels(cfg.dla.num_layers)["dla2"]
+        elif cfg.backbone_name == "vovnet_fpn":
+            self.backbone = VoVNet(cfg.vovnet.conv_body, cfg.vovnet.out_features, dtype=self.dtype)
+            chans = VoVNet.out_channels(cfg.vovnet.conv_body)
+            self.fpn = FPN([chans[f] for f in cfg.fpn.in_features], cfg.fpn.in_features, cfg.fpn.out_channels,
+                           top_levels=cfg.fpn.top_levels, dtype=self.dtype)
+            in_channels = cfg.fpn.out_channels
+        else:
+            raise ValueError(f"backbone_name {cfg.backbone_name!r}: the one-stage detector has {BACKBONES}")
         self.head = CenterNetHead(
-            in_channels=cfg.fpn.out_channels, num_levels=len(cn.in_features),
+            in_channels=in_channels, num_levels=len(cn.in_features),
             num_cls_convs=max(cn.num_cls_convs, 1), num_classes=cn.num_classes,
             num_box_convs=cn.num_box_convs, with_agn_hm=cn.with_agn_hm, only_proposal=False,
             prior_prob=cn.prior_prob, dtype=self.dtype,
@@ -69,8 +100,17 @@ class OneStageCenterNet(nn.Module):
     def forward(self, images: torch.Tensor):
         """images [B, 3, H, W] normalized -> (clss, agn_hms, bbox_regs), per
         level of cfg.centernet.in_features."""
-        feats = self.fpn(self.backbone(images.contiguous(memory_format=torch.channels_last)))
-        return self.head([feats[level] for level in self.cfg.centernet.in_features])
+        images = images.contiguous(memory_format=torch.channels_last)
+        if self.fpn is None:
+            with profiling.stage("backbone"):
+                base = self.backbone.base(images)
+            with profiling.stage("decoder"):
+                feats = self.backbone.decoder(base)
+        else:
+            with profiling.stage("features"):
+                feats = self.fpn(self.backbone(images))
+        with profiling.stage("head"):
+            return self.head([feats[level] for level in self.cfg.centernet.in_features])
 
 
 def check_canvas(canvas_hw: Tuple[int, int], strides: Sequence[int]) -> None:
@@ -160,7 +200,8 @@ def _onestage_body(cfg: Config, params: Optional[Mapping[str, torch.Tensor]], de
         canvas_hw = (images.shape[-2], images.shape[-1])
         check_canvas(canvas_hw, cfg.centernet.fpn_strides)
         clss, agn_hms, regs = model(images)
-        return decode_multiclass(clss, agn_hms, regs, cfg, canvas_hw, image_hw)
+        with profiling.stage("decode"):
+            return decode_multiclass(clss, agn_hms, regs, cfg, canvas_hw, image_hw)
 
     return next(model.parameters()).device, run
 
@@ -189,3 +230,18 @@ def build_pinned_onestage_inference_fn(cfg: Config, params: Optional[Mapping[str
     eager path."""
     dev, run = _onestage_body(cfg, params, device)
     return PinnedImagesFn(run, dev)
+
+
+def build_pinned_onestage_serving_fn(cfg: Config, params: Optional[Mapping[str, torch.Tensor]],
+                                     input_hw: Tuple[int, int], *, device="cuda") -> Tuple[PinnedFn, Tuple[int, int]]:
+    """Raw frames [B, 3, H0, W0] (uint8 or float) of a camera of fixed size
+    input_hw -> Detections [B, post_nms_topk_test, ...] in frame
+    coordinates, with the weights fixed at build time: the frames resized to
+    `cfg.input`'s test size, normalized and padded on the device, the
+    forward and the class-aware decode, then the boxes scaled back to the
+    frame (``inference.raw_frame_body``), in one CUDA graph per (batch,
+    dtype) on the card (``PinnedFn``). Returns (fn, canvas_hw). Rebuild the
+    function after changing the weights. On the CPU it runs the eager path."""
+    dev, run = _onestage_body(cfg, params, device)
+    body, canvas_hw = raw_frame_body(run, input_hw, cfg.input, dev)
+    return PinnedFn(body, dev), canvas_hw
